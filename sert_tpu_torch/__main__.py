@@ -1,0 +1,4 @@
+from sert_tpu_torch.cli import console_main
+
+if __name__ == "__main__":
+    raise SystemExit(console_main())

@@ -1,0 +1,139 @@
+"""K3: fused scoring + bin-max sweep (``csrc/score_binmax.cu``).
+
+``out[q, b] = max_{l < bw} S[q, b*bw + l]`` with
+``S = R @ M^T (+ alpha_q * bias_e)``, bf16 inputs and fp32 accumulation;
+the [Q, E] score matrix never reaches device memory. Port of
+``sert_tpu/ops/score_binmax.py``; the kernel's source note says what it
+replaces and what bounds it on the H100.
+
+A CUDA tensor goes to the kernel, a CPU tensor to :func:`score_binmax_plain`
+(the same arithmetic in plain PyTorch, and the kernel's oracle on the card).
+Entities past ``num_entities`` are -inf in both, so a partial tail bin holds
+the max over its valid entities only.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from sert_tpu_torch.ops import _build
+
+LANES = 128          # default bin width; the kernel's entity tile is 128
+DIM_MULTIPLE = 16    # the bf16 tensor-core fragment depth
+MAX_DIM = 512        # widest d whose staged tiles fit 227 KB of shared memory
+
+# Kernel launches since the last reset (chip_smoke.py shows the serving path
+# went through the kernel with it).
+launches = 0
+
+
+def pad_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
+    """Zero-pad the trailing (feature) axis to ``dp`` columns; zero columns
+    leave every dot product unchanged."""
+    pad = dp - x.shape[-1]
+    return F.pad(x, (0, pad)) if pad > 0 else x
+
+
+def prepare_binmax_matrix(M: torch.Tensor,
+                          dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """One-time cast + feature pad of the entity matrix for the sweep: [E, dp]
+    contiguous with dp a multiple of 16. Keep it resident across calls."""
+    dp = -(-M.shape[1] // DIM_MULTIPLE) * DIM_MULTIPLE
+    return pad_dim(M.to(dtype), dp).contiguous()
+
+
+def score_binmax_plain(R: torch.Tensor, Mp: torch.Tensor, num_entities: int,
+                       bias: Optional[torch.Tensor] = None,
+                       alpha: Optional[torch.Tensor] = None,
+                       bin_width: int = LANES) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: fp32 products of the
+    bf16-rounded inputs (TF32 must be off on the card), then the masked
+    bin max. Materializes [Q, E]."""
+    E, bw = num_entities, bin_width
+    Q = R.shape[0]
+    n_bins = -(-E // bw)
+    R = pad_dim(R, Mp.shape[1]).to(Mp.dtype).float()
+    s = R @ Mp[:E].float().T                                    # [Q, E]
+    if bias is not None:
+        a = (alpha.float() if alpha is not None
+             else torch.ones(Q, device=R.device))
+        s = s + a[:, None] * bias[:E].float()[None, :]
+    s = F.pad(s, (0, n_bins * bw - E), value=float("-inf"))
+    return s.view(Q, n_bins, bw).amax(dim=-1)
+
+
+def _launch(R: torch.Tensor, Mp: torch.Tensor, E: int,
+            bias: Optional[torch.Tensor], alpha: Optional[torch.Tensor],
+            bw: int) -> torch.Tensor:
+    global launches
+    dev = R.device
+    Q, d = R.shape
+    if Mp.dtype != torch.bfloat16 or not Mp.is_contiguous():
+        raise ValueError("the K3 kernel takes a contiguous bf16 Mp "
+                         "(prepare_binmax_matrix)")
+    if Mp.device != dev or Mp.shape[0] < E:
+        raise ValueError(f"Mp must be on {dev} with >= {E} rows")
+    if d % DIM_MULTIPLE or d > MAX_DIM:
+        raise ValueError(f"K3 needs d % {DIM_MULTIPLE} == 0 and d <= "
+                         f"{MAX_DIM}, got d={d}")
+    if LANES % bw:
+        raise ValueError(f"bin_width {bw} must divide {LANES}")
+    Rb = R.to(torch.bfloat16).contiguous()
+    if bias is not None:
+        if bias.device != dev or bias.shape[0] < E:
+            raise ValueError(f"bias must be on {dev} with >= {E} entries")
+        bias = bias.float().contiguous()
+        if alpha is not None:
+            if alpha.device != dev or alpha.shape != (Q,):
+                raise ValueError(f"alpha must be [{Q}] on {dev}")
+            alpha = alpha.float().contiguous()
+    else:
+        alpha = None            # alpha only scales the bias
+    n_bins = -(-E // bw)
+    out = torch.empty((Q, n_bins), dtype=torch.float32, device=dev)
+    if Q == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = _build.kernel("sert_score_binmax")(
+            Rb.data_ptr(), Mp.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            alpha.data_ptr() if alpha is not None else None,
+            out.data_ptr(), Q, E, d, bw, n_bins,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "score_binmax")
+    launches += 1
+    return out
+
+
+def score_binmax_prepared(R: torch.Tensor, Mp: torch.Tensor,
+                          num_entities: int,
+                          bias: Optional[torch.Tensor] = None,
+                          alpha: Optional[torch.Tensor] = None,
+                          bin_width: int = LANES) -> torch.Tensor:
+    """[Q, ceil(E / bin_width)] bin maxima of R @ M^T (+ alpha * bias).
+
+    ``Mp`` comes from :func:`prepare_binmax_matrix`; R [Q, d] is padded to
+    its width and rounded to its dtype. bias [E] and alpha [Q] are
+    optional (alpha defaults to ones when a bias is given)."""
+    if num_entities < 1:
+        raise ValueError("score_binmax needs at least one entity")
+    if R.device.type == "cpu":
+        return score_binmax_plain(R, Mp, num_entities, bias, alpha,
+                                  bin_width)
+    if R.device.type != "cuda":
+        raise ValueError(f"score_binmax runs on cpu or cuda, not {R.device}")
+    R = pad_dim(R, Mp.shape[1])
+    return _launch(R, Mp, num_entities, bias, alpha, bin_width)
+
+
+def score_binmax(R: torch.Tensor, M: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None,
+                 alpha: Optional[torch.Tensor] = None,
+                 bin_width: int = LANES) -> torch.Tensor:
+    """One-shot: prepare M and sweep (tests); hot paths prepare once."""
+    return score_binmax_prepared(R, prepare_binmax_matrix(M), M.shape[0],
+                                 bias, alpha, bin_width)
