@@ -2,21 +2,38 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints one line or more; any failure exits non-zero):
   1. device: the card, its power limit; TF32 off for the fp32 references;
   2. build: nvcc compiles sert_tpu_torch/csrc into build/;
   3. kernels: K3 (score + bin-max, with and without bias) and K4
      (gather-rescore, fp32 and bf16 rows) against their plain PyTorch
      versions at the serving shapes (Q=64, E=1M, d=128, bw=128, NB=1012),
      with CUDA-event times for both;
-  4. serve: a random-weight synthetic_1m_retrieval checkpoint at full width
+  4. train_kernels: K1 (the masked-LSE forward) and K2 (its backward)
+     against sampled_lse_plain + autograd on the same inputs, at the
+     flagship's B=4096, k=32768, d=128 in bf16 and fp32, at a ragged
+     k=32767 and a small k=1024, with accidental hits, and a case with an
+     all-masked row; errors of lse, dreps, dC and dcorr with their
+     tolerances, CUDA-event times of kernel and plain;
+  5. serve: a random-weight synthetic_1m_retrieval checkpoint at full width
      (V=250k, E=1M) behind the port's EntitySearcher: one search, then
      200 queries; recall against an fp32 dense oracle and score agreement.
      The oracle builds the query reps and the normalized entity matrix with
      the same port functions the searcher uses, so it checks the K3 + K4
      engine and the top-k, not the query encoding (the CPU tests hold that
      against the JAX reference);
-  5. cli: `python -m sert_tpu_torch query` and `evaluate` on the same data.
+  6. cli: `python -m sert_tpu_torch query` and `evaluate` on the same data;
+  7. train: synthetic_1m_retrieval at full width (V=250k, E=1M, d=128,
+     B=4096, k=32768, bf16, adam + cosine, steps_per_call=4, bf16
+     params-only epoch snapshots, a full final one) for 2 epochs of a
+     262,144-window training fixture, through the function the `train`
+     command runs (pipeline.train_from_dir, in this process so that the
+     launch counts and the state can be read) on a recipe JSON loaded as
+     the command loads it; the loss must be finite and fall, K1/K2 must
+     carry every step, and the final full checkpoint must load back equal
+     to the state in memory. Then `python -m sert_tpu_torch train` on the
+     finished run resumes from that checkpoint and writes nothing;
+  8. serve_trained: the serve checks again, on the run phase 7 wrote.
 Then one JSON line of kernel records, and the device record as the last line.
 
 Imports nothing of JAX and nothing of the JAX package by name; only
@@ -26,6 +43,7 @@ Imports nothing of JAX and nothing of the JAX package by name; only
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,6 +59,15 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 RECALL_MIN = 0.99
 SCORE_TOL = 1e-5
 N_QUERIES = 200        # SYNTH_1M.num_topics
+B_TRAIN, K_NEG = 4096, 32768           # the flagship's batch and negatives
+# K1/K2 against their plain version: max |kernel - plain| <= tol * max
+# |plain| per output. Both round the same operands; fp32 sums differ in
+# order only, while in bf16 p is rounded after fp32 sums that differ in
+# order, so an element can land one bf16 step (2^-8) apart.
+SLSE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_INSTANCES = 1 << 18              # 64 steps an epoch at B=4096
+TRAIN_EPOCHS = 2
+TRAIN_LOG_EVERY = 16
 
 
 def say(phase: str, **kw) -> None:
@@ -147,6 +174,111 @@ def phase_kernels() -> dict:
     return records
 
 
+def _slse_case(B, k, dtype, seed, all_masked=False):
+    """Seeded inputs on the card: tanh reps, N(0, 1/d) candidates scaled
+    up, -log(k q) corrections, and ids with accidental hits (or, with
+    ``all_masked``, every candidate id equal to row 0's positive)."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    reps = torch.tanh(torch.randn(B, D, generator=g, device=dev))
+    cand = torch.randn(k, D, generator=g, device=dev) * (2.0 / D ** 0.5)
+    corr = (torch.log(torch.tensor(float(k), device=dev))
+            + 0.5 * torch.randn(k, generator=g, device=dev))
+    pos = torch.randint(0, E, (B,), generator=g, device=dev)
+    ids = torch.randint(0, E, (k,), generator=g, device=dev)
+    if all_masked:
+        ids[:] = 7
+        pos[pos == 7] = 8
+        pos[0] = 7
+    else:
+        n = min(B, k) // 2
+        ids[:n] = pos[:n]                # forced accidental hits
+    s_pos = torch.randn(B, generator=g, device=dev)
+    return reps, cand, corr, ids, pos, s_pos
+
+
+def phase_train_kernels() -> dict:
+    """K1 and K2 against sampled_lse_plain + autograd on the same inputs.
+    Returns the kernel records of the flagship bf16 case (the training
+    path's variant), with errors maxed over every case."""
+    import torch
+    import torch.nn.functional as F
+    from sert_tpu_torch.ops import sampled_lse as slse
+    cases = [("flagship", B_TRAIN, K_NEG, "bfloat16", False),
+             ("flagship", B_TRAIN, K_NEG, "float32", False),
+             ("ragged", B_TRAIN, K_NEG - 1, "bfloat16", False),
+             ("small_k", B_TRAIN, 1024, "bfloat16", False),
+             ("small_k", B_TRAIN, 1024, "float32", False),
+             ("all_masked", 256, 1024, "bfloat16", True)]
+    src = "sert_tpu_torch/csrc/sampled_lse.cu"
+    records = {
+        "sampled_lse_fwd": dict(name="sampled_lse_fwd", route="cuda",
+                                source=src,
+                                replaces="sert_tpu/ops/sampled_lse.py:78",
+                                launches=0, max_abs_err=0.0),
+        "sampled_lse_bwd": dict(name="sampled_lse_bwd", route="cuda",
+                                source=src,
+                                replaces="sert_tpu/ops/sampled_lse.py:89",
+                                launches=0, max_abs_err=0.0)}
+    for i, (label, B, k, dtype, masked) in enumerate(cases):
+        reps, cand, corr, ids, pos, s_pos = _slse_case(B, k, dtype, i,
+                                                       masked)
+        tol = SLSE_TOL[dtype]
+        out = {}
+        for name, fn in (("kernel", slse.sampled_lse),
+                         ("plain", slse.sampled_lse_plain)):
+            r, c, co = (t.clone().requires_grad_(True)
+                        for t in (reps, cand, corr))
+            lse = fn(r, c, co, ids, pos, dtype)
+            loss = F.softplus(lse - s_pos).sum()
+            grads = torch.autograd.grad(loss, [r, c, co], retain_graph=True)
+            out[name] = dict(lse=lse.detach(), dreps=grads[0],
+                             dC=grads[1], dcorr=grads[2])
+            with torch.no_grad():
+                fwd_ms = cuda_ms(lambda: fn(reps, cand, corr, ids, pos,
+                                            dtype), iters=5, warmup=1)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                loss, [r, c, co], retain_graph=True), iters=5, warmup=1)
+            out[name].update(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+            del lse, loss, grads
+        errs = {}
+        for key in ("lse", "dreps", "dC", "dcorr"):
+            a, b = out["kernel"][key].float(), out["plain"][key].float()
+            if masked and key == "lse":      # both ~-1e30 on the masked row
+                a, b = a[1:], b[1:]
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{label} {dtype}: {key} not finite")
+            err = (a - b).abs().max().item()
+            bound = tol * b.abs().max().item()
+            errs[key] = err
+            say("train_kernels", case=label, B=B, k=k, dtype=dtype,
+                output=key, max_abs_err=err, tol=f"{tol}*max|plain|",
+                bound=bound)
+            if err > bound:
+                raise AssertionError(f"{label} {dtype}: {key} error {err} "
+                                     f"> {bound}")
+        if masked:
+            got = out["kernel"]
+            if got["lse"][0].item() > -1e29 or bool(got["dreps"][0].any()):
+                raise AssertionError("the all-masked row's lse is not "
+                                     "~-1e30 or its dreps is not exactly 0")
+        k_, p_ = out["kernel"], out["plain"]
+        say("train_kernels", case=label, B=B, k=k, dtype=dtype,
+            fwd_ms=k_["fwd_ms"], fwd_plain_ms=p_["fwd_ms"],
+            bwd_ms=k_["bwd_ms"], bwd_plain_ms=p_["bwd_ms"])
+        fwd, bwd = records["sampled_lse_fwd"], records["sampled_lse_bwd"]
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["lse"])
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["dreps"],
+                                 errs["dC"], errs["dcorr"])
+        if i == 0:
+            fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"])
+            bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"])
+        del out
+        torch.cuda.empty_cache()
+    return records
+
+
 def full_width_searcher(root: str):
     """Write a random-weight RECIPE serving fixture at full width under
     ``root`` and stage the port's EntitySearcher on it, with peak memory
@@ -175,18 +307,25 @@ def phase_serve(root: str):
     """The port's EntitySearcher on a full-width random-weight RECIPE
     checkpoint, checked against an fp32 dense oracle. Returns (data_dir,
     run_dir, topics, oracle top-10 ids, launches by kernel)."""
+    searcher, data_dir, run_dir, topics, fixture_s, load_s = (
+        full_width_searcher(root))
+    say("serve", fixture_s=fixture_s, load_stage_warmup_s=load_s,
+        entities=searcher.num_entities, vocab=len(searcher.vocab),
+        rescore_dtype=str(searcher.prep.M_binned.dtype))
+    oracle_top, launches, _ = check_searcher("serve", searcher, topics)
+    return data_dir, run_dir, topics, oracle_top, launches
+
+
+def check_searcher(phase: str, searcher, topics: dict):
+    """One search, then every topic through ``search_many``; recall and
+    score error against an fp32 dense oracle on the card. Returns (oracle
+    top-10 ids, launches by kernel, the results)."""
     import torch
     from sert_tpu_torch.ops import gather_rescore as k4
     from sert_tpu_torch.ops import score_binmax as k3
     from sert_tpu_torch.scoring.run import pad_queries
     from sert_tpu_torch.scoring.scorer import (_entity_matrix,
                                                _query_reps_and_terms)
-
-    searcher, data_dir, run_dir, topics, fixture_s, load_s = (
-        full_width_searcher(root))
-    say("serve", fixture_s=fixture_s, load_stage_warmup_s=load_s,
-        entities=searcher.num_entities, vocab=len(searcher.vocab),
-        rescore_dtype=str(searcher.prep.M_binned.dtype))
 
     texts = [topics[q] for q in sorted(topics)]
     k3.launches = k4.launches = 0
@@ -197,7 +336,7 @@ def phase_serve(root: str):
     t2 = time.perf_counter()
     launches = {"score_binmax": k3.launches, "gather_rescore": k4.launches}
     n_batches = -(-len(texts) // Q)
-    say("serve", search_ms=(t1 - t0) * 1e3,
+    say(phase, search_ms=(t1 - t0) * 1e3,
         search_many_s=t2 - t1, batches=n_batches,
         per_batch_ms=(t2 - t1) * 1e3 / n_batches,
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
@@ -234,14 +373,23 @@ def phase_serve(root: str):
                 oracle_top.append(top[i, :10].tolist())
             del S
     recall = sum(recalls) / len(recalls)
-    say("serve", mean_recall_vs_dense=recall, min_recall=min(recalls),
+    say(phase, mean_recall_vs_dense=recall, min_recall=min(recalls),
         max_score_err=worst)
     if recall < RECALL_MIN or worst > SCORE_TOL:
         raise AssertionError(f"recall {recall} < {RECALL_MIN} or score "
                              f"error {worst} > {SCORE_TOL}")
-    del searcher, params, M
-    torch.cuda.empty_cache()
-    return data_dir, run_dir, topics, oracle_top, launches
+    del params, M
+    return oracle_top, launches, many
+
+
+def sert_cli(*args) -> str:
+    """``python -m sert_tpu_torch ARGS`` in a subprocess; its stdout."""
+    proc = subprocess.run([sys.executable, "-m", "sert_tpu_torch", *args],
+                          capture_output=True, text=True, cwd=HERE)
+    if proc.returncode != 0:
+        raise RuntimeError(f"sert_tpu_torch {args[0]} failed:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout
 
 
 def phase_cli(root: str, data_dir: str, run_dir: str, topics: dict,
@@ -253,23 +401,15 @@ def phase_cli(root: str, data_dir: str, run_dir: str, topics: dict,
         root, topics, dict(zip(sorted(topics), oracle_top)))
     run_path = os.path.join(root, "run.trec")
 
-    def cli(*args):
-        proc = subprocess.run([sys.executable, "-m", "sert_tpu_torch", *args],
-                              capture_output=True, text=True, cwd=HERE)
-        if proc.returncode != 0:
-            raise RuntimeError(f"sert_tpu_torch {args[0]} failed:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        return proc.stdout
-
     t0 = time.perf_counter()
-    cli("query", "--recipe", RECIPE, "--data", data_dir,
+    sert_cli("query", "--recipe", RECIPE, "--data", data_dir,
         "--run-dir", run_dir, "--topics", topics_path, "--out", run_path)
     t1 = time.perf_counter()
     run = read_run(run_path)
     sizes = {len(v) for v in run.values()}
     if len(run) != len(topics) or sizes != {K}:
         raise AssertionError(f"run has {len(run)} topics, sizes {sizes}")
-    metrics = json.loads(cli("evaluate", "--run", run_path,
+    metrics = json.loads(sert_cli("evaluate", "--run", run_path,
                              "--qrels", qrels_path))
     say("cli", query_s=t1 - t0, topics=len(run), entries_per_topic=K,
         ndcg_at_100=metrics["ndcg@100"],
@@ -279,14 +419,150 @@ def phase_cli(root: str, data_dir: str, run_dir: str, topics: dict,
                              f"{metrics}")
 
 
+def train_recipe_json(root: str) -> str:
+    """The flagship recipe with this phase's cuts (2 epochs, a log every
+    16 steps so that the 128 steps log at all) as a recipe JSON."""
+    import dataclasses
+    from sert_tpu_torch.cli import load_recipe
+    r = load_recipe(RECIPE)
+    r = dataclasses.replace(r, train=dataclasses.replace(
+        r.train, num_epochs=TRAIN_EPOCHS, log_every_steps=TRAIN_LOG_EVERY))
+    path = os.path.join(root, "recipe.json")
+    with open(path, "w") as fh:
+        json.dump(dataclasses.asdict(r), fh, indent=2, sort_keys=True)
+    return path
+
+
+def phase_train(root: str):
+    """Train the flagship at full width on the training fixture; check the
+    loss, the K1/K2 launches, the snapshots and the final checkpoint.
+    Returns (data_dir, run_dir, topics, qrels, launches by kernel)."""
+    import torch
+    from sert_tpu_torch import pipeline
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.fixture import write_training_fixture
+    from sert_tpu_torch.ops import sampled_lse as slse
+    from sert_tpu_torch.train import checkpoint as ckpt
+
+    recipe = load_recipe(train_recipe_json(root))
+    t0 = time.perf_counter()
+    data_dir, topics, qrels = write_training_fixture(
+        os.path.join(root, "train"), recipe, V, E, TRAIN_INSTANCES,
+        num_queries=N_QUERIES, seed=SEED)
+    t1 = time.perf_counter()
+    run_dir = os.path.join(root, "train", "run")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    slse.fwd_launches = slse.bwd_launches = 0
+    state, _ = pipeline.train_from_dir(recipe, data_dir, run_dir,
+                                       resume=False, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"sampled_lse_fwd": slse.fwd_launches,
+                "sampled_lse_bwd": slse.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    logs = [json.loads(line) for line in
+            open(os.path.join(run_dir, "train_log.jsonl"))]
+    steps = [r for r in logs if r["event"] == "train_step"]
+    losses = [r["loss"] for r in steps]
+    first_of_epoch = {min(r["step"] for r in steps if r["epoch"] == e)
+                      for e in {r["epoch"] for r in steps}}
+    mid_sps = [r["steps_per_sec"] for r in steps
+               if r["step"] not in first_of_epoch]
+    warm = next((r for r in logs if r["event"] == "warmup"), {})
+    saved = ckpt.list_checkpoints(os.path.join(run_dir, "checkpoints"))
+    written = {s: {k: v for k, v in ckpt.load_meta(p).items()
+                   if k in ("params_only", "snapshot_dtype", "epoch")}
+               for s, p in saved.items()}
+    say("train", fixture_s=t1 - t0, train_s=t2 - t1, steps=state.step,
+        first_loss=losses[0] if losses else None,
+        last_loss=losses[-1] if losses else None,
+        mid_epoch_steps_per_sec=json.dumps(mid_sps),
+        first_step_s=warm.get("first_step_s"), peak_mem_bytes=peak,
+        launches=json.dumps(launches).replace(" ", ""),
+        checkpoints=json.dumps(written).replace(" ", ""))
+    want_steps = TRAIN_EPOCHS * TRAIN_INSTANCES // B_TRAIN
+    if state.step != want_steps:
+        raise AssertionError(f"{state.step} steps, expected {want_steps}")
+    if len(losses) < 2 or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss is not finite and falling: {losses}")
+    if min(launches.values()) < state.step:
+        raise AssertionError(f"K1/K2 launched {launches} times for "
+                             f"{state.step} steps")
+    final = saved.get(state.step)
+    if final is None or written[state.step].get("params_only") or any(
+            not w.get("params_only") or w.get("snapshot_dtype") != "bfloat16"
+            for s, w in written.items() if s != state.step):
+        raise AssertionError(f"snapshots are not the recipe's: {written}")
+
+    loaded, _ = ckpt.load_checkpoint(final, state)
+    same = (loaded.step == state.step
+            and all(torch.equal(loaded.params[n], state.params[n])
+                    for n in state.params)
+            and all(torch.equal(v, state.opt_state[n])
+                    if torch.is_tensor(v) else v == state.opt_state[n]
+                    for n, v in loaded.opt_state.items())
+            and torch.equal(loaded.generator.get_state(),
+                            state.generator.get_state()))
+    say("train", reloaded_final=os.path.basename(final),
+        equals_state_in_memory=same)
+    if not same:
+        raise AssertionError("the final checkpoint differs from the state")
+    del state, loaded
+    torch.cuda.empty_cache()
+
+    # The `train` command on the finished run: it resumes from the final
+    # full checkpoint, has no epoch left, and writes nothing.
+    t0 = time.perf_counter()
+    sert_cli("train", "--recipe", os.path.join(root, "recipe.json"),
+             "--data", data_dir, "--out", run_dir, "--device", "cuda")
+    after = ckpt.list_checkpoints(os.path.join(run_dir, "checkpoints"))
+    say("train", cli_train_resume_s=time.perf_counter() - t0,
+        checkpoints_unchanged=after == saved)
+    if after != saved:
+        raise AssertionError(f"the resumed `train` wrote {after}")
+    return data_dir, run_dir, topics, qrels, launches
+
+
+def phase_serve_trained(root: str, data_dir: str, run_dir: str,
+                        topics: dict, qrels: dict) -> None:
+    """The searcher on the run phase_train wrote, checked like the random
+    one, and the reciprocal rank of each topic's planted entity."""
+    import torch
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.serving import EntitySearcher
+    recipe = load_recipe(os.path.join(root, "recipe.json"))
+    searcher = EntitySearcher(recipe, data_dir, run_dir, k=K, query_batch=Q)
+    if searcher.engine != "pallas":
+        raise AssertionError(f"engine {searcher.engine}, not the kernels")
+    _, launches, many = check_searcher("serve_trained", searcher, topics)
+    run = {q: hits for q, hits in zip(sorted(topics), many)}
+    del searcher
+    torch.cuda.empty_cache()
+    hits_at = [next((i for i, (n, _) in enumerate(run[q]) if n in qrels[q]),
+                    None) for q in sorted(topics)]
+    mrr = sum(1.0 / (i + 1) for i in hits_at if i is not None) / len(hits_at)
+    say("serve_trained", topics=len(topics), mrr_of_planted_entity=mrr,
+        found_at_1000=sum(i is not None for i in hits_at),
+        launches=json.dumps(launches).replace(" ", ""))
+
+
 def main() -> int:
     import sert_tpu_torch  # noqa: F401  (fails outside a checkout)
+    import torch
     kind = phase_device()
     phase_build()
     records = phase_kernels()
+    records.update(phase_train_kernels())
     with tempfile.TemporaryDirectory() as root:
         data_dir, run_dir, topics, oracle_top, launches = phase_serve(root)
+        torch.cuda.empty_cache()
         phase_cli(root, data_dir, run_dir, topics, oracle_top)
+        data_dir, run_dir, topics, qrels, train_launches = phase_train(root)
+        launches.update(train_launches)
+        phase_serve_trained(root, data_dir, run_dir, topics, qrels)
     for name, rec in records.items():
         rec["launches"] = launches[name]
     print(json.dumps({"kernels": list(records.values())}))

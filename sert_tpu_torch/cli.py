@@ -2,13 +2,17 @@
 ``sert_tpu/cli.py``):
 
   python -m sert_tpu_torch list      — named recipes
+  python -m sert_tpu_torch prepare   — collection -> vocab + instance shards
+  python -m sert_tpu_torch train     — instances -> per-epoch checkpoints
   python -m sert_tpu_torch query     — checkpoint + topics -> TREC run file
   python -m sert_tpu_torch evaluate  — run + qrels -> metrics
   python -m sert_tpu_torch serve     — stdin queries -> ranked entities
+  python -m sert_tpu_torch e2e       — synthetic recipe end to end
 
-``query`` and ``serve`` take ``--device`` (default: the first CUDA device
-when there is one, else the CPU). The lm ranker, ``fuse``, ``report``,
-``serve --http`` and the training commands are not ported yet.
+``train``, ``query``, ``serve`` and ``e2e`` take ``--device`` (default: the
+first CUDA device when there is one, else the CPU); ``prepare`` is host
+code. The lm ranker, ``fuse``, ``report``, ``sweep``, ``dump``,
+``neighbors`` and ``serve --http`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +47,46 @@ def load_recipe(spec: str):
         f"unknown recipe {spec!r}; try `python -m sert_tpu_torch list`")
 
 
+def _prepare(recipe, args) -> None:
+    """The reference's prepare command: the synthetic stand-in (with its
+    topics and qrels), Amazon reviews, or TREC expert finding."""
+    from sert_tpu import recipes
+    from sert_tpu.data.prepare import prepare
+    from sert_tpu_torch import pipeline
+    if args.synthetic or not (args.trec_docs or args.amazon_reviews):
+        spec = recipes.SYNTH_SPECS.get(recipe.name)
+        if spec is None:
+            print(f"note: no synthetic stand-in registered for recipe "
+                  f"{recipe.name!r}; using the tiny demo collection",
+                  file=sys.stderr)
+            spec = recipes.tiny_spec()
+        col = spec.build()
+        pipeline.prepare_collection(col, args.out, recipe)
+        from sert_tpu.eval.trec import write_qrels, write_topics
+        write_topics(col.topics, os.path.join(args.out, "topics.tsv"))
+        write_qrels(col.qrels, os.path.join(args.out, "qrels.trec"))
+    elif args.amazon_reviews:
+        from sert_tpu.data.corpus import build_product_collection
+        docs, assoc, registry = build_product_collection(args.amazon_reviews)
+        prepare(docs, assoc, registry, args.out, recipe.data)
+    else:
+        if not args.candidates:
+            raise SystemExit(
+                "TREC expert-finding prepare needs --candidates "
+                "(id<TAB>name<TAB>email... file)")
+        from sert_tpu.data.corpus import (build_expert_associations,
+                                          iter_trec_docs, load_candidates,
+                                          trec_collection_files)
+        files = []
+        for spec in args.trec_docs:
+            files.extend(trec_collection_files(spec)
+                         if os.path.isdir(spec) else [spec])
+        docs = dict(iter_trec_docs(files))
+        registry, mentions = load_candidates(args.candidates)
+        assoc = build_expert_associations(docs.items(), mentions, registry)
+        prepare(docs, assoc, registry, args.out, recipe.data)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="sert_tpu_torch")
     from sert_tpu_torch import __version__
@@ -51,6 +95,29 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     sub.add_parser("list", help="list named recipes")
+
+    p = sub.add_parser("prepare", help="build vocab + instance shards")
+    _add_recipe_arg(p)
+    p.add_argument("--out", required=True, help="output data directory")
+    p.add_argument("--synthetic", action="store_true",
+                   help="use the recipe's synthetic stand-in collection")
+    p.add_argument("--trec-docs", nargs="*", default=None,
+                   help="TREC SGML collection files/dirs")
+    p.add_argument("--candidates", default=None,
+                   help="expert candidates file (id<TAB>name<TAB>email...) "
+                        "for TREC expert-finding prepare")
+    p.add_argument("--amazon-reviews", nargs="*", default=None,
+                   help="Amazon review JSON(.gz) files")
+
+    p = sub.add_parser("train", help="train from prepared instances")
+    _add_recipe_arg(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--init-word-emb", default=None, metavar="DUMP_NPZ",
+                   help="seed word embeddings from a dump npz (not ported "
+                        "yet: ROADMAP Queue 1 item 13)")
+    _add_device_arg(p)
 
     p = sub.add_parser("query", help="score topics into a TREC run file")
     _add_recipe_arg(p)
@@ -92,12 +159,49 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="queries scored per device dispatch")
     _add_device_arg(p)
 
+    p = sub.add_parser("e2e", help="synthetic recipe end to end")
+    _add_recipe_arg(p)
+    p.add_argument("--workdir", required=True)
+    _add_device_arg(p)
+
     args = ap.parse_args(argv)
 
     if args.cmd == "list":
         from sert_tpu import recipes
         for name in recipes.RECIPES:
             print(name)
+        return 0
+
+    if args.cmd == "prepare":
+        recipe = load_recipe(args.recipe)
+        _prepare(recipe, args)
+        return 0
+
+    if args.cmd == "train":
+        recipe = load_recipe(args.recipe)
+        from sert_tpu_torch import pipeline
+        pipeline.train_from_dir(recipe, args.data, args.out,
+                                resume=not args.no_resume,
+                                init_word_emb=args.init_word_emb,
+                                device=args.device)
+        return 0
+
+    if args.cmd == "e2e":
+        recipe = load_recipe(args.recipe)
+        from sert_tpu import recipes
+        from sert_tpu_torch import pipeline
+        if recipe.name == "synthetic_10m_scoring":
+            raise SystemExit(
+                "synthetic_10m_scoring is a scoring-only benchmark recipe")
+        spec = recipes.SYNTH_SPECS.get(recipe.name)
+        if spec is None:
+            print(f"note: no synthetic stand-in registered for recipe "
+                  f"{recipe.name!r}; using the tiny demo collection",
+                  file=sys.stderr)
+            spec = recipes.tiny_spec()
+        results = pipeline.run_end_to_end(spec.build(), recipe, args.workdir,
+                                          device=args.device)
+        print(json.dumps(results["all"], indent=2, sort_keys=True))
         return 0
 
     if args.cmd == "query":

@@ -1,14 +1,24 @@
-"""Random-weight serving fixtures: a data dir and a run dir that the serving
-path loads like a trained run, at any size, made from a seed.
+"""Synthetic fixtures at any size, made from a seed: a serving fixture
+(random weights) and a training fixture (instances to train on).
 
 Used by ``chip_smoke.py`` (a recipe's full width: 250k terms, 1M entities)
-and the CPU tests (a few hundred of each). The data dir holds what serving
-reads and nothing a trainer would (no instance shards): a ``Vocabulary``
-of synthetic terms that tokenize to themselves, an ``EntityRegistry`` and
-an ``instances.meta.json`` with ``vocab_size`` / ``num_entities``. The run
-dir holds one params-only checkpoint, stored in the recipe's
-``snapshot_dtype``. ``write_eval_inputs`` and ``read_run`` carry topics,
-qrels and TREC runs to and from the CLI.
+and the CPU tests (a few hundred of each). Both data dirs hold a
+``Vocabulary`` of synthetic terms that tokenize to themselves, an
+``EntityRegistry`` and an ``instances.meta.json`` with ``vocab_size`` /
+``num_entities``.
+
+* ``write_serving_fixture``: no instance shards; the run dir holds one
+  random-weight params-only checkpoint in the recipe's ``snapshot_dtype``.
+* ``write_training_fixture``: instance shards and an ``Associations`` file,
+  as ``prepare`` writes them, in place of preparing a real collection
+  (which takes minutes on the host at 1M entities). Every entity has a
+  signature of a few terms; its windows draw most of their terms from it,
+  and popular entities (Zipf over a seeded permutation) carry most
+  windows, so a model learns enough in a few dozen steps for its loss to
+  fall. The unigram noise comes from the association counts.
+
+``write_eval_inputs`` and ``read_run`` carry topics, qrels and TREC runs to
+and from the CLI.
 """
 
 from __future__ import annotations
@@ -21,9 +31,9 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 import torch
 
-from sert_tpu.data.assoc import EntityRegistry
-from sert_tpu.data.instances import META_NAME
-from sert_tpu.data.prepare import ENTITIES_NAME, VOCAB_NAME
+from sert_tpu.data.assoc import Associations, EntityRegistry
+from sert_tpu.data.instances import META_NAME, InstanceWriter
+from sert_tpu.data.prepare import ASSOC_NAME, ENTITIES_NAME, VOCAB_NAME
 from sert_tpu.data.vocab import Vocabulary
 from sert_tpu.eval.trec import read_run, write_qrels, write_topics
 from sert_tpu.utils.config import RecipeConfig
@@ -48,6 +58,18 @@ def entity_name(i: int) -> str:
     return f"e{i:07d}"
 
 
+def _write_names(data_dir: str, num_terms: int, num_entities: int):
+    """Write the vocabulary and the entity registry; returns (terms,
+    vocab)."""
+    os.makedirs(data_dir, exist_ok=True)
+    terms = [term(i) for i in range(num_terms)]
+    vocab = Vocabulary(terms, [1] * num_terms)
+    vocab.save(os.path.join(data_dir, VOCAB_NAME))
+    EntityRegistry([entity_name(i) for i in range(num_entities)]).save(
+        os.path.join(data_dir, ENTITIES_NAME))
+    return terms, vocab
+
+
 def write_serving_fixture(root: str, recipe: RecipeConfig, num_terms: int,
                           num_entities: int, num_queries: int,
                           seed: int = 0, max_query_terms: int = 8,
@@ -58,12 +80,7 @@ def write_serving_fixture(root: str, recipe: RecipeConfig, num_terms: int,
     ``seed``; the topics from numpy with the same seed."""
     data_dir = os.path.join(root, "data")
     run_dir = os.path.join(root, "run")
-    os.makedirs(data_dir, exist_ok=True)
-    terms = [term(i) for i in range(num_terms)]
-    vocab = Vocabulary(terms, [1] * num_terms)
-    vocab.save(os.path.join(data_dir, VOCAB_NAME))
-    EntityRegistry([entity_name(i) for i in range(num_entities)]).save(
-        os.path.join(data_dir, ENTITIES_NAME))
+    terms, vocab = _write_names(data_dir, num_terms, num_entities)
     meta = {"window_size": recipe.data.window_size, "num_instances": 0,
             "shards": [], "vocab_size": num_terms,
             "num_entities": num_entities, "vocab_hash": vocab.content_hash()}
@@ -90,6 +107,68 @@ def write_serving_fixture(root: str, recipe: RecipeConfig, num_terms: int,
     return data_dir, run_dir, topics
 
 
+def write_training_fixture(root: str, recipe: RecipeConfig, num_terms: int,
+                           num_entities: int, num_instances: int,
+                           num_queries: int = 0, seed: int = 0,
+                           signature_size: int = 8, signal: float = 0.8,
+                           zipf: float = 1.1
+                           ) -> Tuple[str, Dict[str, str],
+                                      Dict[str, Dict[str, int]]]:
+    """Write ``root/data`` for training; returns (data_dir, topics, qrels).
+
+    ``num_instances`` windows of the recipe's width: each term comes from
+    its entity's ``signature_size`` signature terms with probability
+    ``signal``, else uniformly from the vocabulary; lengths run from half
+    the width to the full width. Entities carry windows with weight
+    1 / (rank + 10) ** zipf. Each of ``num_queries`` topics is four
+    signature terms of one of the most popular entities, which its qrels
+    mark relevant."""
+    E, V, w = num_entities, num_terms, recipe.data.window_size
+    data_dir = os.path.join(root, "data")
+    terms, vocab = _write_names(data_dir, V, E)
+    rng = np.random.default_rng(seed)
+    rank = rng.permutation(E)
+    weight = 1.0 / (rank + 10.0) ** zipf
+    prob = weight / weight.sum()
+    signatures = rng.integers(0, V, size=(E, signature_size),
+                              dtype=np.int32)
+
+    writer = InstanceWriter(data_dir, w, recipe.data.instances_per_shard,
+                            seed=seed)
+    chunk = 1 << 18
+    for lo in range(0, num_instances, chunk):
+        n = min(chunk, num_instances - lo)
+        ents = rng.choice(E, size=n, p=prob).astype(np.int32)
+        pick = rng.integers(0, signature_size, size=(n, w))
+        windows = np.where(rng.random((n, w)) < signal,
+                           signatures[ents[:, None], pick],
+                           rng.integers(0, V, size=(n, w), dtype=np.int32))
+        lengths = rng.integers(max(w // 2, 1), w + 1, size=n,
+                               dtype=np.int32)
+        windows[np.arange(w)[None, :] >= lengths[:, None]] = 0
+        writer.add(windows.astype(np.int32), lengths, ents)
+    writer.finalize(extra_meta={"vocab_size": V, "num_entities": E,
+                                "vocab_hash": vocab.content_hash()})
+
+    # One document per expected window (at least one): the association
+    # counts the unigram noise reads follow the entities' popularity.
+    docs = np.maximum(1, np.rint(prob * num_instances)).astype(np.int64)
+    assoc = Associations()
+    for e in range(E):
+        for j in range(docs[e]):
+            assoc.add(f"d{e}.{j}", e)
+    assoc.save(os.path.join(data_dir, ASSOC_NAME))
+
+    topics, qrels = {}, {}
+    for q, e in enumerate(np.argsort(rank)[:num_queries]):
+        ids = rng.choice(signatures[e], size=min(4, signature_size),
+                         replace=False)
+        qid = f"t{q:04d}"
+        topics[qid] = " ".join(terms[i] for i in ids)
+        qrels[qid] = {entity_name(int(e)): 1}
+    return data_dir, topics, qrels
+
+
 def write_eval_inputs(root: str, topics: Dict[str, str],
                       relevant: Dict[str, Iterable[int]]) -> Tuple[str, str]:
     """Write ``root/topics.tsv`` and binary ``root/qrels.trec`` (each
@@ -103,4 +182,4 @@ def write_eval_inputs(root: str, topics: Dict[str, str],
 
 
 __all__ = ["entity_name", "read_run", "term", "write_eval_inputs",
-           "write_serving_fixture"]
+           "write_serving_fixture", "write_training_fixture"]

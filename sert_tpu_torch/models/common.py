@@ -7,6 +7,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from sert_tpu.utils.config import ModelConfig
 
@@ -45,8 +46,10 @@ def masked_mean_embed(word_emb: torch.Tensor, windows: torch.Tensor,
     """Masked-mean pooling of word embeddings over fixed-width windows
     (int [B, w], lengths int [B]). ``dtype`` casts the gathered rows only,
     which equals casting the whole table first (the reference's order)
-    without copying the table."""
-    rows = word_emb[windows.long()]
+    without copying the table. The gather is ``F.embedding``, whose
+    backward sums duplicate ids in a fixed order (indexing's backward does
+    not on the CPU), so that resume is exact."""
+    rows = F.embedding(windows.long(), word_emb)
     if dtype is not None:
         rows = rows.to(dtype)
     return masked_mean_pool(rows, lengths)

@@ -1,20 +1,31 @@
-"""LSE — Latent Semantic Entities, inference part (port of
-``sert_tpu/models/lse.py``: ``init`` :33, ``window_rep`` :59,
-``query_scores`` :377).
+"""LSE — Latent Semantic Entities (port of ``sert_tpu/models/lse.py``:
+``init`` :33, ``noise_logits`` :45, ``window_rep`` :59,
+``sample_negatives`` :69, ``sampled_softmax_inputs`` :139,
+``loss_sampled_softmax`` :171, ``query_scores`` :377).
 
 word embeddings -> masked-mean pooling -> ``tanh(x W + b)`` into entity
-space -> similarity against ``entity_emb`` [E, d_e]. The training
-objectives come with the training slice.
+space -> similarity against ``entity_emb`` [E, d_e]. Trained with the
+importance-corrected sampled softmax over batch-shared negatives, whose
+masked logsumexp runs through the K1/K2 kernels (``ops/sampled_lse``) on
+the card. The binary NCE objective (``loss`` :86) and the full softmax
+(``loss_full_softmax`` :222) are not ported yet (ROADMAP Queue 1 items 7
+and 6).
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sert_tpu.utils.config import ModelConfig
 from sert_tpu_torch.models.common import (Params, compute_dtype,
                                           masked_mean_embed, param_dtype,
                                           scaled_normal_init, unit_rows)
+from sert_tpu_torch.ops.sampled_lse import MASKED, sampled_lse
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,
@@ -30,6 +41,19 @@ def init(generator: torch.Generator, cfg: ModelConfig,
         "proj_b": torch.zeros((de,), dtype=pd, device=device),
         "entity_emb": scaled_normal_init(generator, (E, de), de, pd, device),
     }
+
+
+def noise_logits(entity_counts, cfg: ModelConfig,
+                 device=None) -> torch.Tensor:
+    """[E] fp32 log-weights of the negative-sampling distribution: zeros
+    for ``uniform`` (or no counts), ``unigram_power * log(counts)`` for
+    ``unigram``."""
+    E = cfg.num_entities
+    if cfg.negative_distribution == "uniform" or entity_counts is None:
+        return torch.zeros((E,), dtype=torch.float32, device=device)
+    c = torch.as_tensor(np.asarray(entity_counts), dtype=torch.float32,
+                        device=device)
+    return cfg.unigram_power * torch.log(c.clamp(min=1e-12))
 
 
 def window_rep(params: Params, windows: torch.Tensor, lengths: torch.Tensor,
@@ -56,3 +80,100 @@ def query_scores(params: Params, term_ids: torch.Tensor,
     if similarity == "cosine":
         rep, ent = unit_rows(rep), unit_rows(ent)
     return ent @ rep[0]
+
+
+_SCAN_WIDTH = 1024
+
+
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of a 1-D tensor, the same bits on every run.
+    On CUDA a 1-D ``torch.cumsum`` is a single-pass scan whose fp32 sums
+    associate differently from run to run (measured on the H100), which
+    moves inverse-CDF draws across entity boundaries; a scan along the
+    rows of a 2-D tensor takes a fixed order. So: scan rows of 1024, then
+    add the scanned row totals."""
+    n = x.numel()
+    if n <= _SCAN_WIDTH:
+        return torch.cumsum(x.expand(2, n), dim=1)[0]
+    rows = -(-n // _SCAN_WIDTH)
+    m = F.pad(x, (0, rows * _SCAN_WIDTH - n)).view(rows, _SCAN_WIDTH)
+    m = torch.cumsum(m, dim=1)
+    before = F.pad(_cumsum(m[:, -1])[:-1], (1, 0))
+    return (m + before[:, None]).reshape(-1)[:n]
+
+
+def sample_negatives(generator: torch.Generator, noise: torch.Tensor,
+                     batch_size: int, cfg: ModelConfig) -> torch.Tensor:
+    """[B, k] int64 entity ids drawn iid with replacement from
+    softmax(noise), by inverse CDF (prefix sums + searchsorted) on noise's
+    device with ``generator``; the same draws on every run. They differ
+    from ``jax.random``'s."""
+    cdf = _cumsum(torch.softmax(noise.float(), dim=0))
+    u = torch.rand((batch_size, cfg.num_negatives), generator=generator,
+                   device=noise.device) * cdf[-1]   # guards cdf[-1] < 1
+    idx = torch.searchsorted(cdf, u)
+    return idx.clamp(max=cfg.num_entities - 1)
+
+
+def sampled_softmax_inputs(params: Params, batch, cfg: ModelConfig,
+                           generator: Optional[torch.Generator] = None,
+                           negatives: Optional[torch.Tensor] = None,
+                           noise: Optional[torch.Tensor] = None):
+    """(reps [B, de], cand [k, de], corr [k], negatives [k], pos [B],
+    s_pos [B]): the window reps, the gathered candidate rows, their
+    -log(k q) correction and the positives' scores, all fp32."""
+    reps = window_rep(params, batch["windows"], batch["lengths"], cfg)
+    ent = params["entity_emb"]
+    if noise is None:
+        noise = torch.zeros((cfg.num_entities,), dtype=torch.float32,
+                            device=ent.device)
+    logq = torch.log_softmax(noise.float(), dim=0)
+    if negatives is None:
+        negatives = sample_negatives(generator, noise, 1, cfg)[0]
+    negatives = negatives.long()
+    k = negatives.shape[0]
+    ent = ent.float()
+    pos = batch["entities"].long()
+    # F.embedding: its backward sums duplicate ids in a fixed order.
+    cand = F.embedding(negatives, ent)
+    s_pos = torch.sum(reps * F.embedding(pos, ent), dim=-1)
+    corr = logq[negatives] + math.log(k)
+    return reps, cand, corr, negatives, pos, s_pos
+
+
+def _use_fused_sampled(cfg: ModelConfig, device: torch.device) -> bool:
+    """Whether the sampled objective's masked logsumexp goes through
+    ``ops.sampled_lse.sampled_lse`` (K1/K2 on CUDA): "on" always, "off"
+    never, "auto" on CUDA tensors. The reference's k >= 2048 threshold and
+    VMEM plan are TPU measurements and are not carried over."""
+    if cfg.fused_softmax == "on":
+        return True
+    if cfg.fused_softmax == "off":
+        return False
+    return device.type == "cuda"
+
+
+def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
+                         generator: Optional[torch.Generator] = None,
+                         negatives: Optional[torch.Tensor] = None,
+                         noise: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Importance-corrected sampled softmax with batch-shared negatives
+    (accidental hits masked): mean over the batch of
+    logsumexp([s_pos, s_neg - corr]) - s_pos. ``negatives`` [k] may be
+    passed (parity tests); otherwise they are drawn from ``noise`` with
+    ``generator``."""
+    reps, cand, corr, negatives, pos, s_pos = sampled_softmax_inputs(
+        params, batch, cfg, generator=generator, negatives=negatives,
+        noise=noise)
+    if _use_fused_sampled(cfg, reps.device):
+        # lse([s_pos, s_neg*]) - s_pos = softplus(lse(s_neg*) - s_pos)
+        lse_neg = sampled_lse(reps, cand, corr, negatives, pos,
+                              dtype=cfg.compute_dtype)
+        return torch.mean(F.softplus(lse_neg - s_pos))
+    s_neg = reps @ cand.T - corr[None, :]
+    hit = negatives[None, :] == pos[:, None]
+    s_neg = torch.where(hit, torch.full_like(s_neg, MASKED), s_neg)
+    lse_all = torch.logsumexp(torch.cat([s_pos[:, None], s_neg], dim=1),
+                              dim=-1)
+    return torch.mean(lse_all - s_pos)

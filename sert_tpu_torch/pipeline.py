@@ -1,19 +1,43 @@
-"""Pipeline pieces of the serving path (port of ``sert_tpu/pipeline.py``:
-``resolve_model_config`` :46 and ``load_scorer`` :106)."""
+"""End-to-end pipeline driver: collection -> trained model -> run ->
+metrics (port of ``sert_tpu/pipeline.py``: ``prepare_collection`` :34,
+``resolve_model_config`` :46, ``train_from_dir`` :80, ``load_scorer``
+:106, ``run_end_to_end`` :195). Preparing is the reference's host code,
+imported as it is. Pretrained word embeddings (``load_pretrained_word_emb``
+:54) and ``sweep_checkpoints`` are ROADMAP Queue 1 item 13.
+"""
 
 from __future__ import annotations
 
 import os
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
-from sert_tpu.data.assoc import EntityRegistry
-from sert_tpu.data.prepare import ENTITIES_NAME, VOCAB_NAME
+from sert_tpu.data.assoc import Associations, EntityRegistry
+from sert_tpu.data.instances import InstanceDataset
+from sert_tpu.data.prepare import (ASSOC_NAME, ENTITIES_NAME, VOCAB_NAME,
+                                   encode_queries, prepare)
 from sert_tpu.data.vocab import Vocabulary
-from sert_tpu.utils.config import RecipeConfig
+from sert_tpu.eval.metrics import evaluate_run
+from sert_tpu.eval.trec import write_qrels, write_run, write_topics
+from sert_tpu.utils.config import RecipeConfig, save_config
+from sert_tpu.utils.logging import get_logger
 from sert_tpu_torch.models.common import param_dtype
 from sert_tpu_torch.train import checkpoint as ckpt
+
+log = get_logger("pipeline")
+
+
+def prepare_collection(col, out_dir: str, recipe: RecipeConfig) -> Dict:
+    """Prepare any (docs, doc -> entities) collection shaped like a
+    ``SyntheticCollection``; returns the instance meta."""
+    registry = EntityRegistry(col.entities)
+    assoc = Associations()
+    for doc_id, ents in col.doc_entities.items():
+        for e in ents:
+            assoc.add(doc_id, registry.id(e))
+    return prepare(col.docs, assoc, registry, out_dir, recipe.data)
 
 
 def resolve_model_config(recipe: RecipeConfig, meta: Mapping) -> RecipeConfig:
@@ -22,6 +46,28 @@ def resolve_model_config(recipe: RecipeConfig, meta: Mapping) -> RecipeConfig:
                                 num_entities=int(meta["num_entities"]))
     return RecipeConfig(name=recipe.name, data=recipe.data, model=mcfg,
                         train=recipe.train, score=recipe.score)
+
+
+def train_from_dir(recipe: RecipeConfig, data_dir: str, out_dir: str,
+                   resume: bool = True, init_word_emb: Optional[str] = None,
+                   device=None, **loop_kwargs):
+    """Train on a prepared data dir; returns (TrainState, resolved recipe).
+    The unigram noise comes from the data dir's entity associations."""
+    if init_word_emb:
+        raise NotImplementedError(
+            "--init-word-emb (pretrained word embeddings) is not ported yet "
+            "(ROADMAP Queue 1 item 13: remaining surfaces)")
+    from sert_tpu_torch.train.loop import train as train_loop
+    dataset = InstanceDataset(data_dir, seed=recipe.train.seed)
+    recipe = resolve_model_config(recipe, dataset.meta)
+    assoc = Associations.load(os.path.join(data_dir, ASSOC_NAME))
+    counts = np.asarray(
+        assoc.entity_instance_counts(recipe.model.num_entities), np.float64)
+    os.makedirs(out_dir, exist_ok=True)
+    save_config(recipe, os.path.join(out_dir, "recipe.json"))
+    state = train_loop(recipe, dataset, out_dir, entity_counts=counts,
+                       resume=resume, device=device, **loop_kwargs)
+    return state, recipe
 
 
 def _check_shapes(params, recipe: RecipeConfig, path: str) -> None:
@@ -72,3 +118,35 @@ def load_scorer(run_dir: str, data_dir: str, recipe: RecipeConfig,
 def default_device() -> torch.device:
     """The first CUDA device when there is one, else the CPU."""
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def run_end_to_end(col, recipe: RecipeConfig, workdir: str,
+                   device=None) -> Dict[str, Dict[str, float]]:
+    """prepare -> train -> score -> evaluate under ``workdir``; returns
+    per-topic metrics with the macro average under "all"."""
+    from sert_tpu_torch.scoring.run import score_topics
+    from sert_tpu_torch.train.step import release_opt_state
+    data_dir = os.path.join(workdir, "data")
+    run_dir = os.path.join(workdir, "run")
+    os.makedirs(data_dir, exist_ok=True)
+    os.makedirs(run_dir, exist_ok=True)
+
+    prepare_collection(col, data_dir, recipe)
+    state, recipe = train_from_dir(recipe, data_dir, run_dir, device=device)
+    # Scoring never reads the optimizer state; free its device memory
+    # before the engine stages the entity matrix.
+    state = release_opt_state(state)
+
+    vocab = Vocabulary.load(os.path.join(data_dir, VOCAB_NAME))
+    registry = EntityRegistry.load(os.path.join(data_dir, ENTITIES_NAME))
+    encoded = encode_queries(col.topics, vocab, recipe.data)
+    run = score_topics(state.params, recipe.model, encoded, registry.names,
+                       recipe.score)
+
+    write_run(run, os.path.join(run_dir, "run.trec"))
+    write_qrels(col.qrels, os.path.join(run_dir, "qrels.trec"))
+    write_topics(col.topics, os.path.join(run_dir, "topics.tsv"))
+    results = evaluate_run(run, col.qrels)
+    log.info("e2e %s: %s", recipe.name,
+             {k: round(v, 4) for k, v in results["all"].items()})
+    return results

@@ -1,0 +1,301 @@
+"""The train step (port of ``sert_tpu/train/step.py``): state, learning-rate
+schedules, the optimizers and the dense step.
+
+PyTorch runs eagerly, so there is no jit and no donation: the step updates
+the params and the optimizer state IN PLACE (the reference's donated
+buffers play the same role). The optimizers are plain tensor arithmetic
+whose state mirrors optax's tree: ``opt_state`` maps each leaf's tree path
+below ``.opt_state`` (``[0].mu['word_emb']``, ``[1].count``, ...) to a
+tensor, or to a host int for the ``count`` leaves, so checkpoints carry
+across packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from sert_tpu.utils.config import ModelConfig, TrainConfig
+from sert_tpu.utils.logging import get_logger
+from sert_tpu_torch.models import api
+from sert_tpu_torch.models.common import Params
+
+log = get_logger("train")
+
+OptState = Dict[str, object]
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Params
+    opt_state: OptState
+    step: int                       # completed micro-steps
+    generator: torch.Generator      # draws the negatives, on the params' device
+
+
+def release_opt_state(state: TrainState) -> TrainState:
+    """The state with ``opt_state={}``: the moments' device memory is freed
+    once nothing else holds them. The result scores but cannot resume."""
+    return dataclasses.replace(state, opt_state={})
+
+
+def check_optimizer_model_fit(model_cfg: ModelConfig,
+                              train_cfg: TrainConfig) -> None:
+    """Warn on the reference's measured optimizer/LSE traps (adafactor, and
+    adagrad at >= 100k entities; ``sert_tpu/train/step.py:50``)."""
+    if train_cfg.optimizer == "adafactor" and model_cfg.model == "lse":
+        warnings.warn(
+            "optimizer='adafactor' with the sampled-objective LSE model is "
+            "a measured quality trap in the reference (factored second "
+            "moments mis-scale sparse negative-sampling updates); use adam",
+            UserWarning, stacklevel=3)
+    if (train_cfg.optimizer == "adagrad" and model_cfg.model == "lse"
+            and model_cfg.num_entities >= 100_000):
+        warnings.warn(
+            "optimizer='adagrad' with LSE degrades with scale: the "
+            "reference measured chance-level training at 1M entities; use "
+            "optimizer='adam' for LSE at scale",
+            UserWarning, stacklevel=3)
+
+
+def _linear(init: float, end: float, steps: int, count: float) -> float:
+    """optax.linear_schedule; constant ``init`` when steps <= 0."""
+    if steps <= 0:
+        return init
+    c = min(max(count, 0.0), steps)
+    return (init - end) * (1.0 - c / steps) + end
+
+
+def _cosine(init: float, steps: int, alpha: float, count: float) -> float:
+    """optax.cosine_decay_schedule."""
+    c = min(count, float(steps))
+    return init * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / steps))
+                   + alpha)
+
+
+def has_schedule(cfg: TrainConfig) -> bool:
+    """Whether the lr varies with the step, so that the optimizer state
+    carries the schedule's ``count`` leaf (optax's scale_by_schedule)."""
+    return cfg.lr_schedule != "constant" or cfg.lr_warmup_steps > 0
+
+
+def make_lr(cfg: TrainConfig) -> Callable[[int], float]:
+    """The learning rate as a function of the number of completed updates,
+    with the values of ``sert_tpu.train.step.make_lr``'s optax schedules
+    (which compute them in fp32). Peak is ``learning_rate``."""
+    peak, w = cfg.learning_rate, cfg.lr_warmup_steps
+    if cfg.lr_schedule == "constant":
+        if w <= 0:
+            return lambda step: peak
+        return lambda step: (_linear(0.0, peak, w, step) if step < w
+                             else peak)
+    if cfg.lr_schedule not in ("cosine", "linear"):
+        raise ValueError(f"unknown lr_schedule: {cfg.lr_schedule!r}")
+    total = cfg.lr_decay_steps
+    if total <= 0:
+        raise ValueError(
+            f"lr_schedule={cfg.lr_schedule!r} needs lr_decay_steps > 0; "
+            "the train loop fills it from num_epochs x batches/epoch — set "
+            "it explicitly when building a step outside the loop")
+    end = cfg.lr_final_fraction * peak
+    if cfg.lr_schedule == "cosine":
+        if total - w <= 0:
+            raise ValueError(
+                "The cosine_decay_schedule requires positive decay_steps, "
+                f"got decay_steps={total - w}")
+        alpha = 0.0 if peak == 0.0 else end / peak
+        init = 0.0 if w > 0 else peak
+
+        def cosine(step):
+            if step < w:
+                return _linear(init, peak, w, step)
+            return _cosine(peak, total - w, alpha, step - w)
+        return cosine
+    decay_steps = max(total - w, 1)
+    if w <= 0:
+        return lambda step: _linear(peak, end, decay_steps, step)
+    return lambda step: (_linear(0.0, peak, w, step) if step < w
+                         else _linear(peak, end, decay_steps, step - w))
+
+
+class Optimizer:
+    """adam / adagrad / sgd with optax's arithmetic, plus optional
+    global-norm clipping (before) and decoupled weight decay (after), as
+    ``sert_tpu.train.step.make_optimizer`` chains them. :meth:`update`
+    changes the params and the state in place."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, cfg: TrainConfig):
+        if cfg.optimizer == "adafactor":
+            raise NotImplementedError(
+                "optimizer='adafactor' is not ported yet (ROADMAP Queue 1 "
+                "item 13: remaining surfaces)")
+        if cfg.optimizer not in ("adam", "adagrad", "sgd"):
+            raise ValueError(f"unknown optimizer: {cfg.optimizer!r}")
+        self.kind = cfg.optimizer
+        self.lr = make_lr(cfg)
+        self.scheduled = has_schedule(cfg)
+        self.clip = cfg.grad_clip_norm
+        self.decay = cfg.weight_decay
+        self.acc0 = cfg.adagrad_init_accumulator
+        self.adagrad_eps = cfg.adagrad_eps
+        # optax.chain(clip?, opt, decay?) nests opt's state one level down.
+        chained = self.clip > 0 or self.decay > 0
+        self.prefix = f"[{1 if self.clip > 0 else 0}]" if chained else ""
+
+    def _key(self, leaf: str, name: Optional[str] = None) -> str:
+        return self.prefix + leaf + (f"['{name}']" if name else "")
+
+    def init(self, params: Params) -> OptState:
+        state: OptState = {}
+        if self.kind == "adam":
+            state[self._key("[0].count")] = 0
+            for n, p in sorted(params.items()):
+                state[self._key("[0].mu", n)] = torch.zeros_like(p)
+                state[self._key("[0].nu", n)] = torch.zeros_like(p)
+        elif self.kind == "adagrad":
+            for n, p in sorted(params.items()):
+                state[self._key("[0].sum_of_squares", n)] = torch.full_like(
+                    p, self.acc0)
+        if self.scheduled:
+            state[self._key("[1].count")] = 0
+        return state
+
+    @torch.no_grad()
+    def update(self, params: Params, grads: Params, state: OptState) -> None:
+        if self.clip > 0:
+            norm = global_norm(grads)
+            keep = norm < self.clip
+            grads = {n: torch.where(keep, g, g / norm * self.clip)
+                     for n, g in grads.items()}
+        if self.scheduled:
+            count = state[self._key("[1].count")]
+            lr = self.lr(count)
+            state[self._key("[1].count")] = count + 1
+        else:
+            lr = self.lr(0)
+        if self.kind == "adam":
+            count = state[self._key("[0].count")] + 1
+            state[self._key("[0].count")] = count
+            bc1 = 1.0 - self.B1 ** count
+            bc2 = 1.0 - self.B2 ** count
+        for n, g in grads.items():
+            p = params[n]
+            if self.kind == "adam":
+                mu = state[self._key("[0].mu", n)]
+                nu = state[self._key("[0].nu", n)]
+                mu.mul_(self.B1).add_(g * (1 - self.B1))
+                nu.mul_(self.B2).add_(g * g * (1 - self.B2))
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.EPS)
+            elif self.kind == "adagrad":
+                sos = state[self._key("[0].sum_of_squares", n)]
+                sos.add_(g * g)
+                inv = torch.where(sos > 0, torch.rsqrt(sos + self.adagrad_eps),
+                                  torch.zeros((), device=sos.device))
+                u = inv * g
+            else:
+                u = g
+            u = u * (-lr)
+            if self.decay > 0:
+                u = u + p * (-self.decay)
+            p.add_(u.to(p.dtype))
+
+
+def make_optimizer(cfg: TrainConfig) -> Optimizer:
+    """The optimizer a TrainConfig names (``sert_tpu.train.step
+    .make_optimizer``'s menu and chain)."""
+    return Optimizer(cfg)
+
+
+def global_norm(tensors: Params) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(t.float() * t.float())
+                          for _, t in sorted(tensors.items())))
+
+
+def init_state(seed: int, model_cfg: ModelConfig, train_cfg: TrainConfig,
+               device=None) -> TrainState:
+    """Fresh params (drawn with a generator seeded by ``seed`` on
+    ``device``), the optimizer's zero state and step 0. The same generator
+    then draws the negatives."""
+    if has_sparse_update(train_cfg):
+        raise _sparse_not_ported()
+    if (train_cfg.lr_schedule != "constant"
+            and train_cfg.lr_decay_steps <= 0):
+        # Building the state never evaluates the schedule.
+        train_cfg = dataclasses.replace(
+            train_cfg, lr_decay_steps=train_cfg.lr_warmup_steps + 1)
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    params = api.init_params(gen, model_cfg, device)
+    opt_state = make_optimizer(train_cfg).init(params)
+    return TrainState(params=params, opt_state=opt_state, step=0,
+                      generator=gen)
+
+
+def has_sparse_update(train_cfg: TrainConfig) -> bool:
+    """``sparse_update="on"`` asks for the row-sparse lazy step, which is
+    not ported; "auto" resolves to the dense step (the lazy adagrad/sgd it
+    would pick in the reference are bit-identical to dense)."""
+    if train_cfg.sparse_update not in ("auto", "on", "off"):
+        raise ValueError(
+            f"unknown sparse_update: {train_cfg.sparse_update!r}")
+    return train_cfg.sparse_update == "on"
+
+
+def _sparse_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "the row-sparse lazy optimizer step (sparse_update='on', or a "
+        "checkpoint holding row-sparse state) is not ported yet (ROADMAP "
+        "Queue 1 item 8: row-sparse lazy optimizer + bf16 params)")
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                    noise: Optional[torch.Tensor] = None, loss_fn=None):
+    """``step(state, batch) -> (state, metrics)``: one dense update per
+    micro-step, in place. ``noise``: the negative-sampling logits over
+    entities (LSE), on the params' device. ``loss_fn``: api.loss_fn's
+    signature, overridable (tests inject negatives through it).
+
+    With ``steps_per_call > 1`` the step takes a stacked batch (leading
+    micro-step axis) and runs the micro-steps in a Python loop; metrics are
+    the last one's, as device tensors (reading them syncs)."""
+    check_optimizer_model_fit(model_cfg, train_cfg)
+    if has_sparse_update(train_cfg):
+        raise _sparse_not_ported()
+    if train_cfg.sparse_update == "auto":
+        log.info("sparse_update='auto' resolves to the dense step (the "
+                 "row-sparse step is ROADMAP Queue 1 item 8)")
+    opt = make_optimizer(train_cfg)
+    if loss_fn is None:
+        loss_fn = api.loss_fn
+
+    def micro_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        names = sorted(state.params)
+        leaves = {n: state.params[n].detach().requires_grad_(True)
+                  for n in names}
+        loss = loss_fn(leaves, batch, model_cfg,
+                       generator=state.generator, noise=noise)
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        grads = dict(zip(names, grads))
+        grad_norm = global_norm(grads)
+        opt.update(state.params, grads, state.opt_state)
+        state.step += 1
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    n = train_cfg.steps_per_call
+
+    def step(state: TrainState, batch
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if n <= 1:
+            return state, micro_step(state, batch)
+        metrics = None
+        for i in range(next(iter(batch.values())).shape[0]):
+            metrics = micro_step(state, {k: v[i] for k, v in batch.items()})
+        return state, metrics
+
+    return step

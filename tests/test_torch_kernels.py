@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K3 score_binmax, K4 gather_rescore) against
-their plain PyTorch versions, and the build that binds them.
+"""The port's CUDA kernels (K1/K2 sampled_lse, K3 score_binmax, K4
+gather_rescore) against their plain PyTorch versions, and the build that
+binds them.
 
 Imports nothing of JAX, so it runs on a host without it. The ``gpu`` tests
 skip without a CUDA device; on the card run
@@ -10,7 +11,9 @@ skip without a CUDA device; on the card run
 
 Tolerances: the kernel and its plain version multiply the same
 bf16-rounded (K3) or fp32 (K4) inputs and sum in fp32 in another order
-(rtol 1e-5, atol 1e-5).
+(rtol 1e-5, atol 1e-5). K1/K2 likewise, relative to the largest output
+(1e-4 in fp32); in bf16 the probabilities are rounded after fp32 sums that
+differ in order, so an element may land one bf16 step apart (2e-2).
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ torch = pytest.importorskip("torch")
 
 from sert_tpu_torch.ops import _build, exact_topk  # noqa: E402
 from sert_tpu_torch.ops import gather_rescore, score_binmax  # noqa: E402
+from sert_tpu_torch.ops import sampled_lse  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -50,7 +54,7 @@ class TestBuild:
         assert path.name.startswith("libsert_kernels-")
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
         assert {s.name for s in _build._sources()} >= {
-            "score_binmax.cu", "gather_rescore.cu"}
+            "score_binmax.cu", "gather_rescore.cu", "sampled_lse.cu"}
 
     def test_every_entry_point_is_declared(self):
         src = "".join(p.read_text() for p in _build._sources())
@@ -133,3 +137,100 @@ class TestOnCard:
         np.testing.assert_allclose(
             gpu_s.cpu().numpy(),
             np.take_along_axis(dense, gpu_i.cpu().numpy(), axis=1), **TOL)
+
+
+SLSE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _slse_inputs(dev, B, k, d, all_masked=False, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    reps = torch.tanh(torch.randn(B, d, generator=g, device=dev))
+    cand = torch.randn(k, d, generator=g, device=dev) * (2.0 / d ** 0.5)
+    corr = 0.5 * torch.randn(k, generator=g, device=dev)
+    pos = torch.randint(0, 1000, (B,), generator=g, device=dev)
+    ids = torch.randint(0, 1000, (k,), generator=g, device=dev)
+    ids[:min(B, k) // 2] = pos[:min(B, k) // 2]
+    if all_masked:
+        ids[:] = 7
+        pos[pos == 7] = 8
+        pos[0] = 7
+    return reps, cand, corr, ids, pos
+
+
+def _slse_run(fn, reps, cand, corr, ids, pos, dtype):
+    r, c, co = (t.clone().requires_grad_(True) for t in (reps, cand, corr))
+    lse = fn(r, c, co, ids, pos, dtype)
+    s_pos = torch.linspace(-1, 1, reps.shape[0], device=reps.device)
+    grads = torch.autograd.grad(
+        torch.nn.functional.softplus(lse - s_pos).sum(), [r, c, co])
+    return [lse.detach(), *grads]
+
+
+@pytest.mark.gpu
+class TestSampledLseOnCard:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,k,d", [(256, 4096, 128), (100, 777, 24),
+                                       (64, 64, 256), (300, 130, 40)])
+    def test_kernels_match_plain(self, cuda, B, k, d, dtype):
+        x = _slse_inputs(cuda, B, k, d)
+        n = (sampled_lse.fwd_launches, sampled_lse.bwd_launches)
+        got = _slse_run(sampled_lse.sampled_lse, *x, dtype)
+        assert (sampled_lse.fwd_launches, sampled_lse.bwd_launches) == (
+            n[0] + 1, n[1] + 1)
+        want = _slse_run(sampled_lse.sampled_lse_plain, *x, dtype)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= SLSE_TOL[dtype] * b.abs().max().item()
+
+    def test_all_masked_row_has_zero_gradient(self, cuda):
+        x = _slse_inputs(cuda, 128, 1000, 64, all_masked=True)
+        lse, dreps, _, _ = _slse_run(sampled_lse.sampled_lse, *x,
+                                     "bfloat16")
+        assert lse[0].item() < -1e29 and not bool(dreps[0].any())
+        assert bool(torch.isfinite(dreps).all())
+
+    def test_bf16_candidates_keep_their_dtype(self, cuda):
+        reps, cand, corr, ids, pos = _slse_inputs(cuda, 64, 500, 32)
+        c = cand.bfloat16().requires_grad_(True)
+        out = sampled_lse.sampled_lse(reps, c, corr, ids, pos, "bfloat16")
+        (g,) = torch.autograd.grad(out.sum(), [c])
+        assert g.dtype == torch.bfloat16
+
+    def test_backward_is_deterministic(self, cuda):
+        x = _slse_inputs(cuda, 512, 3000, 128)
+        a = _slse_run(sampled_lse.sampled_lse, *x, "bfloat16")
+        b = _slse_run(sampled_lse.sampled_lse, *x, "bfloat16")
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def test_wrapper_refuses_what_the_kernels_do_not_take(self, cuda):
+        reps, cand, corr, ids, pos = _slse_inputs(cuda, 8, 16, 16)
+        with pytest.raises(ValueError, match="d <= 256"):
+            sampled_lse.sampled_lse(torch.zeros(8, 300, device=cuda),
+                                    torch.zeros(16, 300, device=cuda),
+                                    corr, ids, pos)
+        with pytest.raises(ValueError, match="dtype"):
+            sampled_lse.sampled_lse(reps, cand, corr, ids, pos, "float16")
+        with pytest.raises(ValueError, match="on cpu"):
+            sampled_lse.sampled_lse(reps, cand, corr.cpu(), ids, pos)
+        with pytest.raises(ValueError, match="shapes"):
+            sampled_lse.sampled_lse(reps, cand, corr[:3], ids, pos)
+
+
+@pytest.mark.gpu
+def test_negative_sampling_repeats_on_the_card(cuda):
+    """The same generator seed draws the same negatives (a 1-D cumsum on
+    CUDA would not: see models.lse._cumsum)."""
+    from sert_tpu.utils.config import ModelConfig
+    from sert_tpu_torch.models import lse
+    cfg = ModelConfig(model="lse", num_entities=1_000_000,
+                      num_negatives=32768)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    noise = 0.75 * torch.log(torch.randint(1, 50, (cfg.num_entities,),
+                                           generator=g, device=cuda).float())
+    draws = [lse.sample_negatives(torch.Generator(device=cuda).manual_seed(0),
+                                  noise, 4, cfg) for _ in range(8)]
+    assert all(torch.equal(draws[0], d) for d in draws[1:])
+    cdf = lse._cumsum(torch.softmax(noise, 0))
+    for _ in range(8):
+        assert torch.equal(cdf, lse._cumsum(torch.softmax(noise, 0)))

@@ -58,6 +58,41 @@ def _run(code_or_path, cwd, *args):
                           env=env, timeout=300)
 
 
+# `python -m sert_tpu_torch ARGS` with jax unimportable.
+CLI_WITHOUT_JAX = """
+import runpy, sys
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"{name} is blocked: the port must not need it")
+sys.meta_path.insert(0, NoJax())
+sys.argv = ["sert_tpu_torch", *sys.argv[1:]]
+runpy.run_module("sert_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def test_prepare_train_query_run_with_jax_blocked(tmp_path):
+    from sert_tpu import recipes
+    from sert_tpu.utils.config import save_config
+    recipe = recipes.tiny_recipe("lse", objective="sampled_softmax",
+                                 negative_distribution="unigram")
+    recipe = recipe.__class__(**{**recipe.__dict__, "train":
+                                 recipe.train.__class__(**{
+                                     **recipe.train.__dict__,
+                                     "num_epochs": 1})})
+    r, data, run = (str(tmp_path / n) for n in ("r.json", "data", "run"))
+    save_config(recipe, r)
+    for args in (["prepare", "--recipe", r, "--out", data],
+                 ["train", "--recipe", r, "--data", data, "--out", run,
+                  "--device", "cpu"],
+                 ["query", "--recipe", r, "--data", data, "--run-dir", run,
+                  "--topics", data + "/topics.tsv", "--out",
+                  str(tmp_path / "run.trec"), "--device", "cpu"]):
+        proc = _run(CLI_WITHOUT_JAX, REPO, *args)
+        assert proc.returncode == 0, (args[0], proc.stderr[-3000:])
+    assert (tmp_path / "run.trec").stat().st_size > 0
+
+
 def test_serving_path_runs_with_no_jax_module_loaded():
     proc = _run(SERVE_ON_CPU, REPO)
     assert proc.returncode == 0, proc.stderr
