@@ -33,8 +33,33 @@ Phases (each prints one line or more; any failure exits non-zero):
      carry every step, and the final full checkpoint must load back equal
      to the state in memory. Then `python -m sert_tpu_torch train` on the
      finished run resumes from that checkpoint and writes nothing;
-  8. serve_trained: the serve checks again, on the run phase 7 wrote.
-Then one JSON line of kernel records, and the device record as the last line.
+  8. serve_trained: the serve checks again, on the run phase 7 wrote;
+  9. xent_kernels: K5 (the full-softmax forward) and K6 (its backward)
+     against xent_loss_plain + autograd on the same inputs: "de" fp32 at
+     cerc's B=1024, d=256, E=3500 and at w3c's d=128, E=1100 with a ragged
+     B=1000; "ed" bf16 at B=4096, d=128, E=131072 and at E=131071 (a tail
+     tile); "de" bf16 once; K5 alone at the log-linear normalizer's shape
+     (64 queries x 16 terms, "de", fp32, d=256); and K5/K6 timed alone at
+     lse_full's flagship shape (B=4096, E=1M, d=128, bf16, "ed"), the
+     forward held against an lse the plain version computes in entity
+     chunks; errors of loss, lse, dpooled, dW and db with their
+     tolerances, CUDA-event times of kernel and plain;
+ 10. train_loglinear: cerc_expert_finding as the recipe stands (V from the
+     CERC stand-in, E=3500, d=256, B=1024, fp32, adam + cosine, 5 epochs)
+     end to end through pipeline.run_end_to_end (the port's own prepare,
+     training through K5/K6, scoring through K3 with the bias + K4 + the
+     K5 normalizer, evaluation); the loss must be finite and fall, K5/K6
+     must carry every micro-step, the served top 100 must match the exact
+     dense log-probs (the ids, and the scores within 1e-4 of the larger of
+     the score and its un-normalized sum), and the first 8 steps must
+     match the plain version on the card (fused_softmax="off") on the same
+     batches;
+ 11. train_lse_full: the flagship's width with model="lse_full" (V=250k,
+     E=1M, d=128, B=4096, bf16, adam) for 16 steps of the training
+     fixture, through K5/K6 every step.
+Then one JSON line of kernel records (with each one's bound: the larger of
+its operations over the H100's peak rate for their type and its bytes over
+3.35 TB/s), and the device record as the last line.
 
 Imports nothing of JAX and nothing of the JAX package by name; only
 `sert_tpu_torch`. Exits 1 without a CUDA device.
@@ -68,6 +93,23 @@ SLSE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_INSTANCES = 1 << 18              # 64 steps an epoch at B=4096
 TRAIN_EPOCHS = 2
 TRAIN_LOG_EVERY = 16
+# K5/K6 against their plain version: the elementwise gradients dpooled, dW
+# and db as K1/K2 above. The loss and the lse are fp32 reductions of the
+# same rounded operands in either dtype, so they are held to 1e-4 relative
+# in both (measured on the H100: loss error 0, lse error 2.9e-6 on an lse
+# of about 14 at E = 1M), which a kernel that dropped entity tiles fails.
+XENT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+XENT_SUM_RTOL = 1e-4
+# The first steps of the fused and the plain log-linear runs: both are fp32
+# products of the same operands, summed in another order, carried through
+# that many adam steps.
+PARITY_STEPS, PARITY_RTOL = 8, 1e-3
+LL_RECALL_MIN, LL_SCORE_RTOL = 0.99, 1e-5   # score: see phase_train_loglinear
+LSE_FULL_STEPS = 16
+# The H100 SXM's published dense peaks (bf16 on tensor cores, fp32 on the
+# CUDA cores) and its memory rate, for each kernel's bound.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def say(phase: str, **kw) -> None:
@@ -89,6 +131,21 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def bound(flops: float, moved: float, dtype: str) -> dict:
+    """The least time the card could take for the work: the larger of the
+    operations over the peak rate of their type and the bytes moved over
+    the memory rate; and which of the two it is."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    if t_ops >= t_bytes:
+        return dict(bound_ms=t_ops, bound_by="operations")
+    return dict(bound_ms=t_bytes, bound_by="bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def phase_device() -> str:
@@ -145,7 +202,8 @@ def phase_kernels() -> dict:
             rtol=TOL["rtol"], atol=TOL["atol"], ms=ms, plain_ms=plain_ms)
         rec = records.setdefault(name, dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=None))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         return got
 
@@ -160,6 +218,9 @@ def phase_kernels() -> dict:
         lambda: k3.score_binmax_prepared(R, Mp, E, bias, alpha, BW),
         lambda: k3.score_binmax_plain(R, Mp, E, bias, alpha, BW),
         src3, "sert_tpu/ops/score_binmax.py:51")
+    # K3's record is its no-bias variant: it reads the bf16 copy once.
+    records["score_binmax"].update(bound(
+        2 * Q * E * Mp.shape[1], nbytes(Mp, R, bins), "bfloat16"))
     bin_idx = torch.topk(bins, K + PAD_BINS, dim=1).indices.int()
     n_bins = bins.shape[1]
     M_binned = torch.nn.functional.pad(M, (0, 0, 0, n_bins * BW - E))
@@ -171,6 +232,13 @@ def phase_kernels() -> dict:
                 lambda: k4.gather_rescore(R, mb, bin_idx),
                 lambda: k4.gather_rescore_plain(R, mb, bin_idx),
                 src4, "sert_tpu/ops/gather_rescore.py:31")
+    # K4's record is its fp32-row variant. The least it must read is each
+    # bin this run's queries chose, once (the kernel reads a bin once per
+    # query that chose it).
+    rows = torch.unique(bin_idx).numel() * BW * D * 4
+    n_out = Q * bin_idx.shape[1] * BW
+    records["gather_rescore"].update(bound(
+        2 * n_out * D, rows + nbytes(R, bin_idx) + 4 * n_out, "float32"))
     return records
 
 
@@ -216,11 +284,13 @@ def phase_train_kernels() -> dict:
         "sampled_lse_fwd": dict(name="sampled_lse_fwd", route="cuda",
                                 source=src,
                                 replaces="sert_tpu/ops/sampled_lse.py:78",
-                                launches=0, max_abs_err=0.0),
+                                launches=0, max_abs_err=0.0,
+                                library_ms=None),
         "sampled_lse_bwd": dict(name="sampled_lse_bwd", route="cuda",
                                 source=src,
                                 replaces="sert_tpu/ops/sampled_lse.py:89",
-                                launches=0, max_abs_err=0.0)}
+                                launches=0, max_abs_err=0.0,
+                                library_ms=None)}
     for i, (label, B, k, dtype, masked) in enumerate(cases):
         reps, cand, corr, ids, pos, s_pos = _slse_case(B, k, dtype, i,
                                                        masked)
@@ -250,14 +320,14 @@ def phase_train_kernels() -> dict:
             if not bool(torch.isfinite(a).all()):
                 raise AssertionError(f"{label} {dtype}: {key} not finite")
             err = (a - b).abs().max().item()
-            bound = tol * b.abs().max().item()
+            limit = tol * b.abs().max().item()
             errs[key] = err
             say("train_kernels", case=label, B=B, k=k, dtype=dtype,
                 output=key, max_abs_err=err, tol=f"{tol}*max|plain|",
-                bound=bound)
-            if err > bound:
+                bound=limit)
+            if err > limit:
                 raise AssertionError(f"{label} {dtype}: {key} error {err} "
-                                     f"> {bound}")
+                                     f"> {limit}")
         if masked:
             got = out["kernel"]
             if got["lse"][0].item() > -1e29 or bool(got["dreps"][0].any()):
@@ -272,8 +342,16 @@ def phase_train_kernels() -> dict:
         bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["dreps"],
                                  errs["dC"], errs["dcorr"])
         if i == 0:
-            fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"])
-            bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"])
+            # One product of [B, d] by [d, k] a pass: K1 makes one, K2
+            # three (z again, dC and dreps); inputs read once, outputs
+            # written once.
+            ins = nbytes(reps, cand, corr, ids, pos)
+            fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"],
+                       **bound(2 * B * k * D, ins + 4 * B, dtype))
+            bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"],
+                       **bound(6 * B * k * D,
+                               ins + 8 * B + nbytes(reps, cand, corr),
+                               dtype))
         del out
         torch.cuda.empty_cache()
     return records
@@ -549,6 +627,361 @@ def phase_serve_trained(root: str, data_dir: str, run_dir: str,
         launches=json.dumps(launches).replace(" ", ""))
 
 
+def _xent_case(B, E, d, layout, seed):
+    """Seeded inputs on the card: pooled reps, an entity matrix in
+    ``layout`` scaled as an initialized one, a small bias, labels."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pooled = 0.5 * torch.randn(B, d, generator=g, device="cuda")
+    W = torch.randn((d, E) if layout == "de" else (E, d), generator=g,
+                    device="cuda") * (2.0 / d ** 0.5)
+    b = 0.1 * torch.randn(E, generator=g, device="cuda")
+    labels = torch.randint(0, E, (B,), generator=g, device="cuda")
+    return pooled, W, b, labels
+
+
+def _xent_outputs(fn, pooled, W, b, labels, layout, dtype, iters):
+    """Loss and gradients of the mean loss, and CUDA-event times of the
+    forward and of the backward alone."""
+    import torch
+    p, w, bb = (t.clone().requires_grad_(True) for t in (pooled, W, b))
+    loss = fn(p, w, bb, labels, layout, dtype)
+    mean = loss / pooled.shape[0]
+    grads = torch.autograd.grad(mean, [p, w, bb], retain_graph=True)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: fn(pooled, W, b, labels, layout, dtype),
+                         iters=iters, warmup=1)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        mean, [p, w, bb], retain_graph=True), iters=iters, warmup=1)
+    return dict(loss=loss.detach(), dpooled=grads[0], dW=grads[1],
+                db=grads[2], fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+
+def _xent_work(B, E, d, pooled, W, b, labels):
+    """(K5 flops, K5 bytes, K6 flops, K6 bytes): one [B, d] x [d, E]
+    product in K5, three in K6 (z again, dW, dpooled); inputs read once,
+    outputs written once."""
+    ins = nbytes(pooled, W, b, labels)
+    return (2 * B * E * d, ins + 4 * B, 6 * B * E * d,
+            ins + 8 * B + nbytes(pooled, W, b))
+
+
+def phase_xent_kernels() -> dict:
+    """K5 and K6 against xent_loss_plain + autograd on the same inputs.
+    Returns the kernel records of the cerc case (the log-linear training
+    path's variant), with errors maxed over every case."""
+    import torch
+    from sert_tpu_torch.ops import xent
+    src = "sert_tpu_torch/csrc/xent.cu"
+    records = {
+        "xent_fwd": dict(name="xent_fwd", route="cuda", source=src,
+                         replaces="sert_tpu/ops/xent.py:152", launches=0,
+                         max_abs_err=0.0, library_ms=None),
+        "xent_bwd": dict(name="xent_bwd", route="cuda", source=src,
+                         replaces="sert_tpu/ops/xent.py:219", launches=0,
+                         max_abs_err=0.0, library_ms=None)}
+    cases = [("cerc", 1024, 3500, 256, "de", "float32"),
+             ("w3c_ragged", 1000, 1100, 128, "de", "float32"),
+             ("lse_full_128k", 4096, 131072, 128, "ed", "bfloat16"),
+             ("lse_full_tail", 4096, 131071, 128, "ed", "bfloat16"),
+             ("cerc_bf16", 1024, 3500, 256, "de", "bfloat16")]
+    for i, (label, B, E, d, layout, dtype) in enumerate(cases):
+        x = _xent_case(B, E, d, layout, 100 + i)
+        iters = 3 if E > 100_000 else 10
+        k_ = _xent_outputs(xent.xent_loss, *x, layout, dtype, iters)
+        p_ = _xent_outputs(xent.xent_loss_plain, *x, layout, dtype, iters)
+        with torch.no_grad():
+            k_["lse"] = xent.xent_lse(*x[:3], layout, dtype)
+            p_["lse"] = xent.xent_lse_plain(*x[:3], layout, dtype)
+        errs = {}
+        for key in ("loss", "lse", "dpooled", "dW", "db"):
+            a, b = k_[key].float(), p_[key].float()
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{label}: {key} not finite")
+            errs[key] = err = (a - b).abs().max().item()
+            rtol = XENT_SUM_RTOL if key in ("loss", "lse") else XENT_TOL[dtype]
+            tol = rtol * b.abs().max().item()
+            say("xent_kernels", case=label, B=B, E=E, d=d, layout=layout,
+                dtype=dtype, output=key, max_abs_err=err,
+                tol=f"{rtol}*max|plain|", bound=tol)
+            if err > tol:
+                raise AssertionError(f"{label}: {key} error {err} > {tol}")
+        f_flops, f_bytes, b_flops, b_bytes = _xent_work(B, E, d, *x)
+        fb, bb = bound(f_flops, f_bytes, dtype), bound(b_flops, b_bytes,
+                                                       dtype)
+        say("xent_kernels", case=label, fwd_ms=k_["fwd_ms"],
+            fwd_plain_ms=p_["fwd_ms"], fwd_bound_ms=fb["bound_ms"],
+            bwd_ms=k_["bwd_ms"], bwd_plain_ms=p_["bwd_ms"],
+            bwd_bound_ms=bb["bound_ms"], bound_by=fb["bound_by"])
+        fwd, bwd = records["xent_fwd"], records["xent_bwd"]
+        fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["loss"],
+                                 errs["lse"])
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["dpooled"],
+                                 errs["dW"], errs["db"])
+        if i == 0:
+            fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"], **fb)
+            bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"], **bb)
+        del k_, p_, x
+        torch.cuda.empty_cache()
+
+    # K5 alone at the normalizer's shape: 64 queries x 16 terms, fp32.
+    pooled, W, b, _ = _xent_case(64 * 16, 3500, 256, "de", 200)
+    got = xent.xent_lse(pooled, W, b, "de", "float32")
+    want = xent.xent_lse_plain(pooled, W, b, "de", "float32")
+    err = (got - want).abs().max().item()
+    tol = XENT_SUM_RTOL * want.abs().max().item()
+    say("xent_kernels", case="normalizer", rows=64 * 16, E=3500, d=256,
+        max_abs_err=err, tol=tol,
+        ms=cuda_ms(lambda: xent.xent_lse(pooled, W, b, "de", "float32")),
+        plain_ms=cuda_ms(lambda: xent.xent_lse_plain(pooled, W, b, "de",
+                                                     "float32")))
+    if err > tol:
+        raise AssertionError(f"normalizer lse error {err} > {tol}")
+    records["xent_fwd"]["max_abs_err"] = max(
+        records["xent_fwd"]["max_abs_err"], err)
+
+    # K5/K6 alone at lse_full's flagship shape; the plain forward in chunks
+    # of entities (the whole [B, E] fp32 logits would be 16 GB).
+    B, E, d = B_TRAIN, 1_000_000, D
+    pooled, W, b, labels = _xent_case(B, E, d, "ed", 300)
+    got = xent.xent_lse(pooled, W, b, "ed", "bfloat16")
+
+    def plain_lse():
+        out = torch.full((B,), -float("inf"), device="cuda")
+        for lo in range(0, E, 1 << 16):
+            z = xent._logits_plain(pooled, W[lo:lo + (1 << 16)],
+                                   b[lo:lo + (1 << 16)], "ed",
+                                   torch.bfloat16)
+            out = torch.logaddexp(out, torch.logsumexp(z, dim=-1))
+        return out
+
+    with torch.no_grad():
+        want = plain_lse()
+        err = (got - want).abs().max().item()
+        tol = XENT_SUM_RTOL * want.abs().max().item()
+        fwd_ms = cuda_ms(lambda: xent.xent_loss(pooled, W, b, labels, "ed",
+                                                "bfloat16"), iters=3)
+        plain_ms = cuda_ms(plain_lse, iters=3, warmup=1)
+    p, w = pooled.clone().requires_grad_(True), W.clone().requires_grad_(True)
+    mean = xent.xent_loss(p, w, b, labels, "ed", "bfloat16") / B
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(mean, [p, w],
+                                                 retain_graph=True),
+                     iters=3, warmup=1)
+    f_flops, f_bytes, b_flops, b_bytes = _xent_work(B, E, d, pooled, W, b,
+                                                    labels)
+    say("xent_kernels", case="lse_full_flagship", B=B, E=E, d=d,
+        layout="ed", dtype="bfloat16", lse_max_abs_err=err, tol=tol,
+        fwd_ms=fwd_ms, fwd_plain_chunked_ms=plain_ms,
+        fwd_bound_ms=bound(f_flops, f_bytes, "bfloat16")["bound_ms"],
+        bwd_ms=bwd_ms,
+        bwd_bound_ms=bound(b_flops, b_bytes, "bfloat16")["bound_ms"])
+    if err > tol:
+        raise AssertionError(f"flagship lse error {err} > {tol}")
+    del p, w, mean, pooled, W, b, labels
+    torch.cuda.empty_cache()
+    return records
+
+
+def _train_log(run_dir: str):
+    """(logged train steps, losses, mid-run steps/s) of a run's JSONL log;
+    the first logged interval of each epoch holds its warm-up."""
+    logs = [json.loads(line) for line in
+            open(os.path.join(run_dir, "train_log.jsonl"))]
+    steps = [r for r in logs if r["event"] == "train_step"]
+    first = {min(r["step"] for r in steps if r["epoch"] == e)
+             for e in {r["epoch"] for r in steps}}
+    return (steps, [r["loss"] for r in steps],
+            [r["steps_per_sec"] for r in steps if r["step"] not in first])
+
+
+def _spread(xs) -> str:
+    """min / median / max of a list of rates, and how many there are."""
+    xs = sorted(xs)
+    return (f"{xs[0]:.2f}/{xs[len(xs) // 2]:.2f}/{xs[-1]:.2f}(n={len(xs)})"
+            if xs else "none")
+
+
+def _check_falling(losses) -> None:
+    if len(losses) < 2 or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss is not finite and falling: {losses}")
+
+
+def phase_train_loglinear(root: str) -> dict:
+    """cerc_expert_finding end to end on the card; returns the launches by
+    kernel of that run."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch import pipeline, recipes
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.data.instances import InstanceDataset
+    from sert_tpu_torch.data.prepare import VOCAB_NAME, encode_queries
+    from sert_tpu_torch.data.vocab import Vocabulary
+    from sert_tpu_torch.ops import gather_rescore as k4
+    from sert_tpu_torch.ops import score_binmax as k3
+    from sert_tpu_torch.ops import xent
+    from sert_tpu_torch.scoring import scorer
+    from sert_tpu_torch.scoring.run import pad_queries, stage_entities
+    from sert_tpu_torch.train import checkpoint as ckpt
+    from sert_tpu_torch.train.step import init_state, make_train_step
+
+    recipe = load_recipe("cerc_expert_finding")
+    t0 = time.perf_counter()
+    col = recipes.CERC_SYNTH.build()
+    work = os.path.join(root, "cerc")
+    data_dir, run_dir = os.path.join(work, "data"), os.path.join(work, "run")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    xent.fwd_launches = xent.bwd_launches = 0
+    k3.launches = k4.launches = 0
+    results = pipeline.run_end_to_end(col, recipe, work, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches,
+                "score_binmax": k3.launches, "gather_rescore": k4.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps, losses, mid_sps = _train_log(run_dir)
+    n_steps = max(ckpt.list_checkpoints(os.path.join(run_dir,
+                                                     "checkpoints")))
+    meta = InstanceDataset(data_dir).meta
+    say("train_loglinear", build_collection_s=t1 - t0, e2e_s=t2 - t1,
+        instances=meta["num_instances"], vocab=meta["vocab_size"],
+        entities=meta["num_entities"], steps=n_steps,
+        first_loss=losses[0], last_loss=losses[-1],
+        mid_run_steps_per_sec=_spread(mid_sps),
+        ndcg_at_100=results["all"]["ndcg@100"],
+        recall_at_100=results["all"]["recall@100"], peak_mem_bytes=peak,
+        launches=json.dumps(launches).replace(" ", ""))
+    _check_falling(losses)
+    n_batches = -(-len(col.topics) // recipe.score.query_batch)
+    if launches["xent_bwd"] != n_steps or \
+            launches["xent_fwd"] != n_steps + n_batches or \
+            min(launches.values()) < 1:
+        raise AssertionError(f"launches {launches} for {n_steps} steps and "
+                             f"{n_batches} query batches")
+
+    # The served top 100 against the exact dense log-probs of the trained
+    # params (launches here are checks, not the path).
+    resolved = pipeline.resolve_model_config(recipe, meta)
+    cfg = resolved.model
+    params, vocab, _ = pipeline.load_scorer(run_dir, data_dir, resolved,
+                                            device="cuda")
+    encoded = encode_queries(col.topics, Vocabulary.load(
+        os.path.join(data_dir, VOCAB_NAME)), resolved.data)
+    _, term_ids, num_terms = pad_queries(encoded)
+    t = torch.from_numpy(term_ids).cuda()
+    m = torch.from_numpy(num_terms).cuda()
+    k = min(100, cfg.num_entities)
+    with torch.no_grad():
+        dense = scorer.dense_scores(params, cfg, t, m)
+        top_s, top_i = scorer.pallas_topk(
+            params, cfg, t, m, k=k, prep=stage_entities(params, cfg,
+                                                        resolved.score))
+    live = (m > 0).nonzero()[:, 0]
+    oracle = torch.topk(dense, k, dim=1).indices
+    recall = min(len(set(top_i[q].tolist()) & set(oracle[q].tolist())) / k
+                 for q in live.tolist())
+    # Relative to the larger of the score and its un-normalized sum: a
+    # log-prob near 0 is the difference of that sum and a normalizer of the
+    # same size (tens to hundreds once trained), so fp32 leaves it an
+    # absolute error of that size's last bits. Held to LL_SCORE_RTOL of
+    # that scale (on the H100: 7.5e-7 measured; relative to the score
+    # alone the same run read 1.068e-4).
+    want = torch.gather(dense, 1, top_i)[live]
+    R = scorer._query_reps_and_terms(params, cfg, t, m, "dot")[0]
+    raw = (R.float() @ scorer._entity_matrix(params, cfg, "dot").T
+           + m.float()[:, None] * params["proj_b"].float())
+    scale = torch.maximum(want.abs(), torch.gather(raw, 1, top_i)[live].abs())
+    rel = ((top_s[live] - want).abs() / scale).max().item()
+    say("train_loglinear", served_queries=len(live), min_recall_at_100=recall,
+        max_score_rel_err=rel)
+    if recall < LL_RECALL_MIN or rel > LL_SCORE_RTOL:
+        raise AssertionError(f"served top 100: recall {recall}, score "
+                             f"error {rel}")
+    del params, dense, raw
+
+    # The first steps through K5/K6 against the plain version on the card,
+    # on the same batches from the same initial state.
+    ds = InstanceDataset(data_dir, seed=recipe.train.seed)
+    horizon = recipe.train.num_epochs * ds.num_batches_per_epoch(
+        recipe.train.batch_size)
+    tcfg = dataclasses.replace(recipe.train, steps_per_call=1,
+                               lr_decay_steps=horizon)
+    batches = []
+    for batch, _ in ds.iter_batches(tcfg.batch_size, epoch=0):
+        batches.append({k: torch.from_numpy(v).cuda()
+                        for k, v in batch.items()})
+        if len(batches) == PARITY_STEPS:
+            break
+    runs, counts = {}, {}
+    for fused in ("auto", "off"):
+        mcfg = dataclasses.replace(cfg, fused_softmax=fused)
+        state = init_state(tcfg.seed, mcfg, tcfg, device="cuda")
+        step = make_train_step(mcfg, tcfg)
+        xent.fwd_launches = xent.bwd_launches = 0
+        runs[fused] = [step(state, b)[1]["loss"].item() for b in batches]
+        counts[fused] = (xent.fwd_launches, xent.bwd_launches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["auto"], runs["off"]))
+    say("train_loglinear", parity_steps=PARITY_STEPS,
+        fused_losses=json.dumps(runs["auto"]),
+        plain_losses=json.dumps(runs["off"]), max_rel_diff=rel,
+        rtol=PARITY_RTOL, launches=json.dumps(counts).replace(" ", ""))
+    if rel > PARITY_RTOL or counts != {"auto": (PARITY_STEPS,) * 2,
+                                       "off": (0, 0)}:
+        raise AssertionError(f"fused and plain steps differ by {rel}, or "
+                             f"took the wrong paths: {counts}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_lse_full(root: str) -> dict:
+    """The flagship's width with the full softmax (lse_full) for a few
+    steps; returns the launches by kernel of that run."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch import pipeline
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.fixture import write_training_fixture
+    from sert_tpu_torch.ops import xent
+
+    r = load_recipe(RECIPE)
+    recipe = dataclasses.replace(
+        r, name="lse_full_1m",
+        model=dataclasses.replace(r.model, model="lse_full"),
+        train=dataclasses.replace(r.train, num_epochs=1, log_every_steps=4,
+                                  final_snapshot="params"))
+    t0 = time.perf_counter()
+    data_dir, _, _ = write_training_fixture(
+        os.path.join(root, "full"), recipe, V, E, LSE_FULL_STEPS * B_TRAIN,
+        seed=SEED)
+    run_dir = os.path.join(root, "full", "run")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    xent.fwd_launches = xent.bwd_launches = 0
+    state, _ = pipeline.train_from_dir(recipe, data_dir, run_dir,
+                                       resume=False, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches}
+    steps, losses, mid_sps = _train_log(run_dir)
+    say("train_lse_full", fixture_s=t1 - t0, train_s=t2 - t1,
+        steps=state.step, losses=json.dumps(losses),
+        mid_run_steps_per_sec=json.dumps(mid_sps),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches=json.dumps(launches).replace(" ", ""))
+    if state.step != LSE_FULL_STEPS:
+        raise AssertionError(f"{state.step} steps, not {LSE_FULL_STEPS}")
+    _check_falling(losses)
+    if set(launches.values()) != {state.step}:
+        raise AssertionError(f"K5/K6 launched {launches} times for "
+                             f"{state.step} steps")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import sert_tpu_torch  # noqa: F401  (fails outside a checkout)
     import torch
@@ -556,6 +989,7 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     records.update(phase_train_kernels())
+    records.update(phase_xent_kernels())
     with tempfile.TemporaryDirectory() as root:
         data_dir, run_dir, topics, oracle_top, launches = phase_serve(root)
         torch.cuda.empty_cache()
@@ -563,6 +997,12 @@ def main() -> int:
         data_dir, run_dir, topics, qrels, train_launches = phase_train(root)
         launches.update(train_launches)
         phase_serve_trained(root, data_dir, run_dir, topics, qrels)
+        # Each path's launches are counted from 0 over that path alone;
+        # a kernel's record sums the paths it serves.
+        for path in (phase_train_loglinear(root),
+                     phase_train_lse_full(root)):
+            for name, n in path.items():
+                launches[name] = launches.get(name, 0) + n
     for name, rec in records.items():
         rec["launches"] = launches[name]
     print(json.dumps({"kernels": list(records.values())}))

@@ -3,20 +3,22 @@
 The JAX package ``sert_tpu`` stays the reference; this package mirrors its
 module names (``models/``, ``ops/``, ``scoring/``, ``train/``,
 ``data/feeder``, ``pipeline``, ``serving``, ``cli``) so each module's
-counterpart is found by name. It imports ``torch`` and never ``jax``:
-jax-free host code (``sert_tpu.data``, ``sert_tpu.eval``,
-``sert_tpu.recipes``, ``sert_tpu.utils.config``) is reused, and everything under
-``sert_tpu.models`` / ``sert_tpu.scoring`` (whose packages import jax) is
-written again here.
+counterpart is found by name. It imports ``torch`` and never ``jax``, and
+nothing of ``sert_tpu``: the host code it shares with the reference
+(``data/``, ``eval/``, ``native/``, ``recipes``, ``utils/config``,
+``utils/logging``) is its own copy, with the same on-disk formats, so each
+package reads the other's data dirs, recipes, checkpoints and runs.
 
-What runs today is the LSE family end to end: prepare (the reference's
-host code), training with the sampled softmax (window reps -> candidate
-gather -> the K1/K2 masked logsumexp -> dense adam/adagrad/sgd, epoch
+What runs today is every model family end to end: prepare, training
+(log-linear and ``lse_full`` with the full softmax through K5/K6, LSE with
+the sampled softmax through K1/K2; dense adam/adagrad/sgd, epoch
 snapshots, exact resume), and serving (checkpoint -> query reps -> the K3
 score + bin-max sweep -> bin top-k -> the K4 gather-rescore -> final
-top-k), behind ``pipeline``, ``EntitySearcher`` and ``python -m
-sert_tpu_torch``. Every Pallas kernel on those paths is a CUDA C++ kernel
-for sm_90a in ``csrc/``, built at first use by ``ops/_build.py``.
+top-k, and for log-linear the exact normalizer through K5), behind
+``pipeline``, ``EntitySearcher`` and ``python -m sert_tpu_torch``. Every
+Pallas kernel on those paths is a CUDA C++ kernel for sm_90a in
+``csrc/``, built at first use by ``ops/_build.py``. Entry points run on
+the CUDA card unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

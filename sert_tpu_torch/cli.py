@@ -9,10 +9,11 @@
   python -m sert_tpu_torch serve     — stdin queries -> ranked entities
   python -m sert_tpu_torch e2e       — synthetic recipe end to end
 
-``train``, ``query``, ``serve`` and ``e2e`` take ``--device`` (default: the
-first CUDA device when there is one, else the CPU); ``prepare`` is host
-code. The lm ranker, ``fuse``, ``report``, ``sweep``, ``dump``,
-``neighbors`` and ``serve --http`` are not ported yet.
+``train``, ``query``, ``serve`` and ``e2e`` run on the CUDA card; they take
+``--device cpu`` to run on the CPU, and without a card and without it they
+stop with that advice. ``prepare`` is host code. The lm ranker, ``fuse``,
+``report``, ``sweep``, ``dump``, ``neighbors`` and ``serve --http`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -31,14 +32,14 @@ def _add_recipe_arg(p: argparse.ArgumentParser) -> None:
 
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, "
-                        "else cpu)")
+                   help="torch device (default: the CUDA card; pass cpu to "
+                        "run on the CPU)")
 
 
 def load_recipe(spec: str):
     """A named recipe (see `list`) or a recipe JSON file."""
-    from sert_tpu import recipes
-    from sert_tpu.utils.config import load_recipe as load_recipe_file
+    from sert_tpu_torch import recipes
+    from sert_tpu_torch.utils.config import load_recipe as load_recipe_file
     if spec in recipes.RECIPES:
         return recipes.RECIPES[spec]()
     if os.path.exists(spec):
@@ -50,9 +51,8 @@ def load_recipe(spec: str):
 def _prepare(recipe, args) -> None:
     """The reference's prepare command: the synthetic stand-in (with its
     topics and qrels), Amazon reviews, or TREC expert finding."""
-    from sert_tpu import recipes
-    from sert_tpu.data.prepare import prepare
-    from sert_tpu_torch import pipeline
+    from sert_tpu_torch import pipeline, recipes
+    from sert_tpu_torch.data.prepare import prepare
     if args.synthetic or not (args.trec_docs or args.amazon_reviews):
         spec = recipes.SYNTH_SPECS.get(recipe.name)
         if spec is None:
@@ -62,11 +62,11 @@ def _prepare(recipe, args) -> None:
             spec = recipes.tiny_spec()
         col = spec.build()
         pipeline.prepare_collection(col, args.out, recipe)
-        from sert_tpu.eval.trec import write_qrels, write_topics
+        from sert_tpu_torch.eval.trec import write_qrels, write_topics
         write_topics(col.topics, os.path.join(args.out, "topics.tsv"))
         write_qrels(col.qrels, os.path.join(args.out, "qrels.trec"))
     elif args.amazon_reviews:
-        from sert_tpu.data.corpus import build_product_collection
+        from sert_tpu_torch.data.corpus import build_product_collection
         docs, assoc, registry = build_product_collection(args.amazon_reviews)
         prepare(docs, assoc, registry, args.out, recipe.data)
     else:
@@ -74,9 +74,10 @@ def _prepare(recipe, args) -> None:
             raise SystemExit(
                 "TREC expert-finding prepare needs --candidates "
                 "(id<TAB>name<TAB>email... file)")
-        from sert_tpu.data.corpus import (build_expert_associations,
-                                          iter_trec_docs, load_candidates,
-                                          trec_collection_files)
+        from sert_tpu_torch.data.corpus import (build_expert_associations,
+                                                iter_trec_docs,
+                                                load_candidates,
+                                                trec_collection_files)
         files = []
         for spec in args.trec_docs:
             files.extend(trec_collection_files(spec)
@@ -167,7 +168,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     if args.cmd == "list":
-        from sert_tpu import recipes
+        from sert_tpu_torch import recipes
         for name in recipes.RECIPES:
             print(name)
         return 0
@@ -188,8 +189,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.cmd == "e2e":
         recipe = load_recipe(args.recipe)
-        from sert_tpu import recipes
-        from sert_tpu_torch import pipeline
+        from sert_tpu_torch import pipeline, recipes
+        device = pipeline.resolve_device(args.device)
         if recipe.name == "synthetic_10m_scoring":
             raise SystemExit(
                 "synthetic_10m_scoring is a scoring-only benchmark recipe")
@@ -200,22 +201,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                   file=sys.stderr)
             spec = recipes.tiny_spec()
         results = pipeline.run_end_to_end(spec.build(), recipe, args.workdir,
-                                          device=args.device)
+                                          device=device)
         print(json.dumps(results["all"], indent=2, sort_keys=True))
         return 0
 
     if args.cmd == "query":
         recipe = load_recipe(args.recipe)
-        from sert_tpu.data.instances import InstanceDataset
-        from sert_tpu.data.prepare import encode_queries
-        from sert_tpu.eval.trec import read_topics, write_run
         from sert_tpu_torch import pipeline
+        from sert_tpu_torch.data.instances import InstanceDataset
+        from sert_tpu_torch.data.prepare import encode_queries
+        from sert_tpu_torch.eval.trec import read_topics, write_run
         from sert_tpu_torch.scoring.run import score_topics
         if not args.run_dir:
             raise SystemExit("--run-dir is required with --ranker model")
+        device = pipeline.resolve_device(args.device)
         ds = InstanceDataset(args.data)
         resolved = pipeline.resolve_model_config(recipe, ds.meta)
-        device = args.device or pipeline.default_device()
         try:
             params, vocab, registry = pipeline.load_scorer(
                 args.run_dir, args.data, resolved, step=args.step,
@@ -235,15 +236,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     if args.cmd == "evaluate":
-        from sert_tpu.eval.metrics import DEFAULT_MEASURES, evaluate_run
-        from sert_tpu.eval.trec import read_qrels, read_run
+        from sert_tpu_torch.eval.metrics import DEFAULT_MEASURES, evaluate_run
+        from sert_tpu_torch.eval.trec import read_qrels, read_run
         run = read_run(args.run)
         qrels = read_qrels(args.qrels)
         measures = tuple(args.measures) if args.measures else DEFAULT_MEASURES
         results = evaluate_run(run, qrels, measures,
                                judged_only=args.judged_only)
         if args.compare:
-            from sert_tpu.eval.significance import compare_runs
+            from sert_tpu_torch.eval.significance import compare_runs
             run_b = read_run(args.compare)
             results_b = evaluate_run(run_b, qrels, measures,
                                      judged_only=args.judged_only)
@@ -272,6 +273,7 @@ def console_main(argv: Optional[List[str]] = None) -> int:
     """Entry point for `python -m sert_tpu_torch`: expected user errors
     print one clean line instead of a traceback; set SERT_TPU_DEBUG=1 to
     re-raise them."""
+    from sert_tpu_torch.pipeline import NoCudaDevice
     try:
         return main(argv)
     except KeyboardInterrupt:
@@ -283,7 +285,8 @@ def console_main(argv: Optional[List[str]] = None) -> int:
             pass
         return 0
     except (FileNotFoundError, NotADirectoryError, IsADirectoryError,
-            PermissionError, ValueError, NotImplementedError) as e:
+            PermissionError, ValueError, NotImplementedError,
+            NoCudaDevice) as e:
         if os.environ.get("SERT_TPU_DEBUG"):
             raise
         print(f"error: {e}", file=sys.stderr)

@@ -31,15 +31,15 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 import torch
 
-from sert_tpu.data.assoc import Associations, EntityRegistry
-from sert_tpu.data.instances import META_NAME, InstanceWriter
-from sert_tpu.data.prepare import ASSOC_NAME, ENTITIES_NAME, VOCAB_NAME
-from sert_tpu.data.vocab import Vocabulary
-from sert_tpu.eval.trec import read_run, write_qrels, write_topics
-from sert_tpu.utils.config import RecipeConfig
+from sert_tpu_torch.data.assoc import Associations, EntityRegistry
+from sert_tpu_torch.data.instances import META_NAME, InstanceWriter
+from sert_tpu_torch.data.prepare import ASSOC_NAME, ENTITIES_NAME, VOCAB_NAME
+from sert_tpu_torch.data.vocab import Vocabulary
+from sert_tpu_torch.eval.trec import read_run, write_qrels, write_topics
 from sert_tpu_torch.models import api
 from sert_tpu_torch.pipeline import resolve_model_config
 from sert_tpu_torch.train.checkpoint import save_params_checkpoint
+from sert_tpu_torch.utils.config import RecipeConfig
 
 
 def term(i: int, width: int = 4) -> str:

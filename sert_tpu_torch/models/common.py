@@ -9,7 +9,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from sert_tpu.utils.config import ModelConfig
+from sert_tpu_torch.utils.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
 
@@ -20,6 +20,19 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.float32 if cfg.param_dtype == "float32" else torch.bfloat16
+
+
+def use_fused(cfg: ModelConfig, device: torch.device) -> bool:
+    """Whether a loss takes its kernel path (K1/K2 for the sampled
+    objective, K5/K6 for the full softmax): "on" always, "off" never (the
+    plain version, on any device), "auto" on CUDA tensors. The reference's
+    thresholds (k >= 2048, E >= 4096) and VMEM plans are TPU measurements
+    and are not carried over."""
+    if cfg.fused_softmax == "on":
+        return True
+    if cfg.fused_softmax == "off":
+        return False
+    return device.type == "cuda"
 
 
 def unit_rows(x: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,16 @@
 """LSE — Latent Semantic Entities (port of ``sert_tpu/models/lse.py``:
 ``init`` :33, ``noise_logits`` :45, ``window_rep`` :59,
 ``sample_negatives`` :69, ``sampled_softmax_inputs`` :139,
-``loss_sampled_softmax`` :171, ``query_scores`` :377).
+``loss_sampled_softmax`` :171, ``loss_full_softmax`` :222,
+``query_scores`` :377).
 
 word embeddings -> masked-mean pooling -> ``tanh(x W + b)`` into entity
 space -> similarity against ``entity_emb`` [E, d_e]. Trained with the
 importance-corrected sampled softmax over batch-shared negatives, whose
 masked logsumexp runs through the K1/K2 kernels (``ops/sampled_lse``) on
-the card. The binary NCE objective (``loss`` :86) and the full softmax
-(``loss_full_softmax`` :222) are not ported yet (ROADMAP Queue 1 items 7
-and 6).
+the card, or (``lse_full``) with the full softmax over every entity, whose
+cross-entropy runs through K5/K6 (``ops/xent``). The binary NCE objective
+(``loss`` :86) is not ported yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -21,11 +22,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sert_tpu.utils.config import ModelConfig
 from sert_tpu_torch.models.common import (Params, compute_dtype,
                                           masked_mean_embed, param_dtype,
-                                          scaled_normal_init, unit_rows)
+                                          scaled_normal_init, unit_rows,
+                                          use_fused)
 from sert_tpu_torch.ops.sampled_lse import MASKED, sampled_lse
+from sert_tpu_torch.ops.xent import xent_loss, xent_loss_plain
+from sert_tpu_torch.utils.config import ModelConfig
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,
@@ -141,18 +144,6 @@ def sampled_softmax_inputs(params: Params, batch, cfg: ModelConfig,
     return reps, cand, corr, negatives, pos, s_pos
 
 
-def _use_fused_sampled(cfg: ModelConfig, device: torch.device) -> bool:
-    """Whether the sampled objective's masked logsumexp goes through
-    ``ops.sampled_lse.sampled_lse`` (K1/K2 on CUDA): "on" always, "off"
-    never, "auto" on CUDA tensors. The reference's k >= 2048 threshold and
-    VMEM plan are TPU measurements and are not carried over."""
-    if cfg.fused_softmax == "on":
-        return True
-    if cfg.fused_softmax == "off":
-        return False
-    return device.type == "cuda"
-
-
 def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
                          generator: Optional[torch.Generator] = None,
                          negatives: Optional[torch.Tensor] = None,
@@ -166,7 +157,7 @@ def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
     reps, cand, corr, negatives, pos, s_pos = sampled_softmax_inputs(
         params, batch, cfg, generator=generator, negatives=negatives,
         noise=noise)
-    if _use_fused_sampled(cfg, reps.device):
+    if use_fused(cfg, reps.device):
         # lse([s_pos, s_neg*]) - s_pos = softplus(lse(s_neg*) - s_pos)
         lse_neg = sampled_lse(reps, cand, corr, negatives, pos,
                               dtype=cfg.compute_dtype)
@@ -177,3 +168,21 @@ def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
     lse_all = torch.logsumexp(torch.cat([s_pos[:, None], s_neg], dim=1),
                               dim=-1)
     return torch.mean(lse_all - s_pos)
+
+
+def loss_full_softmax(params: Params, batch, cfg: ModelConfig,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean full-softmax cross-entropy over all entities (``lse_full``):
+    the window reps against ``entity_emb`` in its [E, d] ("ed") layout with
+    a zero bias, through K5/K6 when :func:`use_fused` says so, else their
+    plain version :func:`ops.xent.xent_loss_plain`."""
+    del generator, noise   # the full softmax samples nothing
+    reps = window_rep(params, batch["windows"], batch["lengths"], cfg)
+    ent = params["entity_emb"]
+    zeros_b = torch.zeros((cfg.num_entities,), dtype=torch.float32,
+                          device=reps.device)
+    fn = xent_loss if use_fused(cfg, reps.device) else xent_loss_plain
+    total = fn(reps, ent, zeros_b, batch["entities"].long(), "ed",
+               dtype=cfg.compute_dtype)
+    return total / batch["windows"].shape[0]

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (``sert_tpu_torch/csrc/*.cu``).
 
-The kernels have a plain C interface and are loaded with ``ctypes``: nvcc
-compiles every ``csrc/*.cu`` into one shared library for ``sm_90a`` at
-first use, in a few seconds, with no PyTorch headers involved. The library
+The kernels have a plain C interface and are loaded with ``ctypes``: at
+first use one nvcc per ``csrc/*.cu`` compiles it for ``sm_90a`` (all of
+them at once, in parallel), with no PyTorch headers involved, and a last
+nvcc links the objects into one shared library. The library
 lands in ``build/`` beside the package (git-ignored), named by a hash of
 the sources and flags, so an unchanged tree reuses it and a changed one
 rebuilds. Pointers and the stream go over as ``c_void_p``; every entry
@@ -28,10 +29,11 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # Every exported entry point and its C signature (all return cudaError_t).
 _SIGNATURES = {
     "sert_score_binmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -39,6 +41,8 @@ _SIGNATURES = {
     "sert_gather_rescore_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sert_sampled_lse_fwd": [_P] * 7 + [_I] * 6 + [_P],
     "sert_sampled_lse_bwd": [_P] * 10 + [_I] * 6 + [_P],
+    "sert_xent_fwd": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 4 + [_P],
+    "sert_xent_bwd": [_P] * 9 + [_I] * 4 + [_L] * 2 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -73,23 +77,44 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists.
-    Writes nvcc's output (with ptxas' register and spill report) beside
-    the library as ``.log``."""
+    """Compile the kernels unless a library of the same sources exists:
+    one nvcc per source, all started together, then one link. Writes the
+    compilers' output (with ptxas' register and spill report) beside the
+    library as ``.log``."""
     global last_build_seconds
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    stem = path.with_name(f"{path.stem}.{os.getpid()}")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    path.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = Path(f"{stem}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    if not failed:
+        tmp = Path(f"{stem}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    path.with_suffix(".log").write_text(text)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{text}")
     os.replace(tmp, path)       # atomic: a concurrent builder sees all or none
     last_build_seconds = time.perf_counter() - t0
     return path

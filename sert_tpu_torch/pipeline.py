@@ -1,9 +1,14 @@
 """End-to-end pipeline driver: collection -> trained model -> run ->
 metrics (port of ``sert_tpu/pipeline.py``: ``prepare_collection`` :34,
 ``resolve_model_config`` :46, ``train_from_dir`` :80, ``load_scorer``
-:106, ``run_end_to_end`` :195). Preparing is the reference's host code,
-imported as it is. Pretrained word embeddings (``load_pretrained_word_emb``
-:54) and ``sweep_checkpoints`` are ROADMAP Queue 1 item 13.
+:106, ``run_end_to_end`` :195), for every model family. Preparing is the
+port's copy of the reference's host code (``data/prepare.py``).
+Pretrained word embeddings (``load_pretrained_word_emb`` :54) and
+``sweep_checkpoints`` are ROADMAP Queue 1 item 13.
+
+Every entry point runs on the CUDA card unless its caller asks for the CPU
+(``device="cpu"``, ``--device cpu``): without a card, ``device=None``
+raises (:func:`default_device`) rather than running on the CPU.
 """
 
 from __future__ import annotations
@@ -14,17 +19,17 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from sert_tpu.data.assoc import Associations, EntityRegistry
-from sert_tpu.data.instances import InstanceDataset
-from sert_tpu.data.prepare import (ASSOC_NAME, ENTITIES_NAME, VOCAB_NAME,
-                                   encode_queries, prepare)
-from sert_tpu.data.vocab import Vocabulary
-from sert_tpu.eval.metrics import evaluate_run
-from sert_tpu.eval.trec import write_qrels, write_run, write_topics
-from sert_tpu.utils.config import RecipeConfig, save_config
-from sert_tpu.utils.logging import get_logger
+from sert_tpu_torch.data.assoc import Associations, EntityRegistry
+from sert_tpu_torch.data.instances import InstanceDataset
+from sert_tpu_torch.data.prepare import (ASSOC_NAME, ENTITIES_NAME,
+                                         VOCAB_NAME, encode_queries, prepare)
+from sert_tpu_torch.data.vocab import Vocabulary
+from sert_tpu_torch.eval.metrics import evaluate_run
+from sert_tpu_torch.eval.trec import write_qrels, write_run, write_topics
 from sert_tpu_torch.models.common import param_dtype
 from sert_tpu_torch.train import checkpoint as ckpt
+from sert_tpu_torch.utils.config import RecipeConfig, save_config
+from sert_tpu_torch.utils.logging import get_logger
 
 log = get_logger("pipeline")
 
@@ -51,8 +56,10 @@ def resolve_model_config(recipe: RecipeConfig, meta: Mapping) -> RecipeConfig:
 def train_from_dir(recipe: RecipeConfig, data_dir: str, out_dir: str,
                    resume: bool = True, init_word_emb: Optional[str] = None,
                    device=None, **loop_kwargs):
-    """Train on a prepared data dir; returns (TrainState, resolved recipe).
-    The unigram noise comes from the data dir's entity associations."""
+    """Train on a prepared data dir on ``device`` (default: the card);
+    returns (TrainState, resolved recipe). The unigram noise comes from the
+    data dir's entity associations."""
+    device = resolve_device(device)
     if init_word_emb:
         raise NotImplementedError(
             "--init-word-emb (pretrained word embeddings) is not ported yet "
@@ -72,10 +79,14 @@ def train_from_dir(recipe: RecipeConfig, data_dir: str, out_dir: str,
 
 def _check_shapes(params, recipe: RecipeConfig, path: str) -> None:
     m = recipe.model
-    want = {"word_emb": (m.vocab_size, m.word_dim),
-            "proj_w": (m.word_dim, m.entity_dim),
-            "proj_b": (m.entity_dim,),
-            "entity_emb": (m.num_entities, m.entity_dim)}
+    if m.model == "loglinear":
+        want = {"proj_w": (m.word_dim, m.num_entities),
+                "proj_b": (m.num_entities,)}
+    else:
+        want = {"proj_w": (m.word_dim, m.entity_dim),
+                "proj_b": (m.entity_dim,),
+                "entity_emb": (m.num_entities, m.entity_dim)}
+    want["word_emb"] = (m.vocab_size, m.word_dim)
     for key, shape in want.items():
         if key not in params:
             raise KeyError(f"checkpoint {path} has no param {key!r}")
@@ -87,12 +98,14 @@ def _check_shapes(params, recipe: RecipeConfig, path: str) -> None:
 
 def load_scorer(run_dir: str, data_dir: str, recipe: RecipeConfig,
                 step: Optional[int] = None, device=None):
-    """(params on ``device`` in the recipe's param dtype, vocab, registry)
-    from a checkpoint (latest, or ``step``) of ``run_dir``.
+    """(params on ``device`` (default: the card) in the recipe's param
+    dtype, vocab, registry) from a checkpoint (latest, or ``step``) of
+    ``run_dir``.
 
     Refuses a vocabulary whose hash differs from the one recorded at
     train time, and params whose shapes do not match the recipe (which
     must be resolved against the data dir's meta)."""
+    device = resolve_device(device)
     vocab = Vocabulary.load(os.path.join(data_dir, VOCAB_NAME))
     registry = EntityRegistry.load(os.path.join(data_dir, ENTITIES_NAME))
     ckpt_dir = os.path.join(run_dir, "checkpoints")
@@ -115,19 +128,36 @@ def load_scorer(run_dir: str, data_dir: str, recipe: RecipeConfig,
     return params, vocab, registry
 
 
+class NoCudaDevice(RuntimeError):
+    """No CUDA device, and the caller did not ask for the CPU."""
+
+
 def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA card. Without one this raises :class:`NoCudaDevice`: the CPU
+    runs only when the caller asks for it."""
+    if not torch.cuda.is_available():
+        raise NoCudaDevice(
+            "no CUDA device: sert_tpu_torch runs on the card by default; "
+            "pass device=\"cpu\" (--device cpu on the command line) to run "
+            "on the CPU")
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means :func:`default_device`."""
+    return default_device() if device is None else torch.device(device)
 
 
 def run_end_to_end(col, recipe: RecipeConfig, workdir: str,
                    device=None) -> Dict[str, Dict[str, float]]:
-    """prepare -> train -> score -> evaluate under ``workdir``; returns
-    per-topic metrics with the macro average under "all"."""
+    """prepare -> train -> score -> evaluate under ``workdir`` on
+    ``device`` (default: the card); returns per-topic metrics with the
+    macro average under "all"."""
     from sert_tpu_torch.scoring.run import score_topics
     from sert_tpu_torch.train.step import release_opt_state
     data_dir = os.path.join(workdir, "data")
     run_dir = os.path.join(workdir, "run")
+    device = resolve_device(device)
     os.makedirs(data_dir, exist_ok=True)
     os.makedirs(run_dir, exist_ok=True)
 

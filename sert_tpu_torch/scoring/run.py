@@ -12,11 +12,11 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sert_tpu.utils.config import ModelConfig, ScoreConfig
 from sert_tpu_torch.ops.exact_topk import (prepare_entities,
                                            resolve_rescore_dtype)
 from sert_tpu_torch.scoring.scorer import (_entity_matrix, dense_scores,
                                            pallas_topk)
+from sert_tpu_torch.utils.config import ModelConfig, ScoreConfig
 
 _NOT_PORTED = ("streaming", "approx", "distributed")
 
@@ -41,6 +41,15 @@ def resolve_engine(sc: ScoreConfig, num_entities: int,
     if device.type == "cuda" or num_entities > sc.entity_chunk:
         return "pallas"
     return "dense"
+
+
+def stage_entities(params, cfg: ModelConfig, sc: ScoreConfig):
+    """The kernel engine's one-time staging of the entity matrix
+    (ops.exact_topk.prepare_entities) in the rescore dtype ``sc`` resolves
+    for it."""
+    M = _entity_matrix(params, cfg, sc.similarity)
+    rdt = resolve_rescore_dtype(sc.rescore_dtype, *M.shape)
+    return prepare_entities(M, rescore_dtype=rdt, layout=sc.layout)
 
 
 # The engine's query-term budget; longer queries truncate.
@@ -85,9 +94,7 @@ def score_topics(
 
     engine = resolve_engine(sc, E, device)
     if engine == "pallas" and prep is None:
-        rdt = resolve_rescore_dtype(sc.rescore_dtype, E, cfg.entity_dim)
-        prep = prepare_entities(_entity_matrix(params, cfg, sc.similarity),
-                                rescore_dtype=rdt, layout=sc.layout)
+        prep = stage_entities(params, cfg, sc)
 
     B = sc.query_batch
     k = min(sc.top_k, E)
@@ -100,6 +107,7 @@ def score_topics(
         if engine == "pallas":
             return pallas_topk(params, cfg, t, m, k=k,
                                similarity=sc.similarity, prep=prep,
+                               normalize=sc.normalize_scores,
                                adaptive_bins=sc.adaptive_bins)
         scores = dense_scores(params, cfg, t, m, similarity=sc.similarity)
         return torch.topk(scores, k, dim=1)

@@ -22,16 +22,12 @@ import dataclasses
 import threading
 from typing import List, Optional, Tuple
 
-import torch
-
-from sert_tpu.data.instances import InstanceDataset
-from sert_tpu.data.prepare import encode_queries
-from sert_tpu.utils.config import RecipeConfig
 from sert_tpu_torch import pipeline
-from sert_tpu_torch.ops.exact_topk import (prepare_entities,
-                                           resolve_rescore_dtype)
-from sert_tpu_torch.scoring.run import resolve_engine, score_topics
-from sert_tpu_torch.scoring.scorer import _entity_matrix
+from sert_tpu_torch.data.instances import InstanceDataset
+from sert_tpu_torch.data.prepare import encode_queries
+from sert_tpu_torch.scoring.run import (resolve_engine, score_topics,
+                                        stage_entities)
+from sert_tpu_torch.utils.config import RecipeConfig
 
 
 class _BatchReq:
@@ -52,15 +48,14 @@ class _BatchReq:
 class EntitySearcher:
     """Load a trained run and answer ranked-entity queries repeatedly.
 
-    ``device`` defaults to the first CUDA device when there is one, else
-    the CPU; params, the staged entity matrix and every dispatch live
-    there."""
+    ``device`` defaults to the CUDA card (without one, and without
+    ``device="cpu"``, the constructor raises); params, the staged entity
+    matrix and every dispatch live there."""
 
     def __init__(self, recipe: RecipeConfig, data_dir: str, run_dir: str,
                  step: Optional[int] = None, k: int = 10,
                  query_batch: int = 16, device=None):
-        self.device = (pipeline.default_device() if device is None
-                       else torch.device(device))
+        self.device = pipeline.resolve_device(device)
         ds = InstanceDataset(data_dir)
         self.recipe = pipeline.resolve_model_config(recipe, ds.meta)
         self.params, self.vocab, self.registry = pipeline.load_scorer(
@@ -80,13 +75,8 @@ class EntitySearcher:
         self.engine = resolve_engine(self.score_cfg, self.num_entities,
                                      self.device)
         if self.engine == "pallas":
-            rdt = resolve_rescore_dtype(self.score_cfg.rescore_dtype,
-                                        self.num_entities,
-                                        self.recipe.model.entity_dim)
-            self.prep = prepare_entities(
-                _entity_matrix(self.params, self.recipe.model,
-                               self.score_cfg.similarity),
-                rescore_dtype=rdt, layout=self.score_cfg.layout)
+            self.prep = stage_entities(self.params, self.recipe.model,
+                                       self.score_cfg)
         # Micro-batcher state: pending requests + a single-leader flag,
         # guarded by one condition variable (see module docstring).
         self._bq_cond = threading.Condition()

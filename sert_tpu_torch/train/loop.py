@@ -20,13 +20,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sert_tpu.data.instances import InstanceDataset
-from sert_tpu.utils.config import RecipeConfig, config_to_dict
-from sert_tpu.utils.logging import JsonlLogger, get_logger
 from sert_tpu_torch.data.feeder import DevicePut, PrefetchFeeder
+from sert_tpu_torch.data.instances import InstanceDataset
 from sert_tpu_torch.models import lse as lse_model
+from sert_tpu_torch.pipeline import resolve_device
 from sert_tpu_torch.train import checkpoint as ckpt
 from sert_tpu_torch.train.step import TrainState, init_state, make_train_step
+from sert_tpu_torch.utils.config import RecipeConfig, config_to_dict
+from sert_tpu_torch.utils.logging import JsonlLogger, get_logger
 
 log = get_logger("train")
 
@@ -44,6 +45,14 @@ def _check_supported(recipe: RecipeConfig) -> None:
             "tunnelled link, and 'auto' resolves to off")
     if tcfg.packed_feed not in ("auto", "off"):
         raise ValueError(f"unknown packed_feed: {tcfg.packed_feed!r}")
+    if tcfg.fused_update == "on":
+        raise NotImplementedError(
+            "fused_update='on' (the optimizer applied inside the softmax "
+            "backward, kernel K7) is not ported yet (ROADMAP Queue 1 item "
+            "9: optimizer-in-backward step); 'auto' resolves to the dense "
+            "step")
+    if tcfg.fused_update not in ("auto", "off"):
+        raise ValueError(f"unknown fused_update: {tcfg.fused_update!r}")
 
 
 def _sync(device: torch.device) -> None:
@@ -54,12 +63,11 @@ def _sync(device: torch.device) -> None:
 def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
           entity_counts: Optional[np.ndarray] = None, resume: bool = True,
           device=None) -> TrainState:
-    """Run (or resume) training on ``device`` (default: the first CUDA
-    device, else the CPU); returns the final TrainState."""
+    """Run (or resume) training on ``device`` (default: the CUDA card; the
+    CPU only when asked for); returns the final TrainState."""
     _check_supported(recipe)
     mcfg, tcfg = recipe.model, recipe.train
-    device = torch.device(device or ("cuda" if torch.cuda.is_available()
-                                     else "cpu"))
+    device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     t_enter = time.perf_counter()

@@ -19,10 +19,10 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from sert_tpu.utils.config import ModelConfig, TrainConfig
-from sert_tpu.utils.logging import get_logger
 from sert_tpu_torch.models import api
 from sert_tpu_torch.models.common import Params
+from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
+from sert_tpu_torch.utils.logging import get_logger
 
 log = get_logger("train")
 
@@ -267,9 +267,13 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     check_optimizer_model_fit(model_cfg, train_cfg)
     if has_sparse_update(train_cfg):
         raise _sparse_not_ported()
-    if train_cfg.sparse_update == "auto":
+    if train_cfg.sparse_update == "auto" and model_cfg.model == "lse":
         log.info("sparse_update='auto' resolves to the dense step (the "
                  "row-sparse step is ROADMAP Queue 1 item 8)")
+    if (train_cfg.fused_update == "auto"
+            and model_cfg.model in ("loglinear", "lse_full")):
+        log.info("fused_update='auto' resolves to the dense step (the "
+                 "optimizer-in-backward step, K7, is ROADMAP Queue 1 item 9)")
     opt = make_optimizer(train_cfg)
     if loss_fn is None:
         loss_fn = api.loss_fn

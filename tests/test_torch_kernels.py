@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1/K2 sampled_lse, K3 score_binmax, K4
-gather_rescore) against their plain PyTorch versions, and the build that
-binds them.
+gather_rescore, K5/K6 xent) against their plain PyTorch versions, and the
+build that binds them.
 
 Imports nothing of JAX, so it runs on a host without it. The ``gpu`` tests
 skip without a CUDA device; on the card run
@@ -13,7 +13,8 @@ Tolerances: the kernel and its plain version multiply the same
 bf16-rounded (K3) or fp32 (K4) inputs and sum in fp32 in another order
 (rtol 1e-5, atol 1e-5). K1/K2 likewise, relative to the largest output
 (1e-4 in fp32); in bf16 the probabilities are rounded after fp32 sums that
-differ in order, so an element may land one bf16 step apart (2e-2).
+differ in order, so an element may land one bf16 step apart (2e-2). K5/K6
+the same, for the loss, lse, dpooled, dW and db.
 """
 
 import numpy as np
@@ -23,7 +24,7 @@ torch = pytest.importorskip("torch")
 
 from sert_tpu_torch.ops import _build, exact_topk  # noqa: E402
 from sert_tpu_torch.ops import gather_rescore, score_binmax  # noqa: E402
-from sert_tpu_torch.ops import sampled_lse  # noqa: E402
+from sert_tpu_torch.ops import sampled_lse, xent  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -54,7 +55,8 @@ class TestBuild:
         assert path.name.startswith("libsert_kernels-")
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
         assert {s.name for s in _build._sources()} >= {
-            "score_binmax.cu", "gather_rescore.cu", "sampled_lse.cu"}
+            "score_binmax.cu", "gather_rescore.cu", "sampled_lse.cu",
+            "xent.cu", "tile_mm.cuh"}
 
     def test_every_entry_point_is_declared(self):
         src = "".join(p.read_text() for p in _build._sources())
@@ -221,8 +223,8 @@ class TestSampledLseOnCard:
 def test_negative_sampling_repeats_on_the_card(cuda):
     """The same generator seed draws the same negatives (a 1-D cumsum on
     CUDA would not: see models.lse._cumsum)."""
-    from sert_tpu.utils.config import ModelConfig
     from sert_tpu_torch.models import lse
+    from sert_tpu_torch.utils.config import ModelConfig
     cfg = ModelConfig(model="lse", num_entities=1_000_000,
                       num_negatives=32768)
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -234,3 +236,77 @@ def test_negative_sampling_repeats_on_the_card(cuda):
     cdf = lse._cumsum(torch.softmax(noise, 0))
     for _ in range(8):
         assert torch.equal(cdf, lse._cumsum(torch.softmax(noise, 0)))
+
+
+# K5/K6 against their plain version, relative to max |plain|: one bf16 step
+# for the elementwise gradients; the loss and the lse are fp32 reductions of
+# the same rounded operands in either dtype.
+XENT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+XENT_SUM_RTOL = 1e-4
+
+
+def _xent_inputs(dev, B, E, d, layout, w_dtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pooled = 0.5 * torch.randn(B, d, generator=g, device=dev)
+    W = torch.randn((d, E) if layout == "de" else (E, d), generator=g,
+                    device=dev) * (2.0 / d ** 0.5)
+    b = 0.1 * torch.randn(E, generator=g, device=dev)
+    labels = torch.randint(0, E, (B,), generator=g, device=dev)
+    return pooled, W.to(w_dtype), b, labels
+
+
+def _xent_run(fn, pooled, W, b, labels, layout, dtype):
+    p, w, bb = (t.clone().requires_grad_(True) for t in (pooled, W, b))
+    loss = fn(p, w, bb, labels, layout, dtype)
+    grads = torch.autograd.grad(loss / pooled.shape[0], [p, w, bb])
+    return [loss.detach(), *grads]
+
+
+@pytest.mark.gpu
+class TestXentOnCard:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("layout", ["de", "ed"])
+    @pytest.mark.parametrize("B,E,d", [(256, 4096, 128), (100, 777, 24),
+                                       (64, 130, 256), (1000, 1100, 128)])
+    def test_kernels_match_plain(self, cuda, B, E, d, layout, dtype):
+        x = _xent_inputs(cuda, B, E, d, layout)
+        n = (xent.fwd_launches, xent.bwd_launches)
+        got = _xent_run(xent.xent_loss, *x, layout, dtype)
+        assert (xent.fwd_launches, xent.bwd_launches) == (n[0] + 1, n[1] + 1)
+        want = _xent_run(xent.xent_loss_plain, *x, layout, dtype)
+        for name, a, b in zip(("loss", "dpooled", "dW", "db"), got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            err = (a.float() - b.float()).abs().max().item()
+            rtol = XENT_SUM_RTOL if name == "loss" else XENT_TOL[dtype]
+            assert err <= rtol * b.abs().max().item(), name
+        lse = xent.xent_lse(x[0], x[1], x[2], layout, dtype)
+        want = xent.xent_lse_plain(x[0], x[1], x[2], layout, dtype)
+        err = (lse - want).abs().max().item()
+        assert err <= XENT_SUM_RTOL * want.abs().max().item()
+
+    def test_bf16_weights_keep_their_dtype(self, cuda):
+        x = _xent_inputs(cuda, 64, 500, 64, "ed", torch.bfloat16)
+        got = _xent_run(xent.xent_loss, *x, "ed", "bfloat16")
+        want = _xent_run(xent.xent_loss_plain, *x, "ed", "bfloat16")
+        assert got[2].dtype == torch.bfloat16
+        for i, (a, b) in enumerate(zip(got, want)):
+            err = (a.float() - b.float()).abs().max().item()
+            rtol = XENT_SUM_RTOL if i == 0 else XENT_TOL["bfloat16"]
+            assert err <= rtol * b.float().abs().max().item()
+
+    def test_backward_is_deterministic(self, cuda):
+        x = _xent_inputs(cuda, 512, 3000, 128, "de")
+        a = _xent_run(xent.xent_loss, *x, "de", "bfloat16")
+        b = _xent_run(xent.xent_loss, *x, "de", "bfloat16")
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def test_wrapper_refuses_what_the_kernels_do_not_take(self, cuda):
+        pooled, W, b, labels = _xent_inputs(cuda, 8, 16, 16, "ed")
+        with pytest.raises(ValueError, match="d <= 256"):
+            xent.xent_loss(torch.zeros(8, 300, device=cuda),
+                           torch.zeros(16, 300, device=cuda), b, labels,
+                           "ed")
+        with pytest.raises(ValueError, match="on cpu"):
+            xent.xent_loss(pooled, W, b.cpu(), labels, "ed")
+        with pytest.raises(ValueError, match="contiguous"):
+            xent.xent_loss(pooled, W.T.contiguous().T, b, labels, "ed")

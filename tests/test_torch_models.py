@@ -124,11 +124,6 @@ def test_init_keeps_reference_keys_layouts_and_seed(param_dtype):
     assert abs(std - DE ** -0.5) < 0.05
 
 
-def test_loglinear_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        api.entity_matrix({}, _cfg(model="loglinear"))
-
-
 class TestParamsFromJax:
     def test_fp32_round_trip(self):
         p = _np_params()

@@ -1,24 +1,30 @@
-"""The port runs without JAX: it and its card-side scripts import nothing
-of it, directly or through the reference's jax-importing subpackages."""
+"""The port stands alone and runs on the card unless asked for the CPU.
+
+- It imports nothing of JAX and nothing of the reference package
+  ``sert_tpu``, directly or indirectly: its host code (data, eval, native,
+  recipes, configs, logging) is its own copy, which writes the reference's
+  formats byte for byte.
+- Its entry points, called without a device on a host without CUDA, stop
+  with a message naming ``device="cpu"`` / ``--device cpu`` before doing
+  any work.
+"""
 
 import ast
+import dataclasses
+import json
 import os
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
-# The reference's host modules that import no jax (the port reuses them);
-# sert_tpu.models, .scoring, .ops, .train and .parallel import jax through
-# their packages' __init__.
-JAX_FREE = ("sert_tpu.data", "sert_tpu.eval", "sert_tpu.recipes",
-            "sert_tpu.utils.config", "sert_tpu.utils.logging")
-JAX_DATA = ("sert_tpu.data.feeder", "sert_tpu.data.wirepack")
+BLOCKED = ("jax", "jaxlib", "sert_tpu")
 
 SERVE_ON_CPU = """
 import importlib, pkgutil, sys, tempfile
@@ -45,58 +51,73 @@ with tempfile.TemporaryDirectory() as root:
     assert {len(v) for v in read_run(root + "/run.trec").values()} == {400}
     assert cli.main(["evaluate", "--run", root + "/run.trec",
                      "--qrels", qrels_path]) == 0
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("JAX_MODULES", loaded)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "sert_tpu"))
+print("FOREIGN_MODULES", loaded)
 """
 
 
-def _run(code_or_path, cwd, *args):
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+def _run(code_or_path, cwd, *args, env=None):
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+           **(env or {})}
     cmd = [sys.executable, *(["-c", code_or_path] if "\n" in code_or_path
                              else [code_or_path]), *args]
     return subprocess.run(cmd, capture_output=True, text=True, cwd=cwd,
                           env=env, timeout=300)
 
 
-# `python -m sert_tpu_torch ARGS` with jax unimportable.
-CLI_WITHOUT_JAX = """
+# `python -m sert_tpu_torch ARGS` with jax and the reference unimportable.
+CLI_BLOCKED = """
 import runpy, sys
-class NoJax:
+class Blocked:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in %r:
             raise ImportError(f"{name} is blocked: the port must not need it")
-sys.meta_path.insert(0, NoJax())
+sys.meta_path.insert(0, Blocked())
 sys.argv = ["sert_tpu_torch", *sys.argv[1:]]
 runpy.run_module("sert_tpu_torch", run_name="__main__", alter_sys=True)
-"""
+""" % (BLOCKED,)
 
 
-def test_prepare_train_query_run_with_jax_blocked(tmp_path):
-    from sert_tpu import recipes
-    from sert_tpu.utils.config import save_config
-    recipe = recipes.tiny_recipe("lse", objective="sampled_softmax",
-                                 negative_distribution="unigram")
-    recipe = recipe.__class__(**{**recipe.__dict__, "train":
-                                 recipe.train.__class__(**{
-                                     **recipe.train.__dict__,
-                                     "num_epochs": 1})})
+def _cli_blocked_pipeline(tmp_path, recipe):
+    from sert_tpu_torch.utils.config import save_config
+    recipe = dataclasses.replace(recipe, train=dataclasses.replace(
+        recipe.train, num_epochs=1))
     r, data, run = (str(tmp_path / n) for n in ("r.json", "data", "run"))
     save_config(recipe, r)
+    trec = str(tmp_path / "run.trec")
     for args in (["prepare", "--recipe", r, "--out", data],
                  ["train", "--recipe", r, "--data", data, "--out", run,
                   "--device", "cpu"],
                  ["query", "--recipe", r, "--data", data, "--run-dir", run,
-                  "--topics", data + "/topics.tsv", "--out",
-                  str(tmp_path / "run.trec"), "--device", "cpu"]):
-        proc = _run(CLI_WITHOUT_JAX, REPO, *args)
+                  "--topics", data + "/topics.tsv", "--out", trec,
+                  "--device", "cpu"],
+                 ["evaluate", "--run", trec, "--qrels",
+                  data + "/qrels.trec"]):
+        proc = _run(CLI_BLOCKED, REPO, *args)
         assert proc.returncode == 0, (args[0], proc.stderr[-3000:])
     assert (tmp_path / "run.trec").stat().st_size > 0
+    return json.loads(proc.stdout)
+
+
+def test_prepare_train_query_run_with_jax_blocked(tmp_path):
+    from sert_tpu_torch import recipes
+    metrics = _cli_blocked_pipeline(tmp_path, recipes.tiny_recipe(
+        "lse", objective="sampled_softmax", negative_distribution="unigram"))
+    assert 0.0 <= metrics["ndcg@100"] <= 1.0
+
+
+def test_loglinear_runs_with_jax_and_the_reference_blocked(tmp_path):
+    from sert_tpu_torch import recipes
+    metrics = _cli_blocked_pipeline(tmp_path,
+                                    recipes.tiny_recipe("loglinear"))
+    assert 0.0 <= metrics["ndcg@100"] <= 1.0
 
 
 def test_serving_path_runs_with_no_jax_module_loaded():
     proc = _run(SERVE_ON_CPU, REPO)
     assert proc.returncode == 0, proc.stderr
-    assert "JAX_MODULES []" in proc.stdout, proc.stdout
+    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
 
 
 def _imports(path: Path):
@@ -104,25 +125,19 @@ def _imports(path: Path):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
-            if node.module == "sert_tpu":
-                yield from (f"sert_tpu.{a.name}" for a in node.names)
-            else:
-                yield node.module
+            yield node.module
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO))
     for p in [*(REPO / "sert_tpu_torch").rglob("*.py"),
-              REPO / "chip_smoke.py", REPO / "tools/profile_torch_serve.py"]))
+              REPO / "chip_smoke.py", REPO / "tools/profile_torch_serve.py",
+              REPO / "tools/profile_torch_train.py"]))
 def test_no_source_imports_jax(path):
+    """Neither jax nor anything of the reference package, by any import
+    statement, anywhere in the file (function bodies included)."""
     for name in _imports(REPO / path):
-        assert name.split(".")[0] not in ("jax", "jaxlib"), (path, name)
-        if name.split(".")[0] == "sert_tpu":
-            # The card-side scripts name only the port; the port itself
-            # reuses the reference's jax-free host modules.
-            assert path.startswith("sert_tpu_torch/"), (path, name)
-            assert name.startswith(JAX_FREE), (path, name)
-            assert not name.startswith(JAX_DATA), (path, name)
+        assert name.split(".")[0] not in BLOCKED, (path, name)
 
 
 def test_chip_smoke_refuses_a_host_without_cuda(tmp_path):
@@ -134,3 +149,114 @@ def test_chip_smoke_refuses_a_host_without_cuda(tmp_path):
         proc = _run(str(script), cwd)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+# --- the copied host code writes the reference's formats --------------------
+
+def _files(d: Path):
+    return sorted(p.name for p in d.iterdir())
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_prepare_writes_what_the_reference_writes(tmp_path, use_native):
+    from sert_tpu import pipeline as ref_pipeline
+    from sert_tpu import recipes as ref_recipes
+    from sert_tpu.data import prepare as ref_prepare
+    from sert_tpu_torch import pipeline, recipes
+    from sert_tpu_torch.data import prepare
+    from sert_tpu_torch.native import loader
+    if use_native and shutil.which("g++"):
+        assert loader.maybe_load() is not None    # built into build/
+    col = recipes.tiny_spec(seed=2).build()
+    ref_col = ref_recipes.tiny_spec(seed=2).build()
+    assert col.docs == ref_col.docs and col.qrels == ref_col.qrels
+    recipe = recipes.tiny_recipe("loglinear")
+    out = {}
+    for name, prep_mod, pipe in (("port", prepare, pipeline),
+                                 ("ref", ref_prepare, ref_pipeline)):
+        real = prep_mod.prepare
+
+        def fixed(*a, _real=real, **k):
+            return _real(*a, use_native=use_native, **k)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pipe, "prepare", fixed)
+            pipe.prepare_collection(col, str(tmp_path / name), recipe)
+        out[name] = tmp_path / name
+    names = _files(out["port"])
+    assert names == _files(out["ref"])
+    assert {"vocab.json", "entities.json", "assoc.json",
+            "instances.meta.json"} <= set(names)
+    for n in names:
+        a, b = out["port"] / n, out["ref"] / n
+        if n.endswith(".npz"):
+            with np.load(a) as x, np.load(b) as y:
+                assert sorted(x.files) == sorted(y.files)
+                for k in x.files:
+                    np.testing.assert_array_equal(x[k], y[k], err_msg=n)
+        else:
+            assert a.read_bytes() == b.read_bytes(), n
+
+
+def test_recipes_are_the_reference_recipes():
+    from sert_tpu import recipes as ref_recipes
+    from sert_tpu.utils.config import config_to_dict as ref_to_dict
+    from sert_tpu_torch import recipes
+    from sert_tpu_torch.utils.config import config_to_dict
+    assert list(recipes.RECIPES) == list(ref_recipes.RECIPES)
+    for name, fn in recipes.RECIPES.items():
+        assert config_to_dict(fn()) == ref_to_dict(ref_recipes.RECIPES[name]())
+    for model in ("loglinear", "lse", "lse_full"):
+        assert config_to_dict(recipes.tiny_recipe(model)) == ref_to_dict(
+            ref_recipes.tiny_recipe(model))
+    assert {n: dataclasses.asdict(s) for n, s in recipes.SYNTH_SPECS.items()} \
+        == {n: dataclasses.asdict(s)
+            for n, s in ref_recipes.SYNTH_SPECS.items()}
+
+
+# --- card first: no device means the card, never a quiet CPU ---------------
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_names_the_cpu_option(no_cuda):
+    from sert_tpu_torch import pipeline
+    with pytest.raises(pipeline.NoCudaDevice,
+                       match='device="cpu".*--device cpu'):
+        pipeline.default_device()
+    assert pipeline.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_without_a_device_stop_before_any_work(no_cuda,
+                                                            tmp_path):
+    from sert_tpu_torch import pipeline, recipes
+    from sert_tpu_torch.serving import EntitySearcher
+    recipe = recipes.tiny_recipe("loglinear")
+    missing = str(tmp_path / "missing")       # never read: the check is first
+    calls = [
+        lambda: pipeline.train_from_dir(recipe, missing,
+                                        str(tmp_path / "run")),
+        lambda: pipeline.run_end_to_end(recipes.tiny_spec().build(), recipe,
+                                        str(tmp_path / "e2e")),
+        lambda: pipeline.load_scorer(missing, missing, recipe),
+        lambda: EntitySearcher(recipe, missing, missing),
+    ]
+    for call in calls:
+        with pytest.raises(pipeline.NoCudaDevice, match="--device cpu"):
+            call()
+    assert sorted(p.name for p in tmp_path.iterdir()) == []
+
+
+def test_cli_train_without_device_stops_with_the_advice(tmp_path):
+    from sert_tpu_torch import recipes
+    from sert_tpu_torch.utils.config import save_config
+    save_config(recipes.tiny_recipe("loglinear"), str(tmp_path / "r.json"))
+    proc = _run(CLI_BLOCKED, REPO, "train", "--recipe",
+                str(tmp_path / "r.json"), "--data", str(tmp_path / "data"),
+                "--out", str(tmp_path / "run"),
+                env={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 2, proc.stderr
+    assert "--device cpu" in proc.stderr and "Traceback" not in proc.stderr
+    assert not (tmp_path / "run").exists()

@@ -103,7 +103,7 @@ def test_snapshot_is_bf16_params_only_and_loads_as_the_reference(trained):
     assert {v.dtype for v in raw.values()} == {torch.bfloat16}
     resolved = _resolved(w, recipe)
     params, vocab, reg = pipeline.load_scorer(f"{w}/run", f"{w}/data",
-                                              resolved)
+                                              resolved, device="cpu")
     ref_params, ref_vocab, ref_reg = ref_pipeline.load_scorer(
         f"{w}/run", f"{w}/data", resolved)
     assert len(vocab) == len(ref_vocab) and reg.names == ref_reg.names
@@ -120,7 +120,7 @@ def test_score_topics_matches_reference(trained, similarity):
     resolved = _resolved(w, recipe)
     sc = dataclasses.replace(resolved.score, similarity=similarity)
     params, vocab, reg = pipeline.load_scorer(f"{w}/run", f"{w}/data",
-                                              resolved)
+                                              resolved, device="cpu")
     ref_params, _, _ = ref_pipeline.load_scorer(f"{w}/run", f"{w}/data",
                                                 resolved)
     encoded = encode_queries(col.topics, vocab, resolved.data)
@@ -246,7 +246,8 @@ def test_port_checkpoint_loads_in_reference(trained, tmp_path, dtype):
     same values, and both score it to the same run."""
     w, recipe, col = trained
     resolved = _resolved(w, recipe)
-    params, _, reg = pipeline.load_scorer(f"{w}/run", f"{w}/data", resolved)
+    params, _, reg = pipeline.load_scorer(f"{w}/run", f"{w}/data", resolved,
+                                          device="cpu")
     rng = np.random.default_rng(5)
     params = {k: (v + torch.from_numpy(
         rng.normal(scale=0.01, size=v.shape).astype(np.float32))).to(dtype)
@@ -264,7 +265,8 @@ def test_port_checkpoint_loads_in_reference(trained, tmp_path, dtype):
                                       t.float().numpy())
     encoded = encode_queries(col.topics, vocab, resolved.data)
     got = score_topics(
-        pipeline.load_scorer(run_dir, f"{w}/data", resolved)[0],
+        pipeline.load_scorer(run_dir, f"{w}/data", resolved,
+                             device="cpu")[0],
         resolved.model, encoded, reg.names, resolved.score)
     want = ref_score_topics(ref_params, resolved.model, encoded, reg.names,
                             resolved.score)
@@ -274,11 +276,13 @@ def test_port_checkpoint_loads_in_reference(trained, tmp_path, dtype):
 def test_load_scorer_refuses_a_foreign_vocabulary(trained, tmp_path):
     w, recipe, _ = trained
     resolved = _resolved(w, recipe)
-    params, _, _ = pipeline.load_scorer(f"{w}/run", f"{w}/data", resolved)
+    params, _, _ = pipeline.load_scorer(f"{w}/run", f"{w}/data", resolved,
+                                        device="cpu")
     run_dir = str(tmp_path / "run")
     ckpt.save_params_checkpoint(f"{run_dir}/checkpoints", 1, params,
                                 {"vocab_hash": "not-this-vocabulary"})
     with pytest.raises(ValueError, match="vocabulary hash mismatch"):
-        pipeline.load_scorer(run_dir, f"{w}/data", resolved)
+        pipeline.load_scorer(run_dir, f"{w}/data", resolved, device="cpu")
     with pytest.raises(FileNotFoundError):
-        pipeline.load_scorer(str(tmp_path / "none"), f"{w}/data", resolved)
+        pipeline.load_scorer(str(tmp_path / "none"), f"{w}/data", resolved,
+                             device="cpu")

@@ -232,12 +232,11 @@ def test_loss_sampled_softmax_matches_reference(fused, compute):
 
 
 def test_fused_auto_takes_the_composition_on_the_cpu():
-    assert not lse._use_fused_sampled(_cfg(fused="auto"),
-                                      torch.device("cpu"))
-    assert lse._use_fused_sampled(_cfg(fused="auto"), torch.device("cuda"))
-    assert lse._use_fused_sampled(_cfg(fused="on"), torch.device("cpu"))
-    assert not lse._use_fused_sampled(_cfg(fused="off"),
-                                      torch.device("cuda"))
+    from sert_tpu_torch.models.common import use_fused
+    assert not use_fused(_cfg(fused="auto"), torch.device("cpu"))
+    assert use_fused(_cfg(fused="auto"), torch.device("cuda"))
+    assert use_fused(_cfg(fused="on"), torch.device("cpu"))
+    assert not use_fused(_cfg(fused="off"), torch.device("cuda"))
 
 
 def test_sample_negatives_follow_the_noise():
@@ -276,7 +275,6 @@ def test_all_entity_scores_match_reference():
 
 @pytest.mark.parametrize("cfg,item", [
     (dict(objective="nce"), "item 7"),
-    (dict(model="lse_full"), "item 6"),
 ])
 def test_unported_objectives_raise(cfg, item):
     c = _cfg().replace(**cfg)
@@ -366,7 +364,9 @@ def test_three_steps_match_reference(train_kw):
     p = _np_params(7)
     ref_s = ref_s._replace(params={k: jnp.asarray(v) for k, v in p.items()})
     port_s = port_step.init_state(0, mcfg, tcfg)
-    port_s.params = params_from_jax(p)
+    # A copy: the port updates in place, and JAX may alias p's memory and
+    # read it after an asynchronous dispatch.
+    port_s.params = params_from_jax({k: v.copy() for k, v in p.items()})
     ref_fn = ref_step.make_train_step(mcfg, tcfg, noise=noise_ref, jit=False,
                                       loss_fn=ref_loss)
     port_fn = port_step.make_train_step(mcfg, tcfg, noise=noise,
