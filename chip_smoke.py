@@ -44,7 +44,16 @@ Phases (each prints one line or more; any failure exits non-zero):
      forward held against an lse the plain version computes in entity
      chunks; errors of loss, lse, dpooled, dW and db with their
      tolerances, CUDA-event times of kernel and plain;
- 10. train_loglinear: cerc_expert_finding as the recipe stands (V from the
+ 10. xent_apply_kernels: K7 (the full-softmax backward with adam, adagrad
+     or sgd applied to W and its slots in place) against
+     xent_loss_apply_plain on the same inputs, from seeded non-zero
+     moments, for each optimizer: "de" fp32 at w3c's B=1024 and a ragged
+     B=1000 (E=1100, d=128) and at cerc's (B=1024, E=3500, d=256); "de"
+     bf16 at the reference's fused-step width (B=1024, E=500k, d=256);
+     "ed" bf16 at B=4096, E=131072 and 131071; bf16 storage once; errors
+     of the loss, gsq, db, dpooled, W' and the slots with their tolerances,
+     CUDA-event times of K7 alone and of the plain backward + update;
+ 11. train_loglinear: cerc_expert_finding as the recipe stands (V from the
      CERC stand-in, E=3500, d=256, B=1024, fp32, adam + cosine, 5 epochs)
      end to end through pipeline.run_end_to_end (the port's own prepare,
      training through K5/K6, scoring through K3 with the bias + K4 + the
@@ -54,9 +63,21 @@ Phases (each prints one line or more; any failure exits non-zero):
      the score and its un-normalized sum), and the first 8 steps must
      match the plain version on the card (fused_softmax="off") on the same
      batches;
- 11. train_lse_full: the flagship's width with model="lse_full" (V=250k,
+ 12. train_fused: w3c_expert_finding as the recipe stands (W3C stand-in,
+     E=1100, d=128, B=1024, fp32, adam at a constant 1e-3,
+     steps_per_call=16, 5 epochs) with fused_update="on", end to end as
+     phase 11: K5 + K7 every micro-step and K6 never, the loss finite and
+     falling, the served top 100 against the dense oracle; its first 8
+     steps against the dense step (K5/K6 + the dense adam) on the same
+     batches, and two fused runs of 8 steps bit for bit;
+ 13. train_lse_full: the flagship's width with model="lse_full" (V=250k,
      E=1M, d=128, B=4096, bf16, adam) for 16 steps of the training
-     fixture, through K5/K6 every step.
+     fixture, through K5/K6 every step;
+ 14. fused_ab: the reference's fused-step A/B at its width (log-linear,
+     E=500k, V=60k, d=256, B=1024, bf16 compute, fp32 params,
+     steps_per_call=8) for adam, adagrad and sgd, fused_update off and on
+     in turns: ms per micro-step, peak memory, and the two modes' losses
+     within 1e-4 of each other.
 Then one JSON line of kernel records (with each one's bound: the larger of
 its operations over the H100's peak rate for their type and its bytes over
 3.35 TB/s), and the device record as the last line.
@@ -106,6 +127,19 @@ XENT_SUM_RTOL = 1e-4
 PARITY_STEPS, PARITY_RTOL = 8, 1e-3
 LL_RECALL_MIN, LL_SCORE_RTOL = 0.99, 1e-5   # score: see phase_train_loglinear
 LSE_FULL_STEPS = 16
+# K7 against its plain version: as K5/K6 above, and the updated W within
+# XENT_TOL of the learning rate (an update is lr-sized), from seeded
+# non-zero moments with count 3.
+APPLY_LR = 1e-2
+# The fused step against the dense one on the same batches: K7's dW sweep
+# is K6's code, so the gradients are the same bits; only the optimizer's
+# arithmetic is in another order (an ulp of an lr-sized update per step).
+FUSED_PARITY_RTOL = 1e-4
+# The fused-step A/B at the width of the reference's
+# benchmarks/fused_step_bench.py (log-linear, bf16 compute, fp32 params,
+# lr 1e-2): timed calls of AB_STEPS_PER_CALL micro-steps after a warm one.
+AB_V, AB_E, AB_D, AB_LR = 60_000, 500_000, 256, 1e-2
+AB_STEPS_PER_CALL, AB_CALLS = 8, 3
 # The H100 SXM's published dense peaks (bf16 on tensor cores, fp32 on the
 # CUDA cores) and its memory rate, for each kernel's bound.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -782,6 +816,137 @@ def phase_xent_kernels() -> dict:
     return records
 
 
+def _apply_case(B, E, d, layout, opt, seed, w_dtype):
+    """K5/K6's seeded inputs plus seeded non-zero optimizer slots (m ~
+    N(0, 1e-3); v and acc in 1e-5 * (0.5 + |N(0, 1)|), the size of g^2),
+    W and the slots in ``w_dtype`` storage."""
+    import torch
+    from sert_tpu_torch.ops import xent
+    pooled, W, b, labels = _xent_case(B, E, d, layout, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    slots = {}
+    for name in xent.SLOTS[opt]:
+        x = torch.randn(W.shape, generator=g, device="cuda")
+        slots[name] = (1e-3 * x if name == "m"
+                       else 1e-5 * (0.5 + x.abs())).to(w_dtype)
+    return pooled, W.to(w_dtype), b, labels, slots
+
+
+def _apply_outputs(fn, x, opt, layout, dtype):
+    """One call of ``fn`` (xent_loss_apply or its plain version) on copies
+    of W and the slots: the loss, gsq, db, dpooled, W' and the slots'."""
+    pooled, W, b, labels, slots = x
+    W, slots = W.clone(), {k: v.clone() for k, v in slots.items()}
+    out = fn(pooled, W, b, labels, opt=opt, opt_tree=slots, lr=APPLY_LR,
+             count=3, gscale=1.0 / pooled.shape[0], layout=layout,
+             dtype=dtype)
+    return {"loss": out[0], "gsq": out[5], "db": out[3], "dpooled": out[4],
+            "W": W, **slots}
+
+
+def _apply_times(x, opt, layout, dtype, iters):
+    """CUDA-event ms of K7 alone (on K5's outputs, W and the slots updated
+    in place on copies) and of the plain version's same work (autograd's
+    backward of the plain loss, then the plain update)."""
+    import torch
+    from sert_tpu_torch.ops import xent
+    from sert_tpu_torch.ops.sampled_lse import _compute_dtype
+    pooled, W, b, labels, slots = x
+    ct = _compute_dtype(dtype)
+    W, slots = W.clone(), {k: v.clone() for k, v in slots.items()}
+    kw = dict(opt=opt, lr=APPLY_LR, count=3, gscale=1.0 / pooled.shape[0])
+    with torch.no_grad():
+        _, saved, geometry = xent._loss_forward(pooled, W, b, labels, layout,
+                                                ct)
+        kslots = [slots[k] for k in xent.SLOTS[opt]]
+        ms = cuda_ms(lambda: xent._bwd_apply(saved, geometry, kslots, ct=ct,
+                                             **kw), iters=iters, warmup=1)
+    del saved
+    # The graph's own copies: the plain update below changes W in place.
+    p, w, bb = (t.detach().float().clone().requires_grad_(True)
+                for t in (pooled, W, b))
+    loss = xent.xent_loss_plain(p, w, bb, labels, layout, dtype)
+
+    def plain():
+        dW = torch.autograd.grad(loss, [p, w, bb], retain_graph=True)[1]
+        with torch.no_grad():
+            xent._update_plain(W, kslots, dW, **kw)
+
+    plain_ms = cuda_ms(plain, iters=iters, warmup=1)
+    return ms, plain_ms
+
+
+def phase_xent_apply_kernels() -> dict:
+    """K7 against xent_loss_apply_plain on the same inputs, for each
+    optimizer. Returns the kernel record of the w3c adam case (the fused
+    training path's variant), with errors maxed over every case."""
+    import torch
+    from sert_tpu_torch.ops import xent
+    rec = dict(name="xent_bwd_apply", route="cuda",
+               source="sert_tpu_torch/csrc/xent.cu",
+               replaces="sert_tpu/ops/xent.py:468", launches=0,
+               max_abs_err=0.0, library_ms=None)
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [("w3c", 1024, 1100, 128, "de", "float32", f32),
+             ("w3c_ragged", 1000, 1100, 128, "de", "float32", f32),
+             ("cerc", 1024, 3500, 256, "de", "float32", f32),
+             ("ll_500k", 1024, 500_000, 256, "de", "bfloat16", f32),
+             ("lse_full_128k", 4096, 131072, 128, "ed", "bfloat16", f32),
+             ("lse_full_tail", 4096, 131071, 128, "ed", "bfloat16", f32)]
+    runs = [(c, opt) for c in cases for opt in xent.OPTIMIZERS]
+    runs.append((("bf16_storage", 4096, 131072, 128, "ed", "bfloat16", bf),
+                 "adam"))
+    for i, ((label, B, E, d, layout, dtype, w_dtype), opt) in enumerate(runs):
+        x = _apply_case(B, E, d, layout, opt, 400 + i, w_dtype)
+        got = _apply_outputs(xent.xent_loss_apply, x, opt, layout, dtype)
+        want = _apply_outputs(xent.xent_loss_apply_plain, x, opt, layout,
+                              dtype)
+        errs = {}
+        for key, b in want.items():
+            a, bf32 = got[key].float(), b.float()
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{label} {opt}: {key} not finite")
+            if key in ("loss", "gsq"):
+                rtol, scale = XENT_SUM_RTOL, bf32.abs().max()
+            elif key == "W":
+                rtol, scale = XENT_TOL[dtype], APPLY_LR
+            else:
+                rtol, scale = XENT_TOL[dtype], bf32.abs().max()
+            limit = rtol * scale
+            if b.dtype == torch.bfloat16:
+                # One step of the storage: at most 2^-7 of the value.
+                limit = limit + 2.0 ** -7 * bf32.abs()
+            diff = (a - bf32).abs()
+            errs[key] = err = diff.max().item()
+            say("xent_apply_kernels", case=label, opt=opt, B=B, E=E, d=d,
+                layout=layout, dtype=dtype, storage=str(w_dtype)[6:],
+                output=key, max_abs_err=err,
+                tol=f"{rtol}*{'lr' if key == 'W' else 'max|plain|'}"
+                    + ("+2^-7*|plain|" if b.dtype == torch.bfloat16 else ""))
+            if not bool((diff <= limit).all()):
+                raise AssertionError(f"{label} {opt}: {key} error {err}")
+        del got, want
+        iters = 3 if E > 100_000 else 10
+        ms, plain_ms = _apply_times(x, opt, layout, dtype, iters)
+        pooled, W, b, labels, slots = x
+        # K7's own three products (z, dW, dpooled; its dpooled sweep's
+        # recompute of z is not counted); P, W, the slots, the bias and the
+        # labels read once, W' and the slots written once, db, dpooled and
+        # the per-tile gsq written once.
+        flops = 6 * B * E * d
+        moved = (nbytes(pooled, W, b, labels, *slots.values())
+                 + nbytes(W, *slots.values()) + 4 * (E + B * d - (-E // 64)))
+        bnd = bound(flops, moved, dtype)
+        say("xent_apply_kernels", case=label, opt=opt, ms=ms,
+            plain_ms=plain_ms, **bnd)
+        rec["max_abs_err"] = max(rec["max_abs_err"], *errs.values())
+        if i == 0:
+            rec.update(ms=ms, plain_ms=plain_ms, **bnd)
+        del x
+        torch.cuda.empty_cache()
+    return {"xent_bwd_apply": rec}
+
+
 def _train_log(run_dir: str):
     """(logged train steps, losses, mid-run steps/s) of a run's JSONL log;
     the first logged interval of each epoch holds its warm-up."""
@@ -807,62 +972,229 @@ def _check_falling(losses) -> None:
         raise AssertionError(f"the loss is not finite and falling: {losses}")
 
 
-def phase_train_loglinear(root: str) -> dict:
-    """cerc_expert_finding end to end on the card; returns the launches by
-    kernel of that run."""
-    import dataclasses
+def _run_loglinear_e2e(phase, recipe, col, root):
+    """``recipe`` end to end on the card through pipeline.run_end_to_end,
+    its launches counted from 0; the loss must be finite and fall, and the
+    served top 100 must match the dense oracle. Returns (launches by
+    kernel, micro-steps, query batches, the resolved model config)."""
     import torch
-    from sert_tpu_torch import pipeline, recipes
-    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch import pipeline
     from sert_tpu_torch.data.instances import InstanceDataset
-    from sert_tpu_torch.data.prepare import VOCAB_NAME, encode_queries
-    from sert_tpu_torch.data.vocab import Vocabulary
     from sert_tpu_torch.ops import gather_rescore as k4
     from sert_tpu_torch.ops import score_binmax as k3
     from sert_tpu_torch.ops import xent
-    from sert_tpu_torch.scoring import scorer
-    from sert_tpu_torch.scoring.run import pad_queries, stage_entities
     from sert_tpu_torch.train import checkpoint as ckpt
-    from sert_tpu_torch.train.step import init_state, make_train_step
 
-    recipe = load_recipe("cerc_expert_finding")
-    t0 = time.perf_counter()
-    col = recipes.CERC_SYNTH.build()
-    work = os.path.join(root, "cerc")
+    work = os.path.join(root, recipe.name)
     data_dir, run_dir = os.path.join(work, "data"), os.path.join(work, "run")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    xent.fwd_launches = xent.bwd_launches = 0
+    xent.fwd_launches = xent.bwd_launches = xent.apply_launches = 0
     k3.launches = k4.launches = 0
     results = pipeline.run_end_to_end(col, recipe, work, device="cuda")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches,
+                "xent_bwd_apply": xent.apply_launches,
                 "score_binmax": k3.launches, "gather_rescore": k4.launches}
     peak = torch.cuda.max_memory_allocated()
     steps, losses, mid_sps = _train_log(run_dir)
     n_steps = max(ckpt.list_checkpoints(os.path.join(run_dir,
                                                      "checkpoints")))
     meta = InstanceDataset(data_dir).meta
-    say("train_loglinear", build_collection_s=t1 - t0, e2e_s=t2 - t1,
-        instances=meta["num_instances"], vocab=meta["vocab_size"],
-        entities=meta["num_entities"], steps=n_steps,
-        first_loss=losses[0], last_loss=losses[-1],
+    say(phase, e2e_s=t2 - t1, instances=meta["num_instances"],
+        vocab=meta["vocab_size"], entities=meta["num_entities"],
+        steps=n_steps, first_loss=losses[0], last_loss=losses[-1],
         mid_run_steps_per_sec=_spread(mid_sps),
         ndcg_at_100=results["all"]["ndcg@100"],
         recall_at_100=results["all"]["recall@100"], peak_mem_bytes=peak,
         launches=json.dumps(launches).replace(" ", ""))
     _check_falling(losses)
+    _check_served_loglinear(phase, recipe, col, data_dir, run_dir)
     n_batches = -(-len(col.topics) // recipe.score.query_batch)
-    if launches["xent_bwd"] != n_steps or \
+    cfg = pipeline.resolve_model_config(recipe, meta).model
+    return launches, n_steps, n_batches, cfg
+
+
+def phase_train_loglinear(root: str) -> dict:
+    """cerc_expert_finding end to end on the card; returns the launches by
+    kernel of that run."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch import recipes
+    from sert_tpu_torch.cli import load_recipe
+
+    recipe = load_recipe("cerc_expert_finding")
+    t0 = time.perf_counter()
+    col = recipes.CERC_SYNTH.build()
+    say("train_loglinear", build_collection_s=time.perf_counter() - t0)
+    launches, n_steps, n_batches, cfg = _run_loglinear_e2e(
+        "train_loglinear", recipe, col, root)
+    if launches["xent_bwd"] != n_steps or launches["xent_bwd_apply"] or \
             launches["xent_fwd"] != n_steps + n_batches or \
-            min(launches.values()) < 1:
+            min(launches["score_binmax"], launches["gather_rescore"]) < 1:
         raise AssertionError(f"launches {launches} for {n_steps} steps and "
                              f"{n_batches} query batches")
 
-    # The served top 100 against the exact dense log-probs of the trained
-    # params (launches here are checks, not the path).
+    # The first steps through K5/K6 against the plain version on the card,
+    # on the same batches from the same initial state.
+    runs = _first_steps(recipe, os.path.join(root, recipe.name, "data"), [
+        (fused, dataclasses.replace(cfg, fused_softmax=fused), None)
+        for fused in ("auto", "off")])
+    losses = {k: v[0] for k, v in runs.items()}
+    counts = {k: v[2] for k, v in runs.items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["auto"],
+                                                  losses["off"]))
+    say("train_loglinear", parity_steps=PARITY_STEPS,
+        fused_losses=json.dumps(losses["auto"]),
+        plain_losses=json.dumps(losses["off"]), max_rel_diff=rel,
+        rtol=PARITY_RTOL, launches=json.dumps(counts).replace(" ", ""))
+    if rel > PARITY_RTOL or counts != {"auto": (PARITY_STEPS,) * 2 + (0,),
+                                       "off": (0, 0, 0)}:
+        raise AssertionError(f"fused and plain steps differ by {rel}, or "
+                             f"took the wrong paths: {counts}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_fused(root: str) -> dict:
+    """w3c_expert_finding end to end with fused_update="on" (K5 + K7 every
+    micro-step), its first steps against the dense step, two fused runs
+    bit for bit; returns the launches by kernel of the end-to-end run."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch import recipes
+    from sert_tpu_torch.cli import load_recipe
+
+    r = load_recipe("w3c_expert_finding")
+    recipe = dataclasses.replace(r, train=dataclasses.replace(
+        r.train, fused_update="on"))
+    t0 = time.perf_counter()
+    col = recipes.W3C_SYNTH.build()
+    say("train_fused", build_collection_s=time.perf_counter() - t0)
+    launches, n_steps, n_batches, cfg = _run_loglinear_e2e(
+        "train_fused", recipe, col, root)
+    if launches["xent_bwd_apply"] != n_steps or launches["xent_bwd"] or \
+            launches["xent_fwd"] != n_steps + n_batches or \
+            min(launches["score_binmax"], launches["gather_rescore"]) < 1:
+        raise AssertionError(f"launches {launches} for {n_steps} steps and "
+                             f"{n_batches} query batches")
+
+    # The first steps through K5 + K7 against the dense step (K5/K6 and the
+    # dense adam) on the same batches, and a second fused run.
+    dense = dataclasses.replace(recipe.train, fused_update="off")
+    runs = _first_steps(recipe, os.path.join(root, recipe.name, "data"), [
+        ("fused", cfg, None), ("dense", cfg, dense), ("fused_again", cfg,
+                                                      None)])
+    losses = {k: v[0] for k, v in runs.items()}
+    counts = {k: v[2] for k, v in runs.items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["fused"],
+                                                  losses["dense"]))
+    same = all(torch.equal(runs["fused"][1][k], runs["fused_again"][1][k])
+               for k in runs["fused"][1])
+    say("train_fused", parity_steps=PARITY_STEPS,
+        fused_losses=json.dumps(losses["fused"]),
+        dense_losses=json.dumps(losses["dense"]), max_rel_diff=rel,
+        rtol=FUSED_PARITY_RTOL, fused_runs_bit_equal=same,
+        launches=json.dumps(counts).replace(" ", ""))
+    want = {"fused": (PARITY_STEPS, 0, PARITY_STEPS),
+            "dense": (PARITY_STEPS, PARITY_STEPS, 0),
+            "fused_again": (PARITY_STEPS, 0, PARITY_STEPS)}
+    if rel > FUSED_PARITY_RTOL or not same or counts != want:
+        raise AssertionError(f"fused and dense steps differ by {rel}, two "
+                             f"fused runs equal: {same}, or the steps took "
+                             f"the wrong paths: {counts}")
+    del runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fused_ab() -> None:
+    """The reference's fused-step A/B at its width (benchmarks/
+    fused_step_bench.py: log-linear, E=500k, V=60k, d=256, B=1024, bf16
+    compute, fp32 params, lr 1e-2, steps_per_call=8): for adam, adagrad and
+    sgd, fused_update off and on in turns (off, on, on, off), each from the
+    same seeded state on the same seeded batches, a warm call then AB_CALLS
+    timed calls; ms per micro-step, peak memory, and the last losses of
+    the two modes against each other."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.ops import xent
+    from sert_tpu_torch.train.step import init_state, make_train_step
+
+    r = load_recipe("w3c_expert_finding")
+    mcfg = r.model.replace(vocab_size=AB_V, num_entities=AB_E,
+                           word_dim=AB_D, compute_dtype="bfloat16")
+    B, n, w = r.train.batch_size, AB_STEPS_PER_CALL, r.data.window_size
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    lengths = torch.randint(1, w + 1, (n, B), generator=g, device="cuda")
+    windows = torch.randint(0, AB_V, (n, B, w), generator=g, device="cuda")
+    batch = {"windows": (windows * (torch.arange(w, device="cuda")
+                                    < lengths[..., None])).int(),
+             "lengths": lengths.int(),
+             "entities": torch.randint(0, AB_E, (n, B), generator=g,
+                                       device="cuda").int()}
+    for opt in ("adam", "adagrad", "sgd"):
+        got = {"off": [], "on": []}
+        for mode in ("off", "on", "on", "off"):
+            tcfg = dataclasses.replace(r.train, optimizer=opt,
+                                       learning_rate=AB_LR,
+                                       fused_update=mode, steps_per_call=n)
+            state = init_state(SEED, mcfg, tcfg, device="cuda")
+            step = make_train_step(mcfg, tcfg, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            xent.apply_launches = xent.bwd_launches = 0
+            step(state, batch)                              # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(AB_CALLS):
+                _, m = step(state, batch)
+            loss = m["loss"].item()                         # syncs
+            ms = (time.perf_counter() - t0) * 1e3 / (AB_CALLS * n)
+            want = (AB_CALLS + 1) * n
+            used = {"on": (want, 0), "off": (0, want)}[mode]
+            if (xent.apply_launches, xent.bwd_launches) != used:
+                raise AssertionError(
+                    f"{opt} {mode}: K7/K6 launched {xent.apply_launches}/"
+                    f"{xent.bwd_launches} times, not {used}")
+            if not math.isfinite(loss):
+                raise AssertionError(f"{opt} {mode}: loss {loss}")
+            got[mode].append((ms, torch.cuda.max_memory_allocated(), loss))
+            del state, step, m
+            torch.cuda.empty_cache()
+        off_loss, on_loss = got["off"][0][2], got["on"][0][2]
+        rel = abs(on_loss - off_loss) / abs(off_loss)
+        off = sum(t for t, _, _ in got["off"]) / 2
+        on = sum(t for t, _, _ in got["on"]) / 2
+        say("fused_ab", opt=opt, E=AB_E, V=AB_V, d=AB_D, B=B,
+            steps_per_call=n, timed_steps=AB_CALLS * n,
+            off_ms_per_step=json.dumps([t for t, _, _ in got["off"]]),
+            on_ms_per_step=json.dumps([t for t, _, _ in got["on"]]),
+            off_over_on=off / on,
+            off_peak_mem_bytes=max(p for _, p, _ in got["off"]),
+            on_peak_mem_bytes=max(p for _, p, _ in got["on"]),
+            off_loss=off_loss, on_loss=on_loss, loss_rel_diff=rel,
+            rtol=FUSED_PARITY_RTOL)
+        if rel > FUSED_PARITY_RTOL:
+            raise AssertionError(f"{opt}: fused and dense losses differ by "
+                                 f"{rel}")
+
+
+def _check_served_loglinear(phase, recipe, col, data_dir, run_dir) -> None:
+    """The served top 100 of a trained log-linear run against the exact
+    dense log-probs of its params (launches here are checks, not the
+    path)."""
+    import torch
+    from sert_tpu_torch import pipeline
+    from sert_tpu_torch.data.instances import InstanceDataset
+    from sert_tpu_torch.data.prepare import VOCAB_NAME, encode_queries
+    from sert_tpu_torch.data.vocab import Vocabulary
+    from sert_tpu_torch.scoring import scorer
+    from sert_tpu_torch.scoring.run import pad_queries, stage_entities
+    meta = InstanceDataset(data_dir).meta
     resolved = pipeline.resolve_model_config(recipe, meta)
     cfg = resolved.model
     params, vocab, _ = pipeline.load_scorer(run_dir, data_dir, resolved,
@@ -894,45 +1226,47 @@ def phase_train_loglinear(root: str) -> dict:
            + m.float()[:, None] * params["proj_b"].float())
     scale = torch.maximum(want.abs(), torch.gather(raw, 1, top_i)[live].abs())
     rel = ((top_s[live] - want).abs() / scale).max().item()
-    say("train_loglinear", served_queries=len(live), min_recall_at_100=recall,
+    say(phase, served_queries=len(live), min_recall_at_100=recall,
         max_score_rel_err=rel)
     if recall < LL_RECALL_MIN or rel > LL_SCORE_RTOL:
         raise AssertionError(f"served top 100: recall {recall}, score "
                              f"error {rel}")
     del params, dense, raw
+    torch.cuda.empty_cache()
 
-    # The first steps through K5/K6 against the plain version on the card,
-    # on the same batches from the same initial state.
+
+def _first_steps(recipe, data_dir, variants) -> dict:
+    """The first PARITY_STEPS micro-steps of epoch 0's batches, one at a
+    time, from the recipe's initial state on the card, for each (name,
+    model config, train config or None for the recipe's) of ``variants``:
+    {name: (losses, final params, launches of (K5, K6, K7))}."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch.data.instances import InstanceDataset
+    from sert_tpu_torch.ops import xent
+    from sert_tpu_torch.train.step import init_state, make_train_step
     ds = InstanceDataset(data_dir, seed=recipe.train.seed)
     horizon = recipe.train.num_epochs * ds.num_batches_per_epoch(
         recipe.train.batch_size)
-    tcfg = dataclasses.replace(recipe.train, steps_per_call=1,
-                               lr_decay_steps=horizon)
     batches = []
-    for batch, _ in ds.iter_batches(tcfg.batch_size, epoch=0):
+    for batch, _ in ds.iter_batches(recipe.train.batch_size, epoch=0):
         batches.append({k: torch.from_numpy(v).cuda()
                         for k, v in batch.items()})
         if len(batches) == PARITY_STEPS:
             break
-    runs, counts = {}, {}
-    for fused in ("auto", "off"):
-        mcfg = dataclasses.replace(cfg, fused_softmax=fused)
+    out = {}
+    for name, mcfg, tcfg in variants:
+        tcfg = dataclasses.replace(tcfg or recipe.train, steps_per_call=1,
+                                   lr_decay_steps=horizon)
         state = init_state(tcfg.seed, mcfg, tcfg, device="cuda")
-        step = make_train_step(mcfg, tcfg)
-        xent.fwd_launches = xent.bwd_launches = 0
-        runs[fused] = [step(state, b)[1]["loss"].item() for b in batches]
-        counts[fused] = (xent.fwd_launches, xent.bwd_launches)
-    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["auto"], runs["off"]))
-    say("train_loglinear", parity_steps=PARITY_STEPS,
-        fused_losses=json.dumps(runs["auto"]),
-        plain_losses=json.dumps(runs["off"]), max_rel_diff=rel,
-        rtol=PARITY_RTOL, launches=json.dumps(counts).replace(" ", ""))
-    if rel > PARITY_RTOL or counts != {"auto": (PARITY_STEPS,) * 2,
-                                       "off": (0, 0)}:
-        raise AssertionError(f"fused and plain steps differ by {rel}, or "
-                             f"took the wrong paths: {counts}")
-    torch.cuda.empty_cache()
-    return launches
+        step = make_train_step(mcfg, tcfg, device="cuda")
+        xent.fwd_launches = xent.bwd_launches = xent.apply_launches = 0
+        losses = [step(state, b)[1]["loss"].item() for b in batches]
+        out[name] = (losses, state.params, (xent.fwd_launches,
+                                            xent.bwd_launches,
+                                            xent.apply_launches))
+        del state
+    return out
 
 
 def phase_train_lse_full(root: str) -> dict:
@@ -959,12 +1293,13 @@ def phase_train_lse_full(root: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    xent.fwd_launches = xent.bwd_launches = 0
+    xent.fwd_launches = xent.bwd_launches = xent.apply_launches = 0
     state, _ = pipeline.train_from_dir(recipe, data_dir, run_dir,
                                        resume=False, device="cuda")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches}
+    launches = {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches,
+                "xent_bwd_apply": xent.apply_launches}
     steps, losses, mid_sps = _train_log(run_dir)
     say("train_lse_full", fixture_s=t1 - t0, train_s=t2 - t1,
         steps=state.step, losses=json.dumps(losses),
@@ -974,8 +1309,9 @@ def phase_train_lse_full(root: str) -> dict:
     if state.step != LSE_FULL_STEPS:
         raise AssertionError(f"{state.step} steps, not {LSE_FULL_STEPS}")
     _check_falling(losses)
-    if set(launches.values()) != {state.step}:
-        raise AssertionError(f"K5/K6 launched {launches} times for "
+    if launches != {"xent_fwd": state.step, "xent_bwd": state.step,
+                    "xent_bwd_apply": 0}:
+        raise AssertionError(f"K5/K6/K7 launched {launches} times for "
                              f"{state.step} steps")
     del state
     torch.cuda.empty_cache()
@@ -985,11 +1321,13 @@ def phase_train_lse_full(root: str) -> dict:
 def main() -> int:
     import sert_tpu_torch  # noqa: F401  (fails outside a checkout)
     import torch
+    t0 = time.perf_counter()
     kind = phase_device()
     phase_build()
     records = phase_kernels()
     records.update(phase_train_kernels())
     records.update(phase_xent_kernels())
+    records.update(phase_xent_apply_kernels())
     with tempfile.TemporaryDirectory() as root:
         data_dir, run_dir, topics, oracle_top, launches = phase_serve(root)
         torch.cuda.empty_cache()
@@ -999,12 +1337,14 @@ def main() -> int:
         phase_serve_trained(root, data_dir, run_dir, topics, qrels)
         # Each path's launches are counted from 0 over that path alone;
         # a kernel's record sums the paths it serves.
-        for path in (phase_train_loglinear(root),
+        for path in (phase_train_loglinear(root), phase_train_fused(root),
                      phase_train_lse_full(root)):
             for name, n in path.items():
                 launches[name] = launches.get(name, 0) + n
+    phase_fused_ab()
     for name, rec in records.items():
         rec["launches"] = launches[name]
+    say("smoke", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": 1}}))

@@ -1,10 +1,11 @@
-// K5 + K6: softmax cross-entropy over the whole entity axis, forward and
-// backward, for sm_90a.
+// K5 + K6 + K7: softmax cross-entropy over the whole entity axis, forward,
+// backward, and backward with the optimizer applied, for sm_90a.
 //
 // Replaces the Pallas kernels of sert_tpu/ops/xent.py: _fwd_kernel :152
-// (launched by _fwd_partials :270) and _bwd_kernel :219 (launched by
-// _bwd_calls :364). With z[b, j] = P[b] . W(j) + bias[j] over entities
-// j < E (z = -1e30 past E):
+// (launched by _fwd_partials :270), _bwd_kernel :219 (launched by
+// _bwd_calls :364) and _bwd_update_kernel :468 (launched by xent_bwd_apply
+// :525). With z[b, j] = P[b] . W(j) + bias[j] over entities j < E
+// (z = -1e30 past E):
 //   K5: per (batch row, entity chunk) the running (max, sumexp) of z; the
 //       caller merges the chunks into lse[b] and gathers the gold logit
 //       itself (as the reference does outside its kernel);
@@ -12,6 +13,11 @@
 //       db = g * sum_b p,  dpooled partials = p W,  with p rounded to the
 //       compute type before both products (the reference's cast points).
 //       Rows past B and labels of -1 contribute nothing.
+//   K7: K6's sweeps, but where K6 stores dW the update sweep applies adam,
+//       adagrad or sgd to its own entity tile of W (and m, v or acc), in
+//       place, from G = gscale * dW in fp32, so dW never reaches device
+//       memory; it writes db (unscaled) and the tile's partial of
+//       sum G^2 for the grad-norm metric.
 // The [B, E] logits never reach device memory: every block keeps one
 // 64 x 64 tile of them in shared memory.
 //
@@ -35,10 +41,24 @@
 // tile products of K1/K2 (tile_mm.cuh): wmma bf16 fragments into fp32, or
 // fp32 on the CUDA cores; wgmma, TMA and pipelined loads are later work.
 //
+// K7 does K6's three products and moves W, m and v once each way, instead
+// of writing dW for a separate optimizer pass to read back beside W, m and
+// v. At the reference's fused-step width (B = 1024, E = 500k, d = 256) the
+// products are 0.79 TFLOP (0.8 ms at the bf16 peak) and adam's W, m, v in
+// and out are 3.1 GB of fp32 (0.92 ms at 3.35 TB/s): the two bounds are
+// close, bytes for adam and operations for adagrad and sgd. This first
+// version recomputes z in its dpooled sweep as K6 does, and its update is
+// elementwise in the epilogue of K6's dW sweep.
+//
 // Determinism: no float atomics. The dW / db sweep gives each entity tile
 // one block that loops over all batch tiles in order; the dpooled sweep
 // writes one partial per (entity chunk, batch row), which the caller sums
-// in a fixed order.
+// in a fixed order. K7's sum of G^2 is one partial per entity tile, summed
+// in the block in a fixed order.
+//
+// K7's order: the dpooled sweep reads W, so it is launched first, on the
+// same stream; the update sweep's blocks read their own tile of W (and its
+// slots) only, stage it before their batch loop, and write it after.
 
 #include <math_constants.h>
 
@@ -47,17 +67,27 @@
 namespace {
 
 // Per-tile vectors: the entity tile's bias, the batch tile's labels and
-// lse.
+// lse, and WARPS floats of scratch for a block sum.
 struct XVecs {
   float* bias;
   int* lab;
   float* lse;
+  float* red;
   __device__ explicit XVecs(unsigned char* base) {
     bias = reinterpret_cast<float*>(base);
     lab = reinterpret_cast<int*>(bias + TILE);
     lse = reinterpret_cast<float*>(lab + TILE);
+    red = lse + TILE;
   }
 };
+
+// K7's optimizers, in the order of ops/xent.py's OPTIMIZERS; their
+// constants are baked in as the reference bakes them (xent_bwd_apply :552).
+enum Opt : int { ADAM = 0, ADAGRAD = 1, SGD = 2 };
+// 1 - b1 and 1 - b2 are taken in double and rounded to fp32 once, as the
+// reference's Python floats are (not 1.0f - 0.9f, which is 2.2e-8 off).
+constexpr float B1 = 0.9f, B1C = 0.1f, B2 = 0.999f, B2C = 0.001f;
+constexpr float ADAM_EPS = 1e-8f, ADAGRAD_EPS = 1e-7f;
 
 __device__ inline float to_f32(float x) { return x; }
 __device__ inline float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -167,19 +197,18 @@ xent_fwd_kernel(const T* __restrict__ P, const WT* __restrict__ W,
   }
 }
 
-// K6, first sweep: one block per entity tile, looping over every batch tile
-// in order: dW(tile) = g * sum_b p^T P and db(tile) = g * sum_b p, written
-// in W's layout.
+// The dW sweep of K6 and K7, for the block's entity tile [j0, j0 + TILE):
+// stage the tile of W once, then loop over every batch tile in order. On
+// return (after a barrier) Acc holds the tile's unscaled sum_b p^T P,
+// entity-major, and thread t < TILE has column t's sum_b p. W is not read
+// after the staging, so K7 may overwrite the tile afterwards.
 template <typename T, typename WT>
-__global__ void __launch_bounds__(THREADS)
-xent_bwd_dw_kernel(const T* __restrict__ P, const WT* __restrict__ W,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ lse, const int* __restrict__ lab,
-                   const float* __restrict__ g, float* __restrict__ dW,
-                   float* __restrict__ db, int B, int E, int d, int dp,
-                   long long sj, long long sk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout<T> L(dp, true);
+__device__ float dw_sweep(unsigned char* smem, const Layout<T>& L,
+                          const T* __restrict__ P, const WT* W,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ lse,
+                          const int* __restrict__ lab, int B, int E, int d,
+                          int dp, long long sj, long long sk, int j0) {
   T* Ps_in = reinterpret_cast<T*>(smem + L.r);
   T* Ws = reinterpret_cast<T*>(smem + L.c);
   float* Zs = reinterpret_cast<float*>(smem + L.z);
@@ -187,7 +216,6 @@ xent_bwd_dw_kernel(const T* __restrict__ P, const WT* __restrict__ W,
   float* Acc = reinterpret_cast<float*>(smem + L.acc);
   XVecs v(smem + L.vec);
 
-  const int j0 = blockIdx.x * TILE;
   const int n_btiles = (B + TILE - 1) / TILE;
   stage_w(Ws, L.ldt, v, W, bias, j0, E, d, dp, sj, sk);
   float col_sum = 0.0f;                 // thread t < 64: column t of db
@@ -208,6 +236,26 @@ xent_bwd_dw_kernel(const T* __restrict__ P, const WT* __restrict__ W,
                           L.lda, dp, TILE, bt > 0);
   }
   __syncthreads();
+  return col_sum;
+}
+
+// K6, first sweep: one block per entity tile, looping over every batch tile
+// in order: dW(tile) = g * sum_b p^T P and db(tile) = g * sum_b p, written
+// in W's layout.
+template <typename T, typename WT>
+__global__ void __launch_bounds__(THREADS)
+xent_bwd_dw_kernel(const T* __restrict__ P, const WT* __restrict__ W,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ lse, const int* __restrict__ lab,
+                   const float* __restrict__ g, float* __restrict__ dW,
+                   float* __restrict__ db, int B, int E, int d, int dp,
+                   long long sj, long long sk) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout<T> L(dp, true);
+  const int j0 = blockIdx.x * TILE;
+  const float col_sum = dw_sweep<T, WT>(smem, L, P, W, bias, lse, lab, B, E,
+                                        d, dp, sj, sk, j0);
+  const float* Acc = reinterpret_cast<const float*>(smem + L.acc);
   const float gs = *g;
   for (int i = threadIdx.x; i < TILE * dp; i += THREADS) {
     const int r = sk == 1 ? i / dp : i % TILE;
@@ -217,6 +265,72 @@ xent_bwd_dw_kernel(const T* __restrict__ P, const WT* __restrict__ W,
   }
   if (threadIdx.x < TILE && j0 + threadIdx.x < E)
     db[j0 + threadIdx.x] = gs * col_sum;
+}
+
+// K7's update sweep: K6's dW sweep, whose epilogue applies the optimizer to
+// the block's entity tile in place, elementwise in fp32 from W's stored
+// value, in the reference's order (_bwd_update_kernel :501-522), with
+// G = gscale * dW; s1, s2 are (m, v) for adam, (acc, -) for adagrad, unused
+// for sgd, each shaped and typed as W. Writes db unscaled and the tile's
+// sum of G^2 into gsq[tile].
+template <typename T, typename WT>
+__global__ void __launch_bounds__(THREADS)
+xent_bwd_apply_kernel(const T* __restrict__ P, WT* W,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ lse,
+                      const int* __restrict__ lab, WT* s1, WT* s2,
+                      float* __restrict__ db, float* __restrict__ gsq, int B,
+                      int E, int d, int dp, long long sj, long long sk,
+                      int opt, float lr, float gscale, float bc1, float bc2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout<T> L(dp, true);
+  const int j0 = blockIdx.x * TILE;
+  const float col_sum = dw_sweep<T, WT>(smem, L, P, W, bias, lse, lab, B, E,
+                                        d, dp, sj, sk, j0);
+  const float* Acc = reinterpret_cast<const float*>(smem + L.acc);
+  float sq = 0.0f;
+  for (int i = threadIdx.x; i < TILE * dp; i += THREADS) {
+    const int r = sk == 1 ? i / dp : i % TILE;
+    const int k = sk == 1 ? i % dp : i / TILE;
+    if (j0 + r >= E || k >= d) continue;
+    const long long at = (j0 + r) * sj + k * sk;
+    const float g = __fmul_rn(Acc[r * L.lda + k], gscale);
+    sq = __fadd_rn(sq, __fmul_rn(g, g));
+    float upd;
+    if (opt == ADAM) {
+      const float m2 = __fadd_rn(__fmul_rn(B1, to_f32(s1[at])),
+                                 __fmul_rn(B1C, g));
+      const float v2 = __fadd_rn(__fmul_rn(B2, to_f32(s2[at])),
+                                 __fmul_rn(__fmul_rn(B2C, g), g));
+      upd = __fdiv_rn(__fmul_rn(lr, __fdiv_rn(m2, bc1)),
+                      __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, bc2)), ADAM_EPS));
+      s1[at] = from_f32<WT>(m2);
+      s2[at] = from_f32<WT>(v2);
+    } else if (opt == ADAGRAD) {
+      const float a2 = __fadd_rn(to_f32(s1[at]), __fmul_rn(g, g));
+      upd = __fmul_rn(__fmul_rn(lr, g),
+                      a2 > 0.0f ? __frsqrt_rn(__fadd_rn(a2, ADAGRAD_EPS))
+                                : 0.0f);
+      s1[at] = from_f32<WT>(a2);
+    } else {
+      upd = __fmul_rn(lr, g);
+    }
+    W[at] = from_f32<WT>(__fsub_rn(to_f32(W[at]), upd));
+  }
+  // The tile's sum of G^2 in a fixed order: lanes, then warps in turn.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  XVecs v(smem + L.vec);
+  if (threadIdx.x % 32 == 0) v.red[threadIdx.x / 32] = sq;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < WARPS; ++w) s += v.red[w];
+    gsq[blockIdx.x] = s;
+  }
+  if (threadIdx.x < TILE && j0 + threadIdx.x < E)
+    db[j0 + threadIdx.x] = col_sum;
 }
 
 // K6, second sweep: grid (batch tiles, entity chunks); each block writes
@@ -315,6 +429,38 @@ int launch_bwd(const void* P, const void* W, const void* bias,
   return int(cudaGetLastError());
 }
 
+template <typename T, typename WT>
+int launch_apply(const void* P, void* W, const void* bias, const void* lse,
+                 const void* lab, void* s1, void* s2, void* db, void* part,
+                 void* gsq, int B, int E, int d, int dp, long long sj,
+                 long long sk, int tiles_per_chunk, int n_chunks, int opt,
+                 float lr, float gscale, float bc1, float bc2,
+                 cudaStream_t stream) {
+  const size_t smem = Layout<T>(dp, true).total;
+  cudaError_t err = allow_smem(xent_bwd_dp_kernel<T, WT>, smem);
+  if (err != cudaSuccess) return int(err);
+  err = allow_smem(xent_bwd_apply_kernel<T, WT>, smem);
+  if (err != cudaSuccess) return int(err);
+  const T* p = static_cast<const T*>(P);
+  const float* b = static_cast<const float*>(bias);
+  const float* ls = static_cast<const float*>(lse);
+  const int* lb = static_cast<const int*>(lab);
+  // The dpooled sweep first: it reads W, which the update sweep overwrites.
+  const dim3 grid((B + TILE - 1) / TILE, n_chunks);
+  xent_bwd_dp_kernel<T, WT><<<grid, THREADS, smem, stream>>>(
+      p, static_cast<const WT*>(W), b, ls, lb, static_cast<float*>(part), B,
+      E, d, dp, sj, sk, tiles_per_chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  xent_bwd_apply_kernel<T, WT>
+      <<<(E + TILE - 1) / TILE, THREADS, smem, stream>>>(
+          p, static_cast<WT*>(W), b, ls, lb, static_cast<WT*>(s1),
+          static_cast<WT*>(s2), static_cast<float*>(db),
+          static_cast<float*>(gsq), B, E, d, dp, sj, sk, opt, lr, gscale,
+          bc1, bc2);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // P [B, dp] in the compute type (bf16 when `use_bf16` is nonzero, else
@@ -369,4 +515,32 @@ extern "C" int sert_xent_bwd(const void* P, const void* W, const void* bias,
                 : launch_bwd<float, float>(P, W, bias, lse, lab, g, dW, db,
                                            part, B, E, d, dp, sj, sk,
                                            tiles_per_chunk, n_chunks, st);
+}
+
+// K7: as K6, with W updated in place instead of dW written. `opt` is 0
+// adam (s1 = m, s2 = v), 1 adagrad (s1 = acc) or 2 sgd (no slots); the
+// slots have W's shape, layout and storage type and are updated in place.
+// lr is the constant learning rate, gscale the factor from the sum loss's
+// dW to the update's gradient (1 / B for the mean loss), bc1 and bc2 adam's
+// bias corrections 1 - 0.9^t and 1 - 0.999^t (fp32, t = count + 1).
+// Writes db [E] unscaled, the unscaled dpooled partials part
+// [n_chunks, B, dp] (summed by the caller) and gsq [ceil(E / 64)], each
+// entity tile's sum of (gscale * dW)^2.
+extern "C" int sert_xent_bwd_apply(const void* P, void* W, const void* bias,
+                                   const void* lse, const void* lab,
+                                   void* s1, void* s2, void* db, void* part,
+                                   void* gsq, int B, int E, int d, int dp,
+                                   long long sj, long long sk,
+                                   int tiles_per_chunk, int n_chunks, int opt,
+                                   float lr, float gscale, float bc1,
+                                   float bc2, int use_bf16, int w_bf16,
+                                   void* stream) {
+  const cudaStream_t st = cudaStream_t(stream);
+  auto go = [&](auto t, auto wt) {
+    return launch_apply<decltype(t), decltype(wt)>(
+        P, W, bias, lse, lab, s1, s2, db, part, gsq, B, E, d, dp, sj, sk,
+        tiles_per_chunk, n_chunks, opt, lr, gscale, bc1, bc2, st);
+  };
+  if (use_bf16) return w_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.0f);
+  return w_bf16 ? go(0.0f, bf16()) : go(0.0f, 0.0f);
 }

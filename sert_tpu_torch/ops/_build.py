@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # Every exported entry point and its C signature (all return cudaError_t).
 _SIGNATURES = {
     "sert_score_binmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "sert_sampled_lse_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "sert_xent_fwd": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 4 + [_P],
     "sert_xent_bwd": [_P] * 9 + [_I] * 4 + [_L] * 2 + [_I] * 4 + [_P],
+    "sert_xent_bwd_apply": ([_P] * 10 + [_I] * 4 + [_L] * 2 + [_I] * 3
+                            + [_F] * 4 + [_I] * 2 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
-"""K5 + K6: softmax cross-entropy over the whole entity axis
+"""K5 + K6 + K7: softmax cross-entropy over the whole entity axis
 (``csrc/xent.cu``), port of ``sert_tpu/ops/xent.py`` (``xent_loss`` :293,
-``_fwd_partials`` :270, ``_bwd_calls`` :364).
+``_fwd_partials`` :270, ``_bwd_calls`` :364, ``xent_loss_apply`` :615,
+``xent_bwd_apply`` :525).
 
     z_bj = pooled_b . W(j) + b_j
     loss = sum_b [ logsumexp_j z_bj - z_{b, y_b} ]
@@ -18,10 +19,16 @@ kernels' oracle on the card. Both round where the reference does: pooled and
 W to the compute dtype, fp32 products and softmax, the gold logit a separate
 fp32 sum of compute-dtype-rounded products, and p = softmax - onehot rounded
 to the compute dtype before the dW and dpooled products.
+
+:func:`xent_loss_apply` is the optimizer-in-backward step's loss: K5, then
+K7, which is K6 with adam, adagrad or sgd applied to W (and its optimizer
+slots) where K6 would store dW, so dW never reaches device memory; its
+plain version is :func:`xent_loss_apply_plain`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from sert_tpu_torch.ops import _build
@@ -30,11 +37,19 @@ from sert_tpu_torch.ops.sampled_lse import (DIM_MULTIPLE, MAX_DIM, _chunking,
                                             _operand_fp32, _RoundGrad)
 
 LAYOUTS = ("de", "ed")
+TILE = 64                 # the kernels' entity tile: K7 sums G^2 per tile
+# K7's optimizers (their index is the kernel's code) and the state slots of
+# each, shaped and typed as W; the constants are baked into the kernel as
+# the reference bakes them (xent_bwd_apply :552-553).
+OPTIMIZERS = ("adam", "adagrad", "sgd")
+SLOTS = {"adam": ("m", "v"), "adagrad": ("acc",), "sgd": ()}
+ADAM_B1, ADAM_B2, ADAM_EPS, ADAGRAD_EPS = 0.9, 0.999, 1e-8, 1e-7
 
 # Kernel launches since the last reset (chip_smoke.py shows the training and
-# scoring paths went through the kernels with them): K5 and K6.
+# scoring paths went through the kernels with them): K5, K6 and K7.
 fwd_launches = 0
 bwd_launches = 0
+apply_launches = 0
 
 
 def _logits_plain(pooled, W, b, layout, ct):
@@ -106,16 +121,25 @@ def _check(pooled, W, b, labels, layout):
         raise ValueError("xent: pooled must be floating")
     if labels is not None and labels.is_floating_point():
         raise ValueError("xent: labels must be integers")
-    if B == 0 or E == 0:
-        raise ValueError("the K5/K6 kernels need at least one row and one "
-                         "entity")
+    problem = kernel_limits(B, E, d)
+    if problem:
+        raise ValueError(f"xent: {problem}")
     dp = -(-d // DIM_MULTIPLE) * DIM_MULTIPLE
-    if dp > MAX_DIM:
-        raise ValueError(f"the K5/K6 kernels take d <= {MAX_DIM}, got {d}")
-    if B >= 2 ** 31 // dp or E >= 2 ** 31 - 64:
-        raise ValueError("xent: B * d and E must fit in int32")
     strides = (1, E) if layout == "de" else (d, 1)
     return B, E, d, dp, strides
+
+
+def kernel_limits(B: int, E: int, d: int):
+    """None when the K5/K6/K7 kernels take B rows, E entities and width d;
+    else what they refuse (train/fused.py gates on it)."""
+    if B == 0 or E == 0:
+        return "the kernels need at least one row and one entity"
+    dp = -(-d // DIM_MULTIPLE) * DIM_MULTIPLE
+    if dp > MAX_DIM:
+        return f"the kernels take d <= {MAX_DIM}, got {d}"
+    if B >= 2 ** 31 // dp or E >= 2 ** 31 - 64:
+        return "B * d and E must fit in int32"
+    return None
 
 
 def _fwd(P, W, b, B, E, d, dp, strides, ct):
@@ -143,25 +167,34 @@ def _cuda_only(pooled: torch.Tensor) -> None:
         raise ValueError(f"xent runs on cpu or cuda, not {pooled.device}")
 
 
+def _loss_forward(pooled, W, b, labels, layout, ct):
+    """K5 and the gold logit: (loss sum, the backward's operands (P, W, fp32
+    bias, int32 labels, lse [B]), geometry (B, E, d, dp, strides))."""
+    B, E, d, dp, strides = _check(pooled, W, b, labels, layout)
+    P = _operand(pooled.detach(), ct, dp)
+    Wd = W.detach()
+    bf = b.detach().float().contiguous()
+    lab = labels.to(torch.int32).contiguous()
+    lse = _fwd(P, Wd, bf, B, E, d, dp, strides, ct)
+    # The gold logit: one gather of W's gold rows, an fp32 sum of
+    # compute-dtype-rounded products (the reference's xent.py:347-355).
+    idx = labels.long()
+    w_gold = Wd[:, idx].T if layout == "de" else Wd[idx]
+    z_gold = (torch.sum(P[:, :d].float() * w_gold.to(ct).float(), dim=1)
+              + bf[idx])
+    return (torch.sum(lse - z_gold), (P, Wd, bf, lab, lse),
+            (B, E, d, dp, strides))
+
+
 class _XentLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pooled, W, b, labels, layout, dtype):
         ct = _compute_dtype(dtype)
-        B, E, d, dp, strides = _check(pooled, W, b, labels, layout)
-        P = _operand(pooled.detach(), ct, dp)
-        Wd = W.detach()
-        bf = b.detach().float().contiguous()
-        lab = labels.to(torch.int32).contiguous()
-        lse = _fwd(P, Wd, bf, B, E, d, dp, strides, ct)
-        # The gold logit: one gather of W's gold rows, an fp32 sum of
-        # compute-dtype-rounded products (the reference's xent.py:347-355).
-        idx = labels.long()
-        w_gold = Wd[:, idx].T if layout == "de" else Wd[idx]
-        z_gold = (torch.sum(P[:, :d].float() * w_gold.to(ct).float(), dim=1)
-                  + bf[idx])
-        ctx.save_for_backward(P, Wd, bf, lab, lse)
-        ctx.meta = (ct, B, E, d, dp, strides, pooled.dtype, b.dtype)
-        return torch.sum(lse - z_gold)
+        loss, saved, geometry = _loss_forward(pooled, W, b, labels, layout,
+                                              ct)
+        ctx.save_for_backward(*saved)
+        ctx.meta = (ct, *geometry, pooled.dtype, b.dtype)
+        return loss
 
     @staticmethod
     def backward(ctx, g):
@@ -218,3 +251,137 @@ def xent_lse(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     B, E, d, dp, strides = _check(pooled, W, b, None, layout)
     return _fwd(_operand(pooled, ct, dp), W, b.float().contiguous(), B, E, d,
                 dp, strides, ct)
+
+
+# ------------- the backward fused with the optimizer update (K7) ------------
+
+def _slots(W: torch.Tensor, opt: str, opt_tree) -> list:
+    """The optimizer's state slots of W (adam m, v; adagrad acc; sgd none),
+    after checking that each has W's shape, dtype, device and layout."""
+    if opt not in OPTIMIZERS:
+        raise ValueError(f"xent_loss_apply: opt must be one of {OPTIMIZERS}, "
+                         f"got {opt!r}")
+    if set(opt_tree) != set(SLOTS[opt]):
+        raise ValueError(f"xent_loss_apply: {opt} takes the slots "
+                         f"{SLOTS[opt]}, got {sorted(opt_tree)}")
+    slots = [opt_tree[k] for k in SLOTS[opt]]
+    for name, s in zip(SLOTS[opt], slots):
+        if (s.shape != W.shape or s.dtype != W.dtype or s.device != W.device
+                or not s.is_contiguous()):
+            raise ValueError(
+                f"xent_loss_apply: slot {name!r} must be contiguous and have "
+                f"W's shape {tuple(W.shape)}, dtype {W.dtype} and device "
+                f"{W.device}; got {tuple(s.shape)}, {s.dtype}, {s.device}")
+    return slots
+
+
+def _bias_corr(count) -> tuple:
+    """adam's (1 - 0.9^t, 1 - 0.999^t) with t = count + 1, in fp32 as the
+    reference takes them (xent.py:654-655)."""
+    t = np.float32(count) + np.float32(1.0)
+    return (float(np.float32(1.0) - np.float32(ADAM_B1) ** t),
+            float(np.float32(1.0) - np.float32(ADAM_B2) ** t))
+
+
+def _update_plain(W, slots, dW, opt, lr, count, gscale) -> torch.Tensor:
+    """The update of W and its slots, in place, from the summed loss's fp32
+    dW, in the kernel's order and in fp32 from W's stored values; returns
+    ||gscale * dW||^2."""
+    g = dW * gscale
+    if opt == "adam":
+        bc1, bc2 = _bias_corr(count)
+        m2 = ADAM_B1 * slots[0].float() + (1.0 - ADAM_B1) * g
+        v2 = ADAM_B2 * slots[1].float() + (1.0 - ADAM_B2) * g * g
+        upd = lr * (m2 / bc1) / (torch.sqrt(v2 / bc2) + ADAM_EPS)
+        slots[0].copy_(m2)
+        slots[1].copy_(v2)
+    elif opt == "adagrad":
+        a2 = slots[0].float() + g * g
+        upd = lr * g * torch.where(a2 > 0, torch.rsqrt(a2 + ADAGRAD_EPS), 0.0)
+        slots[0].copy_(a2)
+    else:
+        upd = lr * g
+    W.copy_(W.float() - upd)
+    return torch.sum(g * g)
+
+
+@torch.no_grad()
+def xent_loss_apply_plain(pooled: torch.Tensor, W: torch.Tensor,
+                          b: torch.Tensor, labels: torch.Tensor, *, opt: str,
+                          opt_tree, lr: float, count, gscale: float,
+                          layout: str = "de", dtype: str = "float32"):
+    """:func:`xent_loss_apply` in plain PyTorch: the loss and gradients of
+    :func:`xent_loss_plain` (materializing [B, E]), then the update in the
+    kernel's order, in fp32 from W's stored values. Updates W and the slots
+    in place."""
+    slots = _slots(W, opt, opt_tree)
+    with torch.enable_grad():
+        p, w, bb = (t.detach().float().requires_grad_(True)
+                    for t in (pooled, W, b))
+        loss = xent_loss_plain(p, w, bb, labels, layout, dtype)
+        dpooled, dW, db = torch.autograd.grad(loss, [p, w, bb])
+    gsq = _update_plain(W, slots, dW, opt, lr, count, gscale)
+    return (loss.detach(), W, opt_tree, db * gscale, dpooled * gscale, gsq)
+
+
+def _bwd_apply(saved, geometry, slots, opt, lr, count, gscale, ct):
+    """Launch K7 on :func:`_loss_forward`'s operands and geometry: updates
+    W and the slots in place; returns (db * gscale, dpooled * gscale,
+    gsq)."""
+    global apply_launches
+    P, W, bf, lab, lse = saved
+    B, E, d, dp, strides = geometry
+    dev = P.device
+    per, n_chunks = _chunking(B, E)
+    db = torch.empty((E,), dtype=torch.float32, device=dev)
+    part = torch.empty((n_chunks, B, dp), dtype=torch.float32, device=dev)
+    gsq = torch.empty((-(-E // TILE),), dtype=torch.float32, device=dev)
+    bc1, bc2 = _bias_corr(count) if opt == "adam" else (1.0, 1.0)
+    s1, s2 = ([s.data_ptr() for s in slots] + [None, None])[:2]
+    with torch.cuda.device(dev):
+        err = _build.kernel("sert_xent_bwd_apply")(
+            P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
+            lab.data_ptr(), s1, s2, db.data_ptr(), part.data_ptr(),
+            gsq.data_ptr(), B, E, d, dp, strides[0], strides[1], per,
+            n_chunks, OPTIMIZERS.index(opt), lr, gscale, bc1, bc2,
+            int(ct == torch.bfloat16), int(W.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "xent backward with the optimizer update (K7)")
+    apply_launches += 1
+    return db * gscale, part.sum(dim=0)[:, :d] * gscale, torch.sum(gsq)
+
+
+@torch.no_grad()
+def xent_loss_apply(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+                    labels: torch.Tensor, *, opt: str, opt_tree, lr: float,
+                    count, gscale: float, layout: str = "de",
+                    dtype: str = "float32"):
+    """The softmax cross-entropy's loss and backward with the optimizer
+    update of W applied inside the backward: K5, then K7 on CUDA tensors;
+    :func:`xent_loss_apply_plain` on CPU tensors. Not differentiable.
+
+    ``opt`` is "adam" (``opt_tree`` {"m", "v"}), "adagrad" ({"acc"}) or
+    "sgd" ({}), each slot shaped and typed as W (fp32 or bf16 storage;
+    b1 = 0.9, b2 = 0.999, eps 1e-8 for adam and 1e-7 for adagrad, as in
+    the reference), ``lr`` the constant learning rate, ``count`` adam's
+    step count before this update (bias correction at t = count + 1),
+    ``gscale`` the factor from the summed loss to the update's gradient
+    (1 / B for the mean). W and the slots are updated IN PLACE (the
+    reference donates their buffers through input-output aliasing,
+    xent.py:580, :595, :607) and returned.
+
+    Returns ``(loss_sum, W, opt_tree, db * gscale, dpooled * gscale,
+    gsq)``: db and dpooled are the gradients of the gscale-scaled loss in
+    fp32, gsq = ||gscale * dW||^2 (fp32 scalar) for the grad-norm
+    metric."""
+    if pooled.device.type == "cpu":
+        return xent_loss_apply_plain(
+            pooled, W, b, labels, opt=opt, opt_tree=opt_tree, lr=lr,
+            count=count, gscale=gscale, layout=layout, dtype=dtype)
+    _cuda_only(pooled)
+    slots = _slots(W, opt, opt_tree)
+    ct = _compute_dtype(dtype)
+    loss, saved, geometry = _loss_forward(pooled, W, b, labels, layout, ct)
+    db, dpooled, gsq = _bwd_apply(saved, geometry, slots, opt, lr, count,
+                                  gscale, ct)
+    return loss, W, opt_tree, db, dpooled, gsq

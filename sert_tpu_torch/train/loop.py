@@ -45,13 +45,7 @@ def _check_supported(recipe: RecipeConfig) -> None:
             "tunnelled link, and 'auto' resolves to off")
     if tcfg.packed_feed not in ("auto", "off"):
         raise ValueError(f"unknown packed_feed: {tcfg.packed_feed!r}")
-    if tcfg.fused_update == "on":
-        raise NotImplementedError(
-            "fused_update='on' (the optimizer applied inside the softmax "
-            "backward, kernel K7) is not ported yet (ROADMAP Queue 1 item "
-            "9: optimizer-in-backward step); 'auto' resolves to the dense "
-            "step")
-    if tcfg.fused_update not in ("auto", "off"):
+    if tcfg.fused_update not in ("auto", "on", "off"):
         raise ValueError(f"unknown fused_update: {tcfg.fused_update!r}")
 
 
@@ -85,7 +79,7 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
         noise = lse_model.noise_logits(
             entity_counts if mcfg.negative_distribution == "unigram" else None,
             mcfg, device)
-    train_step = make_train_step(mcfg, tcfg, noise=noise)
+    train_step = make_train_step(mcfg, tcfg, noise=noise, device=device)
 
     t_setup = time.perf_counter()
     state = init_state(tcfg.seed, mcfg, tcfg, device)

@@ -254,12 +254,36 @@ def _sparse_not_ported() -> NotImplementedError:
         "Queue 1 item 8: row-sparse lazy optimizer + bf16 params)")
 
 
+def micro_step_calls(micro_step, n: int):
+    """``step(state, batch) -> (state, metrics)`` over ``micro_step(state,
+    batch) -> metrics``: one micro-step, or with ``n > 1`` a Python loop
+    over the stacked batch's leading micro-step axis, with the last
+    micro-step's metrics."""
+    def step(state: TrainState, batch
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if n <= 1:
+            return state, micro_step(state, batch)
+        metrics = None
+        for i in range(next(iter(batch.values())).shape[0]):
+            metrics = micro_step(state, {k: v[i] for k, v in batch.items()})
+        return state, metrics
+
+    return step
+
+
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                    noise: Optional[torch.Tensor] = None, loss_fn=None):
+                    noise: Optional[torch.Tensor] = None, loss_fn=None,
+                    device=None):
     """``step(state, batch) -> (state, metrics)``: one dense update per
     micro-step, in place. ``noise``: the negative-sampling logits over
     entities (LSE), on the params' device. ``loss_fn``: api.loss_fn's
     signature, overridable (tests inject negatives through it).
+    ``device``: the params' device (None: the CPU, as in
+    :func:`init_state`), on which ``fused_update="auto"`` decides.
+
+    Where ``train.fused.fused_enabled`` holds and no ``loss_fn`` is given,
+    the step is ``train.fused.make_fused_train_step``'s (the optimizer
+    applied inside the softmax backward, K7), with the same contract.
 
     With ``steps_per_call > 1`` the step takes a stacked batch (leading
     micro-step axis) and runs the micro-steps in a Python loop; metrics are
@@ -270,10 +294,10 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     if train_cfg.sparse_update == "auto" and model_cfg.model == "lse":
         log.info("sparse_update='auto' resolves to the dense step (the "
                  "row-sparse step is ROADMAP Queue 1 item 8)")
-    if (train_cfg.fused_update == "auto"
-            and model_cfg.model in ("loglinear", "lse_full")):
-        log.info("fused_update='auto' resolves to the dense step (the "
-                 "optimizer-in-backward step, K7, is ROADMAP Queue 1 item 9)")
+    if loss_fn is None:
+        from sert_tpu_torch.train import fused   # it imports this module
+        if fused.fused_enabled(model_cfg, train_cfg, device):
+            return fused.make_fused_train_step(model_cfg, train_cfg)
     opt = make_optimizer(train_cfg)
     if loss_fn is None:
         loss_fn = api.loss_fn
@@ -291,15 +315,4 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
-    n = train_cfg.steps_per_call
-
-    def step(state: TrainState, batch
-             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        if n <= 1:
-            return state, micro_step(state, batch)
-        metrics = None
-        for i in range(next(iter(batch.values())).shape[0]):
-            metrics = micro_step(state, {k: v[i] for k, v in batch.items()})
-        return state, metrics
-
-    return step
+    return micro_step_calls(micro_step, train_cfg.steps_per_call)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1/K2 sampled_lse, K3 score_binmax, K4
-gather_rescore, K5/K6 xent) against their plain PyTorch versions, and the
-build that binds them.
+gather_rescore, K5/K6/K7 xent) against their plain PyTorch versions, and
+the build that binds them.
 
 Imports nothing of JAX, so it runs on a host without it. The ``gpu`` tests
 skip without a CUDA device; on the card run
@@ -14,7 +14,8 @@ bf16-rounded (K3) or fp32 (K4) inputs and sum in fp32 in another order
 (rtol 1e-5, atol 1e-5). K1/K2 likewise, relative to the largest output
 (1e-4 in fp32); in bf16 the probabilities are rounded after fp32 sums that
 differ in order, so an element may land one bf16 step apart (2e-2). K5/K6
-the same, for the loss, lse, dpooled, dW and db.
+the same, for the loss, lse, dpooled, dW and db; K7 as K5/K6, with the
+updated W held relative to the learning rate.
 """
 
 import numpy as np
@@ -310,3 +311,99 @@ class TestXentOnCard:
             xent.xent_loss(pooled, W, b.cpu(), labels, "ed")
         with pytest.raises(ValueError, match="contiguous"):
             xent.xent_loss(pooled, W.T.contiguous().T, b, labels, "ed")
+
+
+# K7 against its plain version, from seeded non-zero moments with count 3:
+# the loss and gsq (fp32 sums) as K5's loss; db, dpooled and the slots as
+# K6's gradients, relative to max |plain|; W' relative to lr (the update is
+# lr-sized). bf16 storage: each stored value may also round one bf16 step
+# (at most 2^-7 of the value) apart.
+APPLY_LR = 1e-2
+
+
+def _apply_inputs(dev, B, E, d, layout, opt, w_dtype=torch.float32):
+    pooled, W, b, labels = _xent_inputs(dev, B, E, d, layout)
+    g = torch.Generator(device=dev).manual_seed(1)
+    slots = {"m": 1e-3 * torch.randn(W.shape, generator=g, device=dev),
+             "v": 1e-5 * (0.5 + torch.randn(W.shape, generator=g,
+                                            device=dev).abs()),
+             "acc": 1e-5 * (0.5 + torch.randn(W.shape, generator=g,
+                                              device=dev).abs())}
+    tree = {k: slots[k].to(w_dtype) for k in xent.SLOTS[opt]}
+    return pooled, W.to(w_dtype), b, labels, tree
+
+
+def _apply_run(fn, x, opt, layout, dtype):
+    pooled, W, b, labels, tree = x
+    W, tree = W.clone(), {k: v.clone() for k, v in tree.items()}
+    out = fn(pooled, W, b, labels, opt=opt, opt_tree=tree, lr=APPLY_LR,
+             count=3, gscale=1.0 / pooled.shape[0], layout=layout,
+             dtype=dtype)
+    return {"loss": out[0], "gsq": out[5], "db": out[3], "dpooled": out[4],
+            "W": W, **tree}
+
+
+def _check_apply(got, want, dtype):
+    for name, b in want.items():
+        a = got[name]
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all()), name
+        if name in ("loss", "gsq"):
+            limit = XENT_SUM_RTOL * b.abs().max()
+        elif name == "W":
+            limit = XENT_TOL[dtype] * APPLY_LR
+        else:
+            limit = XENT_TOL[dtype] * b.abs().max()
+        if want[name].dtype == torch.bfloat16:
+            limit = limit + 2.0 ** -7 * b.abs()
+        assert bool(((a - b).abs() <= limit).all()), (
+            name, (a - b).abs().max().item())
+
+
+@pytest.mark.gpu
+class TestXentApplyOnCard:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("layout", ["de", "ed"])
+    @pytest.mark.parametrize("opt", ["adam", "adagrad", "sgd"])
+    @pytest.mark.parametrize("B,E,d", [(256, 4096, 128), (100, 777, 24),
+                                       (64, 130, 256), (1000, 1100, 128)])
+    def test_kernel_matches_plain(self, cuda, B, E, d, opt, layout, dtype):
+        x = _apply_inputs(cuda, B, E, d, layout, opt)
+        n = (xent.fwd_launches, xent.bwd_launches, xent.apply_launches)
+        got = _apply_run(xent.xent_loss_apply, x, opt, layout, dtype)
+        assert (xent.fwd_launches, xent.bwd_launches,
+                xent.apply_launches) == (n[0] + 1, n[1], n[2] + 1)
+        want = _apply_run(xent.xent_loss_apply_plain, x, opt, layout, dtype)
+        _check_apply(got, want, dtype)
+
+    @pytest.mark.parametrize("opt", ["adam", "adagrad"])
+    def test_bf16_storage(self, cuda, opt):
+        x = _apply_inputs(cuda, 256, 3001, 128, "ed", opt, torch.bfloat16)
+        got = _apply_run(xent.xent_loss_apply, x, opt, "ed", "bfloat16")
+        want = _apply_run(xent.xent_loss_apply_plain, x, opt, "ed",
+                          "bfloat16")
+        assert got["W"].dtype == torch.bfloat16
+        _check_apply(got, want, "bfloat16")
+
+    def test_is_deterministic(self, cuda):
+        x = _apply_inputs(cuda, 512, 3000, 128, "de", "adam")
+        a = _apply_run(xent.xent_loss_apply, x, "adam", "de", "bfloat16")
+        b = _apply_run(xent.xent_loss_apply, x, "adam", "de", "bfloat16")
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+    def test_wrapper_refuses_what_the_kernel_does_not_take(self, cuda):
+        pooled, W, b, labels, tree = _apply_inputs(cuda, 8, 16, 16, "ed",
+                                                   "adam")
+        kw = dict(opt="adam", lr=APPLY_LR, count=0, gscale=1.0, layout="ed")
+        with pytest.raises(ValueError, match="dtype"):
+            xent.xent_loss_apply(pooled, W, b, labels, opt_tree={
+                "m": tree["m"], "v": tree["v"].bfloat16()}, **kw)
+        with pytest.raises(ValueError, match="device"):
+            xent.xent_loss_apply(pooled, W, b, labels, opt_tree={
+                "m": tree["m"], "v": tree["v"].cpu()}, **kw)
+        with pytest.raises(ValueError, match="d <= 256"):
+            big = torch.zeros(16, 300, device=cuda)
+            xent.xent_loss_apply(torch.zeros(8, 300, device=cuda), big, b,
+                                 labels, opt_tree={"m": big.clone(),
+                                                   "v": big.clone()}, **kw)

@@ -249,14 +249,23 @@ def test_three_steps_match_reference(model, fused, train_kw):
 
 
 def test_fused_update_on_names_its_item(tmp_path):
+    """"on" is ported (the fused step, tests/test_torch_fused.py): the loop
+    takes it, an unknown mode still raises, and "on" with a mesh names
+    the item that ports the mesh variant."""
     recipe = recipes.tiny_recipe("loglinear")
-    recipe = dataclasses.replace(recipe, train=dataclasses.replace(
-        recipe.train, fused_update="on"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        loop._check_supported(recipe)
-    loop._check_supported(dataclasses.replace(
-        recipe, train=dataclasses.replace(recipe.train,
-                                          fused_update="auto")))
+    for mode in ("on", "auto", "off"):
+        loop._check_supported(dataclasses.replace(
+            recipe, train=dataclasses.replace(recipe.train,
+                                              fused_update=mode)))
+    with pytest.raises(ValueError, match="unknown fused_update"):
+        loop._check_supported(dataclasses.replace(
+            recipe, train=dataclasses.replace(recipe.train,
+                                              fused_update="always")))
+    with pytest.raises(ValueError, match="item 12"):
+        port_step.make_train_step(
+            recipe.model.replace(word_dim=128),
+            dataclasses.replace(recipe.train, fused_update="on",
+                                mesh_shape=(1, 2)))
 
 
 def test_full_state_checkpoints_cross_load(tmp_path):

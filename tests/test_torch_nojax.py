@@ -114,6 +114,17 @@ def test_loglinear_runs_with_jax_and_the_reference_blocked(tmp_path):
     assert 0.0 <= metrics["ndcg@100"] <= 1.0
 
 
+def test_fused_update_runs_with_jax_and_the_reference_blocked(tmp_path):
+    """The optimizer-in-backward step (train/fused.py, K7's wrapper)."""
+    from sert_tpu_torch import recipes
+    recipe = recipes.tiny_recipe("loglinear")
+    recipe = dataclasses.replace(
+        recipe, model=dataclasses.replace(recipe.model, word_dim=128),
+        train=dataclasses.replace(recipe.train, fused_update="on"))
+    metrics = _cli_blocked_pipeline(tmp_path, recipe)
+    assert 0.0 <= metrics["ndcg@100"] <= 1.0
+
+
 def test_serving_path_runs_with_no_jax_module_loaded():
     proc = _run(SERVE_ON_CPU, REPO)
     assert proc.returncode == 0, proc.stderr

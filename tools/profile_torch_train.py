@@ -4,20 +4,25 @@ card.
 
     python tools/profile_torch_train.py [--recipe cerc_expert_finding]
         [--model lse_full] [--vocab 39885] [--entities 3500]
+        [--dim 256] [--compute-dtype bfloat16] [--fused-update on|off]
         [--steps 50] [--out chiprun_out/profile_train]
 
 Builds the recipe's model at its width with ``--vocab`` words and
 ``--entities`` entities (random seeded weights; ``--model`` swaps the
-family, e.g. ``lse_full`` on ``synthetic_1m_retrieval``), and feeds it
-seeded random batches of the recipe's shape that already sit on the card,
-so the feed is left out. After five warm-up steps:
+family, e.g. ``lse_full`` on ``synthetic_1m_retrieval``; ``--dim`` and
+``--compute-dtype`` replace the recipe's, and ``--fused-update`` its
+``fused_update``: "on" takes the optimizer-in-backward step, K5 + K7),
+and feeds it seeded random batches of the recipe's shape that already sit
+on the card, so the feed is left out.
+After five warm-up steps:
 
-  * host clock: ``--steps`` micro-steps through ``train.step``'s dense
-    step, ending in a synchronize: steps/s;
-  * ``torch.profiler`` over ten more: device time by kernel (K5/K6 or
-    K1/K2, the optimizer's elementwise kernels, the embedding gathers and
-    their backward), the device's busy and idle share of the window; the
-    Chrome trace and the key-averages table go to ``--out``.
+  * host clock: ``--steps`` micro-steps through ``train.step``'s step
+    (dense, or fused where the config says so), ending in a synchronize:
+    steps/s;
+  * ``torch.profiler`` over ten more: device time by kernel (K5/K6, K5/K7
+    or K1/K2, the optimizer's elementwise kernels, the embedding gathers
+    and their backward), the device's busy and idle share of the window;
+    the Chrome trace and the key-averages table go to ``--out``.
 
 Prints one JSON object as its last line. Needs a CUDA device.
 """
@@ -45,6 +50,14 @@ def main() -> int:
     ap.add_argument("--vocab", type=int, default=39885,
                     help="words (default: the CERC stand-in's vocabulary)")
     ap.add_argument("--entities", type=int, default=3500)
+    ap.add_argument("--dim", type=int, default=None,
+                    help="word (log-linear) or entity dim, else the recipe's")
+    ap.add_argument("--compute-dtype", default=None,
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--fused-update", default=None,
+                    choices=["auto", "on", "off"],
+                    help="the optimizer-in-backward step (K7), else the "
+                         "recipe's setting")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/profile_train")
@@ -58,6 +71,7 @@ def main() -> int:
 
     from sert_tpu_torch.cli import load_recipe
     from sert_tpu_torch.models import lse
+    from sert_tpu_torch.train.fused import fused_enabled
     from sert_tpu_torch.train.step import init_state, make_train_step
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -69,13 +83,20 @@ def main() -> int:
     mcfg = recipe.model.replace(model=args.model or recipe.model.model,
                                 vocab_size=args.vocab,
                                 num_entities=args.entities)
-    tcfg = dataclasses.replace(recipe.train, steps_per_call=1,
-                               lr_decay_steps=10_000)
+    if args.dim:
+        mcfg = mcfg.replace(**{("word_dim" if mcfg.model == "loglinear"
+                                else "entity_dim"): args.dim})
+    if args.compute_dtype:
+        mcfg = mcfg.replace(compute_dtype=args.compute_dtype)
+    tcfg = dataclasses.replace(
+        recipe.train, steps_per_call=1, lr_decay_steps=10_000,
+        fused_update=args.fused_update or recipe.train.fused_update)
     dev = torch.device("cuda")
     state = init_state(args.seed, mcfg, tcfg, device=dev)
     noise = (lse.noise_logits(None, mcfg, dev) if mcfg.model == "lse"
              else None)
-    step = make_train_step(mcfg, tcfg, noise=noise)
+    step = make_train_step(mcfg, tcfg, noise=noise, device=dev)
+    fused = fused_enabled(mcfg, tcfg, dev)
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     B, w = tcfg.batch_size, recipe.data.window_size
@@ -127,7 +148,8 @@ def main() -> int:
         "recipe": recipe.name, "model": mcfg.model,
         "vocab": args.vocab, "entities": args.entities, "batch": B,
         "compute_dtype": mcfg.compute_dtype,
-        "optimizer": tcfg.optimizer, "timed_steps": args.steps,
+        "optimizer": tcfg.optimizer, "fused_update": fused,
+        "timed_steps": args.steps,
         "steps_per_sec": args.steps / wall_s,
         "ms_per_step": wall_s * 1e3 / args.steps, "last_loss": loss,
         "profiled_steps": profiled,
