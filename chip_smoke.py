@@ -38,7 +38,10 @@ Phases (each prints one line or more; any failure exits non-zero):
      against xent_loss_plain + autograd on the same inputs: "de" fp32 at
      cerc's B=1024, d=256, E=3500 and at w3c's d=128, E=1100 with a ragged
      B=1000; "ed" bf16 at B=4096, d=128, E=131072 and at E=131071 (a tail
-     tile); "de" bf16 once; K5 alone at the log-linear normalizer's shape
+     tile); "de" bf16 once; fp32 "de" at B=4096, E=300, d=256 (K6's dW
+     sweep at its most batch slices); each case's slice and block counts,
+     and two K6 backward calls bit for bit at cerc's shape and at the
+     split one; K5 alone at the log-linear normalizer's shape
      (64 queries x 16 terms, "de", fp32, d=256); and K5/K6 timed alone at
      lse_full's flagship shape (B=4096, E=1M, d=128, bf16, "ed"), the
      forward held against an lse the plain version computes in entity
@@ -131,9 +134,11 @@ LSE_FULL_STEPS = 16
 # XENT_TOL of the learning rate (an update is lr-sized), from seeded
 # non-zero moments with count 3.
 APPLY_LR = 1e-2
-# The fused step against the dense one on the same batches: K7's dW sweep
-# is K6's code, so the gradients are the same bits; only the optimizer's
-# arithmetic is in another order (an ulp of an lr-sized update per step).
+# The fused step against the dense one on the same batches: both take the
+# fp32 class of product (K7 on the CUDA cores, K6 as 3xTF32 on the tensor
+# cores), so the gradients differ in rounding and summation order only, and
+# the optimizer's arithmetic is in another order (an ulp of an lr-sized
+# update per step).
 FUSED_PARITY_RTOL = 1e-4
 # The fused-step A/B at the width of the reference's
 # benchmarks/fused_step_bench.py (log-linear, bf16 compute, fp32 params,
@@ -141,8 +146,9 @@ FUSED_PARITY_RTOL = 1e-4
 AB_V, AB_E, AB_D, AB_LR = 60_000, 500_000, 256, 1e-2
 AB_STEPS_PER_CALL, AB_CALLS = 8, 3
 # The H100 SXM's published dense peaks (bf16 on tensor cores, fp32 on the
-# CUDA cores) and its memory rate, for each kernel's bound.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# CUDA cores, and fp32 products as three TF32 passes on the tensor cores,
+# as K6 runs them) and its memory rate, for each kernel's bound.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -674,14 +680,23 @@ def _xent_case(B, E, d, layout, seed):
     return pooled, W, b, labels
 
 
-def _xent_outputs(fn, pooled, W, b, labels, layout, dtype, iters):
+def _xent_outputs(fn, pooled, W, b, labels, layout, dtype, iters,
+                  repeat=False):
     """Loss and gradients of the mean loss, and CUDA-event times of the
-    forward and of the backward alone."""
+    forward and of the backward alone. ``repeat``: the backward again, which
+    must give the same bits."""
     import torch
     p, w, bb = (t.clone().requires_grad_(True) for t in (pooled, W, b))
     loss = fn(p, w, bb, labels, layout, dtype)
     mean = loss / pooled.shape[0]
     grads = torch.autograd.grad(mean, [p, w, bb], retain_graph=True)
+    if repeat:
+        again = torch.autograd.grad(mean, [p, w, bb], retain_graph=True)
+        same = all(torch.equal(u, v) for u, v in zip(grads, again))
+        say("xent_kernels", backward_twice_bit_equal=same,
+            shape=f"{pooled.shape[0]}x{b.shape[0]}x{pooled.shape[1]}")
+        if not same:
+            raise AssertionError("two backward calls differ")
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: fn(pooled, W, b, labels, layout, dtype),
                          iters=iters, warmup=1)
@@ -714,15 +729,25 @@ def phase_xent_kernels() -> dict:
         "xent_bwd": dict(name="xent_bwd", route="cuda", source=src,
                          replaces="sert_tpu/ops/xent.py:219", launches=0,
                          max_abs_err=0.0, library_ms=None)}
+    # split_max: K6's dW sweep at its most slices (32 over 5 entity tiles);
+    # w3c_ragged's last slice ends in a partial batch tile.
     cases = [("cerc", 1024, 3500, 256, "de", "float32"),
              ("w3c_ragged", 1000, 1100, 128, "de", "float32"),
              ("lse_full_128k", 4096, 131072, 128, "ed", "bfloat16"),
              ("lse_full_tail", 4096, 131071, 128, "ed", "bfloat16"),
-             ("cerc_bf16", 1024, 3500, 256, "de", "bfloat16")]
+             ("cerc_bf16", 1024, 3500, 256, "de", "bfloat16"),
+             ("split_max", 4096, 300, 256, "de", "float32")]
+    bit_equal = ("cerc", "split_max")
     for i, (label, B, E, d, layout, dtype) in enumerate(cases):
         x = _xent_case(B, E, d, layout, 100 + i)
         iters = 3 if E > 100_000 else 10
-        k_ = _xent_outputs(xent.xent_loss, *x, layout, dtype, iters)
+        per, slices = xent._dw_splits(B, E)
+        chunk_tiles, chunks = xent._dp_chunks(B, E)
+        say("xent_kernels", case=label, dw_slices=slices,
+            dw_btiles_per_slice=per, dw_blocks=slices * -(-E // 64),
+            dp_blocks=chunks * -(-B // 64), dp_tiles_per_block=chunk_tiles)
+        k_ = _xent_outputs(xent.xent_loss, *x, layout, dtype, iters,
+                           repeat=label in bit_equal)
         p_ = _xent_outputs(xent.xent_loss_plain, *x, layout, dtype, iters)
         with torch.no_grad():
             k_["lse"] = xent.xent_lse(*x[:3], layout, dtype)
@@ -741,12 +766,17 @@ def phase_xent_kernels() -> dict:
             if err > tol:
                 raise AssertionError(f"{label}: {key} error {err} > {tol}")
         f_flops, f_bytes, b_flops, b_bytes = _xent_work(B, E, d, *x)
-        fb, bb = bound(f_flops, f_bytes, dtype), bound(b_flops, b_bytes,
-                                                       dtype)
+        # K6 runs its fp32 products as 3xTF32 on the tensor cores; its bound
+        # on the CUDA cores is kept beside it.
+        fb = bound(f_flops, f_bytes, dtype)
+        bb = bound(b_flops, b_bytes,
+                   "tf32x3" if dtype == "float32" else dtype)
+        bb_cores = bound(b_flops, b_bytes, dtype)["bound_ms"]
         say("xent_kernels", case=label, fwd_ms=k_["fwd_ms"],
             fwd_plain_ms=p_["fwd_ms"], fwd_bound_ms=fb["bound_ms"],
             bwd_ms=k_["bwd_ms"], bwd_plain_ms=p_["bwd_ms"],
-            bwd_bound_ms=bb["bound_ms"], bound_by=fb["bound_by"])
+            bwd_bound_ms=bb["bound_ms"], bwd_bound_cuda_cores_ms=bb_cores,
+            bound_by=fb["bound_by"])
         fwd, bwd = records["xent_fwd"], records["xent_bwd"]
         fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["loss"],
                                  errs["lse"])
@@ -754,7 +784,8 @@ def phase_xent_kernels() -> dict:
                                  errs["dW"], errs["db"])
         if i == 0:
             fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"], **fb)
-            bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"], **bb)
+            bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"], **bb,
+                       bound_cuda_cores_ms=bb_cores)
         del k_, p_, x
         torch.cuda.empty_cache()
 

@@ -37,9 +37,11 @@
 // while W is 0.5 GB of fp32: arithmetic bounds it, and the recompute is the
 // price of keeping 16 GB of fp32 logits out of device memory. At the
 // log-linear recipes' widths (E of a few thousand, fp32 compute) the work
-// is a few GFLOP a step on the CUDA cores. This first version uses the
-// tile products of K1/K2 (tile_mm.cuh): wmma bf16 fragments into fp32, or
-// fp32 on the CUDA cores; wgmma, TMA and pipelined loads are later work.
+// is a few GFLOP a step. K5 and K7 use the tile products of K1/K2
+// (tile_mm.cuh): wmma bf16 fragments into fp32, or fp32 on the CUDA cores.
+// K6 has its own sweeps (xent6_sweep_kernel below): register accumulators,
+// fp32 products on the tensor cores as 3xTF32, and staging that overlaps
+// the products. wgmma, TMA and one merged sweep are later work.
 //
 // K7 does K6's three products and moves W, m and v once each way, instead
 // of writing dW for a separate optimizer pass to read back beside W, m and
@@ -50,9 +52,12 @@
 // version recomputes z in its dpooled sweep as K6 does, and its update is
 // elementwise in the epilogue of K6's dW sweep.
 //
-// Determinism: no float atomics. The dW / db sweep gives each entity tile
-// one block that loops over all batch tiles in order; the dpooled sweep
-// writes one partial per (entity chunk, batch row), which the caller sums
+// Determinism: no float atomics. K7's dW / db sweep gives each entity tile
+// one block that loops over all batch tiles in order; K6's splits the batch
+// tiles into slices by a plan that depends on the shapes alone
+// (ops/xent.py _dw_splits), each block looping over its slice in order,
+// and a second kernel sums the slices in slice order. The dpooled sweeps
+// write one partial per (entity chunk, batch row), which the caller sums
 // in a fixed order. K7's sum of G^2 is one partial per entity tile, summed
 // in the block in a fixed order.
 //
@@ -62,6 +67,11 @@
 
 #include <math_constants.h>
 
+#include <algorithm>
+#include <cstdint>
+#include <initializer_list>
+
+#include "mma_sync.cuh"
 #include "tile_mm.cuh"
 
 namespace {
@@ -239,32 +249,463 @@ __device__ float dw_sweep(unsigned char* smem, const Layout<T>& L,
   return col_sum;
 }
 
-// K6, first sweep: one block per entity tile, looping over every batch tile
-// in order: dW(tile) = g * sum_b p^T P and db(tile) = g * sum_b p, written
-// in W's layout.
-template <typename T, typename WT>
-__global__ void __launch_bounds__(THREADS)
-xent_bwd_dw_kernel(const T* __restrict__ P, const WT* __restrict__ W,
+// ---- K6 on the tensor cores ----------------------------------------------
+// Both of K6's sweeps are xent6_sweep_kernel. A block keeps a "resident"
+// [64, dp] tile X of one operand in shared memory and streams the [64, dp]
+// tiles Y of the other through a ring of NST [64, CH] feature chunks, each
+// tile's chunks twice:
+//   z[x][y] = X[x] . Y[y]               chunk by chunk, in registers;
+//   p = exp(z - lse) - onehot           in shared memory (fp32, and bf16);
+//   acc[x][:] += sum_y p[x][y] Y[y][:]  chunk by chunk, in registers.
+// The dW sweep (DW): X is entity tile t of W (cast on the way in), Y the
+// batch tiles of slice s of P, which cp.async streams NST - 1 chunks ahead
+// of use, with each tile's lse and labels; acc = sum_b p^T P and
+// db = sum_b p. The dpooled sweep: X is a batch tile of P (by cp.async), Y
+// the entity tiles of one entity chunk of W, each chunk loaded into
+// registers one step ahead (16 bytes a load where W's rows allow) and cast
+// while stored (cp.async copies bytes unchanged, and W may be fp32
+// multiplied as bf16); acc = sum_e p W.
+// fp32 products run on the tensor cores as 3xTF32: x = hi + lo with hi and
+// lo TF32, and a.b = lo.hi + hi.lo + hi.hi summed in fp32 (the dropped lo.lo
+// term is ~2^-22 of a product), which keeps fp32's accuracy class; bf16
+// products take one bf16 pass; both through mma.sync, with fragments read
+// from shared memory by plain loads (wmma's tf32 loads went through
+// generic addressing). Each warp owns 16 rows of X: four 16 x 8 tiles of z
+// and, in every chunk, CH / 16 16 x 8 tiles of acc (64 registers of acc at
+// dp = 256).
+// What bounds it: at the log-linear widths (cerc: B 1024, E 3500, d 256,
+// fp32) the three products are 5.5 GFLOP, 33 us as 3xTF32 at the tensor
+// cores' peak; between two barriers a warp does a few fragment products,
+// each fp32 operand element split in four integer operations and one
+// subtraction, so issue slots, load latency and the barriers, not the
+// tensor cores, set its time (PERF.md). At E = 1M bf16 the same holds with
+// 256 blocks of ~1.5k steps each, and W is read once for z and once for
+// acc by each of the 64 batch tiles.
+template <typename T>
+constexpr int CHUNK = sizeof(T) == 4 ? 32 : 64;
+constexpr int NACC = 256 / 16;       // 16 x 8 acc tiles a warp holds, dp 256
+constexpr int NST = 3;               // ring stages
+constexpr int AHEAD = NST - 1;       // cp.async chunks in flight ahead of use
+
+// Row strides of the resident tile (always the widest dp the kernels
+// take) and of a ring stage, as constants so that every fragment address
+// folds into an offset from a per-warp base: 16 bytes of padding keep
+// fragment pointers 32-byte aligned and the rows off each other's banks.
+template <typename T>
+constexpr int LD_X = 256 + 16 / int(sizeof(T));
+template <typename T>
+constexpr int LD_Y = CHUNK<T> + 16 / int(sizeof(T));
+
+// Byte offsets of a sweep block's shared memory: the resident tile, the
+// ring, the fp32 z / p tile, the bf16 p tile (bf16 only) and seven vectors
+// of TILE 4-byte entries. fp32: 113 KB, two blocks an SM.
+template <typename T>
+struct SweepLayout {
+  static constexpr size_t stage =
+      (size_t(TILE) * LD_Y<T> * sizeof(T) + 127) / 128 * 128;
+  static constexpr size_t ring =
+      (size_t(TILE) * LD_X<T> * sizeof(T) + 127) / 128 * 128;
+  static constexpr size_t z = ring + NST * stage;
+  static constexpr size_t p =
+      (z + size_t(TILE) * LDZ * sizeof(float) + 127) / 128 * 128;
+  static constexpr size_t vec =
+      (p + (sizeof(T) == 2 ? size_t(TILE) * LDP * sizeof(bf16) : 0) + 127) /
+      128 * 128;
+  static constexpr size_t total = vec + 7 * TILE * sizeof(float);
+};
+
+// A position in a sweep's stream of Y chunks: ring stage, Y tile of the
+// block, chunk, pass (0: z, 1: acc).
+struct StreamPos {
+  int st = 0, ti = 0, c = 0, pass = 0;
+  __device__ void next(int nch) {
+    if (++st == NST) st = 0;
+    if (++c == nch) {
+      c = 0;
+      if (++pass == 2) {
+        pass = 0;
+        ++ti;
+      }
+    }
+  }
+};
+
+// One of K6's sweeps (DW: the dW sweep). Grid: DW (entity tiles, slices of
+// `per` batch tiles), else (batch tiles, chunks of `per` entity tiles).
+// DW writes, with one slice, dW = g * acc in W's layout and db = g * sum p
+// into `out` and `db`; with S slices its unscaled partials into slice s of
+// `out` ([S, Ep, dp] in W's layout, Ep = entity tiles * 64, then the db
+// partials [S, Ep]). The dpooled sweep writes its unscaled partial into
+// `out` [chunks, Bp, dp] (Bp = batch tiles * 64).
+template <typename T, typename WT, bool DW>
+__global__ void __launch_bounds__(THREADS, 2)
+xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
                    const float* __restrict__ bias,
                    const float* __restrict__ lse, const int* __restrict__ lab,
-                   const float* __restrict__ g, float* __restrict__ dW,
+                   const float* __restrict__ g, float* __restrict__ out,
                    float* __restrict__ db, int B, int E, int d, int dp,
-                   long long sj, long long sk) {
+                   long long sj, long long sk, int per) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout<T> L(dp, true);
-  const int j0 = blockIdx.x * TILE;
-  const float col_sum = dw_sweep<T, WT>(smem, L, P, W, bias, lse, lab, B, E,
-                                        d, dp, sj, sk, j0);
-  const float* Acc = reinterpret_cast<const float*>(smem + L.acc);
-  const float gs = *g;
-  for (int i = threadIdx.x; i < TILE * dp; i += THREADS) {
-    const int r = sk == 1 ? i / dp : i % TILE;
-    const int k = sk == 1 ? i % dp : i / TILE;
-    if (j0 + r < E && k < d)
-      dW[(j0 + r) * sj + k * sk] = gs * Acc[r * L.lda + k];
+  using L = SweepLayout<T>;
+  constexpr int LDX = LD_X<T>, LDY = LD_Y<T>;
+  T* X = reinterpret_cast<T*>(smem);
+  float* Z = reinterpret_cast<float*>(smem + L::z);
+  bf16* Pb = reinterpret_cast<bf16*>(smem + L::p);
+  float* rv = reinterpret_cast<float*>(smem + L::vec);  // X's bias or lse
+  int* rl = reinterpret_cast<int*>(rv + TILE);          // X's labels
+  float* sv = rv + 2 * TILE;       // Y's lse or bias, by tile parity
+  int* sl = reinterpret_cast<int*>(sv + 2 * TILE);      // Y's labels, same
+  float* dbacc = sv + 4 * TILE;    // DW: the entity tile's sum_b p
+  auto ring = [&](int st) {
+    return reinterpret_cast<T*>(smem + L::ring + st * L::stage);
+  };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int mt = warp / 2, half = warp % 2;
+  const int x0 = blockIdx.x * TILE;
+  const int n_y = DW ? (B + TILE - 1) / TILE : (E + TILE - 1) / TILE;
+  const int y_first = blockIdx.y * per;
+  const int n_tiles = min(per, n_y - y_first);
+  constexpr int CH = CHUNK<T>, NCH = 256 / CH, FPC = CH / 32;
+  const int nch = dp / CH;
+
+  // The stream is each Y tile's chunks in order for z, then again for acc.
+  // fetch() starts the load at its cursor (cp.async into its stage; W:
+  // global loads into registers), put() finishes the W load at its own
+  // (registers, cast, into its stage), and each step reads the stage at a
+  // third, all three in stream order. W is read 16
+  // bytes (VW elements) a load along its contiguous axis where that axis
+  // is a whole number of such pieces, else an element a load.
+  constexpr int WPT = TILE * CH / THREADS;   // W elements a thread loads
+  constexpr int VW = 16 / sizeof(WT);
+  constexpr int NV = TILE * CH / VW / THREADS;   // 16-byte loads a thread
+  const bool wvec = (sk == 1 ? d : E) % VW == 0 &&
+                    reinterpret_cast<uintptr_t>(W) % 16 == 0;
+  float wreg[WPT];
+  uint4* wv = reinterpret_cast<uint4*>(wreg);
+  float wbias = 0.0f;
+  // The v-th 16-byte piece of a thread: (entity row, feature) of its first
+  // element, the next VW elements along W's contiguous axis.
+  auto piece = [&](int v, int& r, int& k) {
+    const int q = tid + v * THREADS;
+    if (sk == 1) {
+      r = q / (CH / VW);
+      k = (q % (CH / VW)) * VW;
+    } else {
+      k = q / (TILE / VW);
+      r = (q % (TILE / VW)) * VW;
+    }
+  };
+  StreamPos at_fetch, at_put;
+  int at_read = 0;                 // the stage the next step reads
+  auto fetch = [&]() {
+    const bool live = at_fetch.ti < n_tiles;
+    const int ti = at_fetch.ti, c = at_fetch.c;
+    const bool first = at_fetch.pass == 0 && c == 0;
+    const int y0 = (y_first + ti) * TILE;
+    T* dst = ring(at_fetch.st);
+    at_fetch.next(nch);
+    if constexpr (DW) {
+      if (live) {
+        constexpr int V = 16 / sizeof(T), VPR = CH / V;
+        for (int q = tid; q < TILE * VPR; q += THREADS) {
+          const int r = q / VPR, col = (q % VPR) * V;
+          const bool in = y0 + r < B;
+          cp_async16(dst + r * LDY + col,
+                     P + size_t(in ? y0 + r : 0) * dp + c * CH + col, in);
+        }
+        if (first && tid < 2 * TILE) {
+          const int r = tid % TILE, buf = (ti & 1) * TILE;
+          const bool in = y0 + r < B;
+          if (tid < TILE)
+            cp_async4(sv + buf + r, lse + (in ? y0 + r : 0), in);
+          else
+            cp_async4(sl + buf + r, lab + (in ? y0 + r : 0), in);
+        }
+      }
+      cp_commit();               // one group a step, empty past the end
+    } else if (live) {
+      if (wvec) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          int r, k;
+          piece(v, r, k);
+          k += c * CH;
+          wv[v] = y0 + r < E && k < d
+                      ? __ldg(reinterpret_cast<const uint4*>(
+                            W + (y0 + r) * sj + k * sk))
+                      : make_uint4(0, 0, 0, 0);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < WPT; ++q) {
+          const int e = tid + q * THREADS;
+          const int r = sk == 1 ? e / CH : e % TILE;
+          const int k = c * CH + (sk == 1 ? e % CH : e / TILE);
+          wreg[q] = y0 + r < E && k < d
+                        ? to_f32(W[(y0 + r) * sj + k * sk]) : 0.0f;
+        }
+      }
+      if (first && tid < TILE)
+        wbias = y0 + tid < E ? bias[y0 + tid] : 0.0f;
+    }
+  };
+  auto put = [&]() {
+    const StreamPos at = at_put;
+    at_put.next(nch);
+    if (at.ti >= n_tiles) return;
+    T* dst = ring(at.st);
+    if (wvec) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        int r, k;
+        piece(v, r, k);
+        const WT* w = reinterpret_cast<const WT*>(&wv[v]);
+#pragma unroll
+        for (int u = 0; u < VW; ++u)
+          dst[(sk == 1 ? r : r + u) * LDY + (sk == 1 ? k + u : k)] =
+              from_f32<T>(to_f32(w[u]));
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < WPT; ++q) {
+        const int e = tid + q * THREADS;
+        const int r = sk == 1 ? e / CH : e % TILE;
+        const int k = sk == 1 ? e % CH : e / TILE;
+        dst[r * LDY + k] = from_f32<T>(wreg[q]);
+      }
+    }
+    if (at.pass == 0 && at.c == 0 && tid < TILE)
+      sv[(at.ti & 1) * TILE + tid] = wbias;
+  };
+  // A step begins once its load is in its stage for every thread; the
+  // stage the next load overwrites was last read a step or more before.
+  // Returns the stage it reads.
+  auto begin = [&]() {
+    if constexpr (DW) {
+      cp_wait<AHEAD - 1>();
+      __syncthreads();
+    } else {
+      __syncthreads();
+    }
+    fetch();
+    const T* Y = ring(at_read);
+    if (++at_read == NST) at_read = 0;
+    return Y;
+  };
+  auto end = [&]() {
+    if constexpr (!DW) put();
+  };
+  // The resident tile and its vectors, staged while the first loads of
+  // the stream are in flight: W's tile through registers, RES loads a
+  // thread in flight, cast on the way; P's tile by cp.async.
+  if constexpr (DW) {
+    for (int i = 0; i < AHEAD; ++i) fetch();
+    constexpr int RES = 16;
+    for (int i0 = tid; i0 < TILE * dp; i0 += RES * THREADS) {
+      float v[RES];
+#pragma unroll
+      for (int u = 0; u < RES; ++u) {
+        const int i = i0 + u * THREADS;
+        const int r = sk == 1 ? i / dp : i % TILE;
+        const int k = sk == 1 ? i % dp : i / TILE;
+        v[u] = i < TILE * dp && x0 + r < E && k < d
+                   ? to_f32(W[(x0 + r) * sj + k * sk]) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < RES; ++u) {
+        const int i = i0 + u * THREADS;
+        const int r = sk == 1 ? i / dp : i % TILE;
+        const int k = sk == 1 ? i % dp : i / TILE;
+        if (i < TILE * dp) X[r * LDX + k] = from_f32<T>(v[u]);
+      }
+    }
+    if (tid < TILE) {
+      rv[tid] = x0 + tid < E ? bias[x0 + tid] : 0.0f;
+      dbacc[tid] = 0.0f;
+    }
+  } else {
+    constexpr int V = 16 / sizeof(T);
+    const int vpr = dp / V;
+    for (int q = tid; q < TILE * vpr; q += THREADS) {
+      const int r = q / vpr, col = (q % vpr) * V;
+      const bool in = x0 + r < B;
+      cp_async16(X + r * LDX + col, P + size_t(in ? x0 + r : 0) * dp + col,
+                 in);
+    }
+    cp_commit();
+    if (tid < TILE) {
+      const bool in = x0 + tid < B;
+      rv[tid] = in ? lse[x0 + tid] : 0.0f;
+      rl[tid] = in ? lab[x0 + tid] : -1;
+    }
+    fetch();
+    put();
+    cp_wait<0>();
   }
-  if (threadIdx.x < TILE && j0 + threadIdx.x < E)
-    db[j0 + threadIdx.x] = gs * col_sum;
+
+  constexpr int KS = KSTEP<T>;
+  const T* pt = reinterpret_cast<const T*>(
+      smem + (sizeof(T) == 2 ? L::p : L::z));
+  constexpr int LDPT = sizeof(T) == 2 ? LDP : LDZ;
+  // ac[c * 2 FPC + j]: rows 16 mt.., features c CH + 16 FPC half + 8 j..;
+  // zc[j]: rows 16 mt.., columns 32 half + 8 j.. of z.
+  Acc8 ac[NACC], zc[4];
+  auto feature = [&](int a) {     // the first feature of ac[a]
+    return a / (2 * FPC) * CH + 16 * FPC * half + 8 * (a % (2 * FPC));
+  };
+#pragma unroll
+  for (int a = 0; a < NACC; ++a) ac[a] = Acc8{{0.0f, 0.0f, 0.0f, 0.0f}};
+
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const int y0 = (y_first + ti) * TILE;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) zc[j] = Acc8{{0.0f, 0.0f, 0.0f, 0.0f}};
+    for (int c = 0; c < nch; ++c) {           // z = X . Y^T
+      const T* Y = begin() + 32 * half * LDY;
+      const T* xa = X + 16 * mt * LDX + c * CH;
+#pragma unroll
+      for (int kk = 0; kk < CH; kk += KS) {
+        FragA<T> a;
+        load_a(a, xa + kk, LDX);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          FragB<T> b;
+          load_b_nk(b, Y + 8 * j * LDY + kk, LDY);
+          tc_mma(zc[j], a, b);
+        }
+      }
+      end();
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      store_c(Z + 16 * mt * LDZ + 32 * half + 8 * j, LDZ, zc[j]);
+    __syncthreads();
+    // p = exp(z - lse) - onehot, 0 past B and E; warp w owns rows 8w..8w+7.
+    const int buf = (ti & 1) * TILE;
+#pragma unroll
+    for (int rr = 0; rr < TILE / WARPS; ++rr) {
+      const int x = warp * (TILE / WARPS) + rr;
+      float sum = 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int y = lane + 32 * h;
+        const int b = DW ? y0 + y : x0 + x, e = DW ? x0 + x : y0 + y;
+        float p = 0.0f;
+        if (b < B && e < E) {
+          p = expf(Z[x * LDZ + y] + (DW ? rv[x] : sv[buf + y]) -
+                   (DW ? sv[buf + y] : rv[x]));
+          if ((DW ? sl[buf + y] : rl[x]) == e) p -= 1.0f;
+        }
+        Z[x * LDZ + y] = p;
+        if constexpr (sizeof(T) == 2) Pb[x * LDP + y] = __float2bfloat16(p);
+        sum += p;
+      }
+      if constexpr (DW) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (lane == 0) dbacc[x] += sum;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {           // acc += p . Y
+      if (c < nch) {
+        const T* Y = begin();                 // its barrier publishes p
+#pragma unroll
+        for (int kk = 0; kk < TILE; kk += KS) {
+          FragA<T> a;
+          load_a(a, pt + 16 * mt * LDPT + kk, LDPT);
+#pragma unroll
+          for (int j = 0; j < 2 * FPC; ++j) {
+            FragB<T> b;
+            load_b_kn(b, Y + kk * LDY + 16 * FPC * half + 8 * j, LDY);
+            tc_mma(ac[2 * FPC * c + j], a, b);
+          }
+        }
+        end();
+      }
+    }
+  }
+
+  if constexpr (DW) {
+    const int S = gridDim.y, Ep = gridDim.x * TILE;
+    if (S == 1) {               // dW = g * acc in W's layout, through Z
+      const float gs = *g;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        if (c < nch) {
+          __syncthreads();
+#pragma unroll
+          for (int j = 0; j < 2 * FPC; ++j)
+            store_c(Z + 16 * mt * LDZ + 16 * FPC * half + 8 * j, LDZ,
+                    ac[2 * FPC * c + j]);
+          __syncthreads();
+          for (int i = tid; i < TILE * CH; i += THREADS) {
+            const int r = sk == 1 ? i / CH : i % TILE;
+            const int k = sk == 1 ? i % CH : i / TILE;
+            if (x0 + r < E && c * CH + k < d)
+              out[(x0 + r) * sj + (c * CH + k) * sk] = gs * Z[r * LDZ + k];
+          }
+        }
+      }
+      if (tid < TILE && x0 + tid < E) db[x0 + tid] = gs * dbacc[tid];
+    } else {                    // slice s's partials, unscaled
+      float* part = out + size_t(blockIdx.y) * Ep * dp;
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) {
+        const int f = feature(a);
+        if (f < dp) {
+          if (sk == 1)
+            store_c(part + size_t(x0 + 16 * mt) * dp + f, dp, ac[a]);
+          else
+            store_c_t(part + size_t(f) * Ep + x0 + 16 * mt, Ep, ac[a]);
+        }
+      }
+      if (tid < TILE)
+        out[size_t(S) * Ep * dp + size_t(blockIdx.y) * Ep + x0 + tid] =
+            dbacc[tid];
+    }
+  } else {
+    const size_t Bp = size_t(gridDim.x) * TILE;
+    float* part = out + (blockIdx.y * Bp + x0 + 16 * mt) * dp;
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) {
+      const int f = feature(a);
+      if (f < dp) store_c(part + f, dp, ac[a]);
+    }
+  }
+}
+
+// K6's reduce of S > 1 slices: dW = g * sum_s scratch[s] in W's layout and
+// db = g * sum_s (db partial s), each summed in slice order (no atomics, so
+// two calls give the same bits). Elementwise along W's contiguous axis.
+__global__ void __launch_bounds__(THREADS)
+xent6_reduce_kernel(const float* __restrict__ scratch,
+                    const float* __restrict__ g, float* __restrict__ dW,
+                    float* __restrict__ db, int E, int d, int dp,
+                    long long sk, int S) {
+  const int Ep = (E + TILE - 1) / TILE * TILE;
+  const size_t slice = size_t(Ep) * dp, n = size_t(E) * d;
+  const float gs = *g;
+  for (size_t i = size_t(blockIdx.x) * THREADS + threadIdx.x; i < n + E;
+       i += size_t(gridDim.x) * THREADS) {
+    const float* src;
+    size_t stride;
+    if (i < n) {                      // W's flat index: [E, d] or [d, E]
+      const size_t j = sk == 1 ? i / d : i % E;
+      const size_t k = sk == 1 ? i % d : i / E;
+      src = scratch + (sk == 1 ? j * dp + k : k * Ep + j);
+      stride = slice;
+    } else {
+      src = scratch + S * slice + (i - n);
+      stride = Ep;
+    }
+    float acc = 0.0f;
+    for (int s = 0; s < S; ++s) acc += src[s * stride];
+    if (i < n) dW[i] = gs * acc;
+    else db[i - n] = gs * acc;
+  }
 }
 
 // K7's update sweep: K6's dW sweep, whose epilogue applies the optimizer to
@@ -401,31 +842,53 @@ int launch_fwd(const void* P, const void* W, const void* bias, void* m_out,
   return int(cudaGetLastError());
 }
 
+// K6's launches: the dW sweep, the ordered reduce of its slices (S > 1),
+// then the dpooled sweep. Each sweep asks for the shared-memory carveout
+// that holds two of its blocks an SM.
 template <typename T, typename WT>
 int launch_bwd(const void* P, const void* W, const void* bias,
                const void* lse, const void* lab, const void* g, void* dW,
-               void* db, void* part, int B, int E, int d, int dp,
-               long long sj, long long sk, int tiles_per_chunk, int n_chunks,
+               void* db, void* part, void* scratch, int B, int E, int d,
+               int dp, long long sj, long long sk, int tiles_per_chunk,
+               int n_chunks, int btiles_per_slice, int n_slices,
                cudaStream_t stream) {
-  const size_t smem = Layout<T>(dp, true).total;
-  cudaError_t err = allow_smem(xent_bwd_dw_kernel<T, WT>, smem);
-  if (err != cudaSuccess) return int(err);
-  err = allow_smem(xent_bwd_dp_kernel<T, WT>, smem);
-  if (err != cudaSuccess) return int(err);
+  const size_t smem = SweepLayout<T>::total;
+  auto dw_k = xent6_sweep_kernel<T, WT, true>;
+  auto dp_k = xent6_sweep_kernel<T, WT, false>;
+  for (auto k : {dw_k, dp_k}) {
+    cudaError_t err = allow_smem(k, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          k, cudaFuncAttributePreferredSharedMemoryCarveout,
+          int(cudaSharedmemCarveoutMaxShared));
+    if (err != cudaSuccess) return int(err);
+  }
   const T* p = static_cast<const T*>(P);
   const WT* w = static_cast<const WT*>(W);
   const float* b = static_cast<const float*>(bias);
   const float* ls = static_cast<const float*>(lse);
   const int* lb = static_cast<const int*>(lab);
-  xent_bwd_dw_kernel<T, WT><<<(E + TILE - 1) / TILE, THREADS, smem, stream>>>(
-      p, w, b, ls, lb, static_cast<const float*>(g), static_cast<float*>(dW),
-      static_cast<float*>(db), B, E, d, dp, sj, sk);
-  err = cudaGetLastError();
+  const float* gp = static_cast<const float*>(g);
+  const int n_etiles = (E + TILE - 1) / TILE;
+  dw_k<<<dim3(n_etiles, n_slices), THREADS, smem, stream>>>(
+      p, w, b, ls, lb, gp,
+      static_cast<float*>(n_slices > 1 ? scratch : dW),
+      static_cast<float*>(db), B, E, d, dp, sj, sk, btiles_per_slice);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((B + TILE - 1) / TILE, n_chunks);
-  xent_bwd_dp_kernel<T, WT><<<grid, THREADS, smem, stream>>>(
-      p, w, b, ls, lb, static_cast<float*>(part), B, E, d, dp, sj, sk,
-      tiles_per_chunk);
+  if (n_slices > 1) {
+    const size_t n = size_t(E) * d + E;
+    const int blocks = int(std::min<size_t>((n + THREADS - 1) / THREADS,
+                                            size_t(8) * 132));
+    xent6_reduce_kernel<<<blocks, THREADS, 0, stream>>>(
+        static_cast<const float*>(scratch), gp, static_cast<float*>(dW),
+        static_cast<float*>(db), E, d, dp, sk, n_slices);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  dp_k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
+      p, w, b, ls, lb, gp, static_cast<float*>(part), nullptr, B, E, d, dp,
+      sj, sk, tiles_per_chunk);
   return int(cudaGetLastError());
 }
 
@@ -494,27 +957,26 @@ extern "C" int sert_xent_fwd(const void* P, const void* W, const void* bias,
 // K6: as K5, plus lse [B] fp32, labels [B] int32 (-1: no gold entity) and
 // g, one fp32 scalar on the device. Writes dW fp32 with W's shape and
 // strides, db [E] fp32 (both scaled by g) and the unscaled dpooled partials
-// part [n_chunks, B, dp] fp32, which the caller sums over the chunk axis.
+// part [n_chunks, Bp, dp] fp32 (Bp = B rounded up to 64), which the caller
+// sums over the chunk axis; dp is a multiple of 64 for bf16. The dW sweep
+// splits the batch tiles into n_slices slices of btiles_per_slice; with
+// more than one, `scratch` holds n_slices * Ep * (dp + 1) floats of
+// partials (Ep = E rounded up to 64), else it is unused.
 extern "C" int sert_xent_bwd(const void* P, const void* W, const void* bias,
                              const void* lse, const void* lab, const void* g,
-                             void* dW, void* db, void* part, int B, int E,
-                             int d, int dp, long long sj, long long sk,
-                             int tiles_per_chunk, int n_chunks, int use_bf16,
-                             int w_bf16, void* stream) {
+                             void* dW, void* db, void* part, void* scratch,
+                             int B, int E, int d, int dp, long long sj,
+                             long long sk, int tiles_per_chunk, int n_chunks,
+                             int btiles_per_slice, int n_slices,
+                             int use_bf16, int w_bf16, void* stream) {
   const cudaStream_t st = cudaStream_t(stream);
-  if (use_bf16)
-    return w_bf16 ? launch_bwd<bf16, bf16>(P, W, bias, lse, lab, g, dW, db,
-                                           part, B, E, d, dp, sj, sk,
-                                           tiles_per_chunk, n_chunks, st)
-                  : launch_bwd<bf16, float>(P, W, bias, lse, lab, g, dW, db,
-                                            part, B, E, d, dp, sj, sk,
-                                            tiles_per_chunk, n_chunks, st);
-  return w_bf16 ? launch_bwd<float, bf16>(P, W, bias, lse, lab, g, dW, db,
-                                          part, B, E, d, dp, sj, sk,
-                                          tiles_per_chunk, n_chunks, st)
-                : launch_bwd<float, float>(P, W, bias, lse, lab, g, dW, db,
-                                           part, B, E, d, dp, sj, sk,
-                                           tiles_per_chunk, n_chunks, st);
+  auto go = [&](auto t, auto wt) {
+    return launch_bwd<decltype(t), decltype(wt)>(
+        P, W, bias, lse, lab, g, dW, db, part, scratch, B, E, d, dp, sj, sk,
+        tiles_per_chunk, n_chunks, btiles_per_slice, n_slices, st);
+  };
+  if (use_bf16) return w_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.0f);
+  return w_bf16 ? go(0.0f, bf16()) : go(0.0f, 0.0f);
 }
 
 // K7: as K6, with W updated in place instead of dW written. `opt` is 0

@@ -9,6 +9,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from sert_tpu_torch.ops import sampled_lse, xent
 from sert_tpu_torch.utils.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -22,17 +23,29 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.float32 if cfg.param_dtype == "float32" else torch.bfloat16
 
 
-def use_fused(cfg: ModelConfig, device: torch.device) -> bool:
-    """Whether a loss takes its kernel path (K1/K2 for the sampled
-    objective, K5/K6 for the full softmax): "on" always, "off" never (the
-    plain version, on any device), "auto" on CUDA tensors. The reference's
-    thresholds (k >= 2048, E >= 4096) and VMEM plans are TPU measurements
-    and are not carried over."""
+def use_fused(cfg: ModelConfig, device: torch.device, rows: int = 1) -> bool:
+    """Whether a loss over ``rows`` batch rows takes its kernel path (K1/K2
+    for the sampled objective, K5/K6 for the full softmax): "on" always
+    (the kernel's wrapper raises on shapes it does not take), "off" never
+    (the plain version, on any device), "auto" on CUDA tensors where the
+    kernels take the shapes (``ops.sampled_lse.kernel_limits`` at the
+    entity width and ``num_negatives``; ``ops.xent.kernel_limits`` at
+    ``word_dim`` for log-linear, ``entity_dim`` for ``lse_full``), decided
+    from the shapes before any launch. The reference's thresholds
+    (k >= 2048, E >= 4096) and VMEM plans are TPU measurements and are not
+    carried over."""
     if cfg.fused_softmax == "on":
         return True
-    if cfg.fused_softmax == "off":
+    if cfg.fused_softmax == "off" or device.type != "cuda":
         return False
-    return device.type == "cuda"
+    if cfg.model == "loglinear":
+        width = cfg.word_dim
+    elif cfg.model == "lse_full":
+        width = cfg.entity_dim
+    else:
+        return sampled_lse.kernel_limits(rows, cfg.num_negatives,
+                                         cfg.entity_dim) is None
+    return xent.kernel_limits(rows, cfg.num_entities, width) is None
 
 
 def unit_rows(x: torch.Tensor) -> torch.Tensor:

@@ -59,11 +59,12 @@ def loss(params: Params, batch, cfg: ModelConfig,
     """Mean cross-entropy of the full softmax over entities: K5/K6 (the
     fused path) or their plain version ``xent_loss_plain``, by
     :func:`models.common.use_fused` ("auto" takes the kernels on CUDA at
-    every E: the reference's E >= 4096 rule was a TPU measurement and
-    would keep both log-linear recipes, E = 1100 and 3500, off them)."""
+    every E they take: the reference's E >= 4096 rule was a TPU measurement
+    and would keep both log-linear recipes, E = 1100 and 3500, off them)."""
     del generator, noise   # the full softmax samples nothing
     pooled = pooled_rep(params, batch["windows"], batch["lengths"], cfg)
-    fn = xent_loss if use_fused(cfg, pooled.device) else xent_loss_plain
+    fused = use_fused(cfg, pooled.device, pooled.shape[0])
+    fn = xent_loss if fused else xent_loss_plain
     total = fn(pooled.float(), params["proj_w"], params["proj_b"],
                batch["entities"].long(), "de", dtype=cfg.compute_dtype)
     return total / batch["windows"].shape[0]

@@ -157,7 +157,7 @@ def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
     reps, cand, corr, negatives, pos, s_pos = sampled_softmax_inputs(
         params, batch, cfg, generator=generator, negatives=negatives,
         noise=noise)
-    if use_fused(cfg, reps.device):
+    if use_fused(cfg, reps.device, reps.shape[0]):
         # lse([s_pos, s_neg*]) - s_pos = softplus(lse(s_neg*) - s_pos)
         lse_neg = sampled_lse(reps, cand, corr, negatives, pos,
                               dtype=cfg.compute_dtype)
@@ -182,7 +182,8 @@ def loss_full_softmax(params: Params, batch, cfg: ModelConfig,
     ent = params["entity_emb"]
     zeros_b = torch.zeros((cfg.num_entities,), dtype=torch.float32,
                           device=reps.device)
-    fn = xent_loss if use_fused(cfg, reps.device) else xent_loss_plain
+    fused = use_fused(cfg, reps.device, reps.shape[0])
+    fn = xent_loss if fused else xent_loss_plain
     total = fn(reps, ent, zeros_b, batch["entities"].long(), "ed",
                dtype=cfg.compute_dtype)
     return total / batch["windows"].shape[0]

@@ -130,12 +130,23 @@ def _check(reps, cand, corr, cand_ids, pos_ids):
         raise ValueError("sampled_lse: reps and cand must be floating")
     if cand_ids.is_floating_point() or pos_ids.is_floating_point():
         raise ValueError("sampled_lse: ids must be integers")
+    problem = kernel_limits(B, k, d)
+    if problem:
+        raise ValueError(problem)
+    return B, k, d, -(-d // DIM_MULTIPLE) * DIM_MULTIPLE
+
+
+def kernel_limits(B: int, k: int, d: int):
+    """None when the K1/K2 kernels take B rows, k candidates and width d;
+    else what they refuse (models.common.use_fused gates on it)."""
+    if B == 0 or k == 0:
+        return "the K1/K2 kernels need at least one row and one candidate"
     dp = -(-d // DIM_MULTIPLE) * DIM_MULTIPLE
     if dp > MAX_DIM:
-        raise ValueError(f"the K1/K2 kernels take d <= {MAX_DIM}, got {d}")
+        return f"the K1/K2 kernels take d <= {MAX_DIM}, got {d}"
     if B >= 2 ** 31 // max(dp, 1) or k >= 2 ** 31 // max(dp, 1):
-        raise ValueError("sampled_lse: B * d and k * d must fit in int32")
-    return B, k, d, dp
+        return "sampled_lse: B * d and k * d must fit in int32"
+    return None
 
 
 class _SampledLse(torch.autograd.Function):
@@ -209,7 +220,4 @@ def sampled_lse(reps: torch.Tensor, cand: torch.Tensor, corr: torch.Tensor,
     if reps.device.type != "cuda":
         raise ValueError(f"sampled_lse runs on cpu or cuda, not "
                          f"{reps.device}")
-    if reps.shape[0] == 0 or cand.shape[0] == 0:
-        raise ValueError("the K1/K2 kernels need at least one row and one "
-                         "candidate")
     return _SampledLse.apply(reps, cand, corr, cand_ids, pos_ids, dtype)

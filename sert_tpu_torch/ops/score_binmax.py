@@ -30,6 +30,15 @@ MAX_DIM = 512        # widest d whose staged tiles fit 227 KB of shared memory
 launches = 0
 
 
+def kernel_limits(d: int):
+    """None when K3 takes entity rows of width d (padded to a multiple of
+    16); else what it refuses (scoring.run.resolve_engine gates on it)."""
+    dp = -(-d // DIM_MULTIPLE) * DIM_MULTIPLE
+    if dp > MAX_DIM:
+        return f"K3 takes a padded d <= {MAX_DIM}, got {dp}"
+    return None
+
+
 def pad_dim(x: torch.Tensor, dp: int) -> torch.Tensor:
     """Zero-pad the trailing (feature) axis to ``dp`` columns; zero columns
     leave every dot product unchanged."""
@@ -77,7 +86,7 @@ def _launch(R: torch.Tensor, Mp: torch.Tensor, E: int,
                          "(prepare_binmax_matrix)")
     if Mp.device != dev or Mp.shape[0] < E:
         raise ValueError(f"Mp must be on {dev} with >= {E} rows")
-    if d % DIM_MULTIPLE or d > MAX_DIM:
+    if d % DIM_MULTIPLE or kernel_limits(d):
         raise ValueError(f"K3 needs d % {DIM_MULTIPLE} == 0 and d <= "
                          f"{MAX_DIM}, got d={d}")
     if LANES % bw:

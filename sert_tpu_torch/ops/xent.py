@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sert_tpu_torch.ops import _build
 from sert_tpu_torch.ops.sampled_lse import (DIM_MULTIPLE, MAX_DIM, _chunking,
@@ -142,6 +143,37 @@ def kernel_limits(B: int, E: int, d: int):
     return None
 
 
+# K6's sweeps hold two blocks an SM of an H100 (their shared memory and
+# registers); each splits its loop axis into parts so that the grid is at
+# most one round of such blocks.
+K6_BLOCKS = 2 * 132
+
+
+def _k6_split(n_fixed: int, n_loop: int):
+    """(tiles per part, parts) of a K6 sweep whose grid is n_fixed tiles x
+    parts of its n_loop looped tiles: as many parts as one round of
+    K6_BLOCKS holds, at least one."""
+    n = max(1, min(n_loop, K6_BLOCKS // n_fixed))
+    per = -(-n_loop // n)
+    return per, -(-n_loop // per)
+
+
+def _dw_splits(B: int, E: int):
+    """(batch tiles per slice, slices S) of K6's dW sweep, whose block
+    (entity tile, slice) sums its slice's batch tiles, the slices then
+    summed in order. A function of the shapes alone (never of the card or
+    of timing), so that a run and its resume take the same sums; S = 1
+    once the entity tiles alone fill the card."""
+    return _k6_split(-(-E // TILE), -(-B // TILE))
+
+
+def _dp_chunks(B: int, E: int):
+    """(entity tiles per chunk, chunks) of K6's dpooled sweep, whose block
+    (batch tile, chunk) writes one partial that the wrapper sums in
+    order."""
+    return _k6_split(-(-B // TILE), -(-E // TILE))
+
+
 def _fwd(P, W, b, B, E, d, dp, strides, ct):
     """Launch K5 and merge its chunks: lse [B] fp32."""
     global fwd_launches
@@ -203,21 +235,34 @@ class _XentLoss(torch.autograd.Function):
         ct, B, E, d, dp, strides, pooled_dtype, b_dtype = ctx.meta
         dev = P.device
         g = g.float().reshape(1).contiguous()
-        per, n_chunks = _chunking(B, E)
+        # K6 streams features in chunks of 128 bytes a row: 32 fp32 or 64
+        # bf16, so a bf16 P is zero-padded to a multiple of 64.
+        chunk = 128 // P.element_size()
+        if dp % chunk:
+            dp = -(-dp // chunk) * chunk
+            P = F.pad(P, (0, dp - P.shape[1]))
+        per, n_chunks = _dp_chunks(B, E)
+        bper, n_slices = _dw_splits(B, E)
         dW = torch.empty(W.shape, dtype=torch.float32, device=dev)
         db = torch.empty((E,), dtype=torch.float32, device=dev)
-        part = torch.empty((n_chunks, B, dp), dtype=torch.float32, device=dev)
+        part = torch.empty((n_chunks, -(-B // TILE) * TILE, dp),
+                           dtype=torch.float32, device=dev)
+        # The dW sweep's partials: [S, Ep, dp] in W's layout, then [S, Ep].
+        scratch = (torch.empty((n_slices * -(-E // TILE) * TILE * (dp + 1),),
+                               dtype=torch.float32, device=dev)
+                   if n_slices > 1 else None)
         with torch.cuda.device(dev):
             err = _build.kernel("sert_xent_bwd")(
                 P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
                 lab.data_ptr(), g.data_ptr(), dW.data_ptr(), db.data_ptr(),
-                part.data_ptr(), B, E, d, dp, strides[0], strides[1], per,
-                n_chunks, int(ct == torch.bfloat16),
-                int(W.dtype == torch.bfloat16),
+                part.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B, E, d, dp,
+                strides[0], strides[1], per, n_chunks, bper, n_slices,
+                int(ct == torch.bfloat16), int(W.dtype == torch.bfloat16),
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "xent backward (K6)")
         bwd_launches += 1
-        dpooled = (part.sum(dim=0)[:, :d] * g).to(pooled_dtype)
+        dpooled = (part.sum(dim=0)[:B, :d] * g).to(pooled_dtype)
         return (dpooled, dW.to(W.dtype), db.to(b_dtype), None, None, None)
 
 

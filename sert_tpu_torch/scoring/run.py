@@ -12,8 +12,10 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sert_tpu_torch.models.api import entity_matrix
 from sert_tpu_torch.ops.exact_topk import (prepare_entities,
                                            resolve_rescore_dtype)
+from sert_tpu_torch.ops.score_binmax import kernel_limits as binmax_limits
 from sert_tpu_torch.scoring.scorer import (_entity_matrix, dense_scores,
                                            pallas_topk)
 from sert_tpu_torch.utils.config import ModelConfig, ScoreConfig
@@ -22,12 +24,14 @@ _NOT_PORTED = ("streaming", "approx", "distributed")
 
 
 def resolve_engine(sc: ScoreConfig, num_entities: int,
-                   device: torch.device) -> str:
-    """The scoring engine for params on ``device``. "pallas" is the K3 + K4
-    kernel engine (the recipes' name for it). "auto": that engine on a CUDA
-    device; on the CPU dense scoring up to ``entity_chunk`` entities, else
-    the engine's plain versions (the reference's streaming scan is not
-    ported yet). ``use_pallas`` is the legacy alias."""
+                   device: torch.device, dim: int) -> str:
+    """The scoring engine for params on ``device`` whose entity matrix is
+    ``dim`` wide. "pallas" is the K3 + K4 kernel engine (the recipes' name
+    for it). "auto": that engine on a CUDA device where K3 takes the padded
+    width (``ops.score_binmax.kernel_limits``), else dense scoring; on the
+    CPU dense scoring up to ``entity_chunk`` entities, else the engine's
+    plain versions (the reference's streaming scan is not ported yet).
+    ``use_pallas`` is the legacy alias."""
     if sc.use_pallas:
         return "pallas"
     if sc.engine in _NOT_PORTED:
@@ -38,9 +42,9 @@ def resolve_engine(sc: ScoreConfig, num_entities: int,
         if sc.engine not in ("dense", "pallas"):
             raise ValueError(f"unknown scoring engine {sc.engine!r}")
         return sc.engine
-    if device.type == "cuda" or num_entities > sc.entity_chunk:
-        return "pallas"
-    return "dense"
+    if device.type == "cuda":
+        return "pallas" if binmax_limits(dim) is None else "dense"
+    return "pallas" if num_entities > sc.entity_chunk else "dense"
 
 
 def stage_entities(params, cfg: ModelConfig, sc: ScoreConfig):
@@ -92,7 +96,8 @@ def score_topics(
     run: Dict[str, List[Tuple[str, float]]] = {qid: [] for qid in qids}
     device = params["word_emb"].device
 
-    engine = resolve_engine(sc, E, device)
+    engine = resolve_engine(sc, E, device,
+                            entity_matrix(params, cfg).shape[1])
     if engine == "pallas" and prep is None:
         prep = stage_entities(params, cfg, sc)
 

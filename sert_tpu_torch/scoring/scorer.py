@@ -27,7 +27,7 @@ from sert_tpu_torch.models import api
 from sert_tpu_torch.models.common import compute_dtype, unit_rows
 from sert_tpu_torch.ops.exact_topk import (exact_topk_prepared,
                                            prepare_entities)
-from sert_tpu_torch.ops.xent import xent_lse
+from sert_tpu_torch.ops.xent import kernel_limits, xent_lse
 from sert_tpu_torch.utils.config import ModelConfig
 
 NEG_INF = -1e30
@@ -100,6 +100,17 @@ def apply_ll_normalizer(top_s: torch.Tensor, run_max: torch.Tensor,
     return top_s - torch.sum(lse_t * mask, dim=-1)[:, None]
 
 
+def normalizer_engine(device: torch.device, rows: int, num_entities: int,
+                      dim: int) -> str:
+    """:func:`ll_log_normalizer`'s "auto": "fused" (K5) on a CUDA device
+    where ``ops.xent.kernel_limits`` takes ``rows`` term rows of width
+    ``dim`` over ``num_entities``, else "scan"."""
+    if device.type == "cuda" and kernel_limits(rows, num_entities,
+                                               dim) is None:
+        return "fused"
+    return "scan"
+
+
 def ll_log_normalizer(params, cfg: ModelConfig, term_ids: torch.Tensor,
                       num_terms: torch.Tensor, chunk: int = 1 << 16,
                       similarity: str = "dot",
@@ -110,11 +121,13 @@ def ll_log_normalizer(params, cfg: ModelConfig, term_ids: torch.Tensor,
     ``engine="fused"`` runs K5 (``ops.xent.xent_lse``, the "de" layout, fp32
     products) over the flattened [Q*T, d] term embeddings: no [Q, T, E]
     logits. ``"scan"`` is the plain fixed-memory sweep over ``chunk``
-    entities at a time. ``"auto"`` is "fused" on CUDA and "scan" on the
-    CPU."""
-    if engine == "auto":
-        engine = "fused" if term_ids.device.type == "cuda" else "scan"
+    entities at a time. ``"auto"`` is "fused" on CUDA where K5 takes the
+    shape (``ops.xent.kernel_limits`` of the [Q*T, d] rows, decided before
+    any launch) and "scan" otherwise."""
     Q, T = term_ids.shape
+    if engine == "auto":
+        d, E = params["proj_w"].shape
+        engine = normalizer_engine(term_ids.device, Q * T, E, d)
     if engine == "fused":
         mask = (torch.arange(T, device=term_ids.device)[None, :]
                 < num_terms[:, None])

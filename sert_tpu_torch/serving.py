@@ -25,6 +25,7 @@ from typing import List, Optional, Tuple
 from sert_tpu_torch import pipeline
 from sert_tpu_torch.data.instances import InstanceDataset
 from sert_tpu_torch.data.prepare import encode_queries
+from sert_tpu_torch.models.api import entity_matrix
 from sert_tpu_torch.scoring.run import (resolve_engine, score_topics,
                                         stage_entities)
 from sert_tpu_torch.utils.config import RecipeConfig
@@ -72,8 +73,9 @@ class EntitySearcher:
             self.recipe.score, top_k=self.k_max, query_batch=query_batch)
         self._lock = threading.Lock()   # the one device-dispatch lock
         self.prep = None
-        self.engine = resolve_engine(self.score_cfg, self.num_entities,
-                                     self.device)
+        self.engine = resolve_engine(
+            self.score_cfg, self.num_entities, self.device,
+            entity_matrix(self.params, self.recipe.model).shape[1])
         if self.engine == "pallas":
             self.prep = stage_entities(self.params, self.recipe.model,
                                        self.score_cfg)

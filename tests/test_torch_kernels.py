@@ -301,6 +301,33 @@ class TestXentOnCard:
         b = _xent_run(xent.xent_loss, *x, "de", "bfloat16")
         assert all(torch.equal(u, v) for u, v in zip(a, b))
 
+    # K6's dW sweep split over the batch axis (ops.xent._dw_splits): the
+    # most slices (B 4096 over 5 entity tiles), a ragged last slice (B
+    # 1000), an entity tail with one slice, and cerc's shape.
+    @pytest.mark.parametrize("B,E,d,layout,dtype,slices", [
+        (4096, 300, 256, "de", "float32", 32),
+        (1000, 1100, 128, "de", "float32", 8),
+        (1000, 1100, 128, "ed", "bfloat16", 8),
+        (4096, 131071, 64, "ed", "bfloat16", 1),
+        (1024, 3500, 256, "de", "float32", 4)])
+    def test_split_dw_sweep_matches_plain(self, cuda, B, E, d, layout, dtype,
+                                          slices):
+        assert xent._dw_splits(B, E)[1] == slices
+        x = _xent_inputs(cuda, B, E, d, layout)
+        got = _xent_run(xent.xent_loss, *x, layout, dtype)
+        want = _xent_run(xent.xent_loss_plain, *x, layout, dtype)
+        for name, a, b in zip(("loss", "dpooled", "dW", "db"), got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            rtol = XENT_SUM_RTOL if name == "loss" else XENT_TOL[dtype]
+            assert err <= rtol * b.abs().max().item(), name
+
+    @pytest.mark.parametrize("B,E,d", [(1024, 3500, 256), (4096, 300, 128)])
+    def test_backward_is_bit_equal_with_split(self, cuda, B, E, d):
+        x = _xent_inputs(cuda, B, E, d, "de")
+        a = _xent_run(xent.xent_loss, *x, "de", "float32")
+        b = _xent_run(xent.xent_loss, *x, "de", "float32")
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
     def test_wrapper_refuses_what_the_kernels_do_not_take(self, cuda):
         pooled, W, b, labels = _xent_inputs(cuda, 8, 16, 16, "ed")
         with pytest.raises(ValueError, match="d <= 256"):
