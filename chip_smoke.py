@@ -39,9 +39,10 @@ Phases (each prints one line or more; any failure exits non-zero):
      cerc's B=1024, d=256, E=3500 and at w3c's d=128, E=1100 with a ragged
      B=1000; "ed" bf16 at B=4096, d=128, E=131072 and at E=131071 (a tail
      tile); "de" bf16 once; fp32 "de" at B=4096, E=300, d=256 (K6's dW
-     sweep at its most batch slices); each case's slice and block counts,
-     and two K6 backward calls bit for bit at cerc's shape and at the
-     split one; K5 alone at the log-linear normalizer's shape
+     sweep at its most batch slices); each case's K5 chunks and blocks and
+     K6 slices and blocks, and two K6 backward calls bit for bit at cerc's
+     shape and at the split one; K5 alone at the log-linear normalizer's
+     shape
      (64 queries x 16 terms, "de", fp32, d=256); and K5/K6 timed alone at
      lse_full's flagship shape (B=4096, E=1M, d=128, bf16, "ed"), the
      forward held against an lse the plain version computes in entity
@@ -53,8 +54,11 @@ Phases (each prints one line or more; any failure exits non-zero):
      moments, for each optimizer: "de" fp32 at w3c's B=1024 and a ragged
      B=1000 (E=1100, d=128) and at cerc's (B=1024, E=3500, d=256); "de"
      bf16 at the reference's fused-step width (B=1024, E=500k, d=256);
-     "ed" bf16 at B=4096, E=131072 and 131071; bf16 storage once; errors
-     of the loss, gsq, db, dpooled, W' and the slots with their tolerances,
+     "ed" bf16 at B=4096, E=131072 and 131071; bf16 storage once; each
+     case's dW-sweep slices (the update in the sweep with one, in the
+     ordered sum of the slices with more); errors of the loss, gsq, db,
+     dpooled, W' and the slots with their tolerances, two K7 calls bit for
+     bit at w3c's and cerc's shapes (slices) and at E=131071 (one slice),
      CUDA-event times of K7 alone and of the plain backward + update;
  11. train_loglinear: cerc_expert_finding as the recipe stands (V from the
      CERC stand-in, E=3500, d=256, B=1024, fp32, adam + cosine, 5 epochs)
@@ -83,7 +87,9 @@ Phases (each prints one line or more; any failure exits non-zero):
      within 1e-4 of each other.
 Then one JSON line of kernel records (with each one's bound: the larger of
 its operations over the H100's peak rate for their type and its bytes over
-3.35 TB/s), and the device record as the last line.
+3.35 TB/s; fp32 products of K5-K7 run as 3xTF32 on the tensor cores, and
+their CUDA-core bound is kept beside), and the device record as the last
+line.
 
 Imports nothing of JAX and nothing of the JAX package by name; only
 `sert_tpu_torch`. Exits 1 without a CUDA device.
@@ -135,10 +141,10 @@ LSE_FULL_STEPS = 16
 # non-zero moments with count 3.
 APPLY_LR = 1e-2
 # The fused step against the dense one on the same batches: both take the
-# fp32 class of product (K7 on the CUDA cores, K6 as 3xTF32 on the tensor
-# cores), so the gradients differ in rounding and summation order only, and
-# the optimizer's arithmetic is in another order (an ulp of an lr-sized
-# update per step).
+# fp32 class of product (K6's and K7's sweeps, 3xTF32 on the tensor cores),
+# so the gradients differ in rounding and summation order only, and the
+# optimizer's arithmetic is in another order (an ulp of an lr-sized update
+# per step).
 FUSED_PARITY_RTOL = 1e-4
 # The fused-step A/B at the width of the reference's
 # benchmarks/fused_step_bench.py (log-linear, bf16 compute, fp32 params,
@@ -147,7 +153,7 @@ AB_V, AB_E, AB_D, AB_LR = 60_000, 500_000, 256, 1e-2
 AB_STEPS_PER_CALL, AB_CALLS = 8, 3
 # The H100 SXM's published dense peaks (bf16 on tensor cores, fp32 on the
 # CUDA cores, and fp32 products as three TF32 passes on the tensor cores,
-# as K6 runs them) and its memory rate, for each kernel's bound.
+# as K5-K7 run them) and its memory rate, for each kernel's bound.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
@@ -743,7 +749,9 @@ def phase_xent_kernels() -> dict:
         iters = 3 if E > 100_000 else 10
         per, slices = xent._dw_splits(B, E)
         chunk_tiles, chunks = xent._dp_chunks(B, E)
-        say("xent_kernels", case=label, dw_slices=slices,
+        # K5 and K6's dpooled sweep share the chunk plan.
+        say("xent_kernels", case=label, fwd_chunks=chunks,
+            fwd_blocks=chunks * -(-B // 64), dw_slices=slices,
             dw_btiles_per_slice=per, dw_blocks=slices * -(-E // 64),
             dp_blocks=chunks * -(-B // 64), dp_tiles_per_block=chunk_tiles)
         k_ = _xent_outputs(xent.xent_loss, *x, layout, dtype, iters,
@@ -766,24 +774,25 @@ def phase_xent_kernels() -> dict:
             if err > tol:
                 raise AssertionError(f"{label}: {key} error {err} > {tol}")
         f_flops, f_bytes, b_flops, b_bytes = _xent_work(B, E, d, *x)
-        # K6 runs its fp32 products as 3xTF32 on the tensor cores; its bound
-        # on the CUDA cores is kept beside it.
-        fb = bound(f_flops, f_bytes, dtype)
-        bb = bound(b_flops, b_bytes,
-                   "tf32x3" if dtype == "float32" else dtype)
+        # K5 and K6 run their fp32 products as 3xTF32 on the tensor cores;
+        # their bounds on the CUDA cores are kept beside.
+        fb = bound(f_flops, f_bytes, _product_type(dtype))
+        fb_cores = bound(f_flops, f_bytes, dtype)["bound_ms"]
+        bb = bound(b_flops, b_bytes, _product_type(dtype))
         bb_cores = bound(b_flops, b_bytes, dtype)["bound_ms"]
         say("xent_kernels", case=label, fwd_ms=k_["fwd_ms"],
             fwd_plain_ms=p_["fwd_ms"], fwd_bound_ms=fb["bound_ms"],
-            bwd_ms=k_["bwd_ms"], bwd_plain_ms=p_["bwd_ms"],
-            bwd_bound_ms=bb["bound_ms"], bwd_bound_cuda_cores_ms=bb_cores,
-            bound_by=fb["bound_by"])
+            fwd_bound_cuda_cores_ms=fb_cores, bwd_ms=k_["bwd_ms"],
+            bwd_plain_ms=p_["bwd_ms"], bwd_bound_ms=bb["bound_ms"],
+            bwd_bound_cuda_cores_ms=bb_cores, bound_by=fb["bound_by"])
         fwd, bwd = records["xent_fwd"], records["xent_bwd"]
         fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["loss"],
                                  errs["lse"])
         bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["dpooled"],
                                  errs["dW"], errs["db"])
         if i == 0:
-            fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"], **fb)
+            fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"], **fb,
+                       bound_cuda_cores_ms=fb_cores)
             bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"], **bb,
                        bound_cuda_cores_ms=bb_cores)
         del k_, p_, x
@@ -795,8 +804,9 @@ def phase_xent_kernels() -> dict:
     want = xent.xent_lse_plain(pooled, W, b, "de", "float32")
     err = (got - want).abs().max().item()
     tol = XENT_SUM_RTOL * want.abs().max().item()
+    chunks = xent._dp_chunks(64 * 16, 3500)[1]
     say("xent_kernels", case="normalizer", rows=64 * 16, E=3500, d=256,
-        max_abs_err=err, tol=tol,
+        fwd_chunks=chunks, fwd_blocks=chunks * 16, max_abs_err=err, tol=tol,
         ms=cuda_ms(lambda: xent.xent_lse(pooled, W, b, "de", "float32")),
         plain_ms=cuda_ms(lambda: xent.xent_lse_plain(pooled, W, b, "de",
                                                      "float32")))
@@ -834,8 +844,10 @@ def phase_xent_kernels() -> dict:
                      iters=3, warmup=1)
     f_flops, f_bytes, b_flops, b_bytes = _xent_work(B, E, d, pooled, W, b,
                                                     labels)
+    chunks = xent._dp_chunks(B, E)[1]
     say("xent_kernels", case="lse_full_flagship", B=B, E=E, d=d,
-        layout="ed", dtype="bfloat16", lse_max_abs_err=err, tol=tol,
+        layout="ed", dtype="bfloat16", fwd_chunks=chunks,
+        fwd_blocks=chunks * -(-B // 64), lse_max_abs_err=err, tol=tol,
         fwd_ms=fwd_ms, fwd_plain_chunked_ms=plain_ms,
         fwd_bound_ms=bound(f_flops, f_bytes, "bfloat16")["bound_ms"],
         bwd_ms=bwd_ms,
@@ -861,6 +873,11 @@ def _apply_case(B, E, d, layout, opt, seed, w_dtype):
         slots[name] = (1e-3 * x if name == "m"
                        else 1e-5 * (0.5 + x.abs())).to(w_dtype)
     return pooled, W.to(w_dtype), b, labels, slots
+
+
+def _product_type(dtype: str) -> str:
+    """The peak-rate type of K5-K7's products: fp32 runs as 3xTF32."""
+    return "tf32x3" if dtype == "float32" else dtype
 
 
 def _apply_outputs(fn, x, opt, layout, dtype):
@@ -924,12 +941,28 @@ def phase_xent_apply_kernels() -> dict:
              ("ll_500k", 1024, 500_000, 256, "de", "bfloat16", f32),
              ("lse_full_128k", 4096, 131072, 128, "ed", "bfloat16", f32),
              ("lse_full_tail", 4096, 131071, 128, "ed", "bfloat16", f32)]
+    # Two calls bit for bit: the update in the sum of the slices (w3c 8,
+    # cerc 4) and in the sweep's epilogue (one slice, a one-entity tail).
+    bit_equal = ("w3c", "cerc", "lse_full_tail")
     runs = [(c, opt) for c in cases for opt in xent.OPTIMIZERS]
     runs.append((("bf16_storage", 4096, 131072, 128, "ed", "bfloat16", bf),
                  "adam"))
     for i, ((label, B, E, d, layout, dtype, w_dtype), opt) in enumerate(runs):
         x = _apply_case(B, E, d, layout, opt, 400 + i, w_dtype)
+        per, slices = xent._dw_splits(B, E)
+        say("xent_apply_kernels", case=label, opt=opt, dw_slices=slices,
+            dw_btiles_per_slice=per, dw_blocks=slices * -(-E // 64),
+            dp_blocks=xent._dp_chunks(B, E)[1] * -(-B // 64))
         got = _apply_outputs(xent.xent_loss_apply, x, opt, layout, dtype)
+        if label in bit_equal:
+            again = _apply_outputs(xent.xent_loss_apply, x, opt, layout,
+                                   dtype)
+            same = all(torch.equal(got[k], again[k]) for k in got)
+            say("xent_apply_kernels", case=label, opt=opt,
+                apply_twice_bit_equal=same, outputs=",".join(sorted(got)))
+            if not same:
+                raise AssertionError(f"{label} {opt}: two K7 calls differ")
+            del again
         want = _apply_outputs(xent.xent_loss_apply_plain, x, opt, layout,
                               dtype)
         errs = {}
@@ -967,12 +1000,14 @@ def phase_xent_apply_kernels() -> dict:
         flops = 6 * B * E * d
         moved = (nbytes(pooled, W, b, labels, *slots.values())
                  + nbytes(W, *slots.values()) + 4 * (E + B * d - (-E // 64)))
-        bnd = bound(flops, moved, dtype)
+        bnd = bound(flops, moved, _product_type(dtype))
+        cores = bound(flops, moved, dtype)["bound_ms"]
         say("xent_apply_kernels", case=label, opt=opt, ms=ms,
-            plain_ms=plain_ms, **bnd)
+            plain_ms=plain_ms, **bnd, bound_cuda_cores_ms=cores)
         rec["max_abs_err"] = max(rec["max_abs_err"], *errs.values())
         if i == 0:
-            rec.update(ms=ms, plain_ms=plain_ms, **bnd)
+            rec.update(ms=ms, plain_ms=plain_ms, **bnd,
+                       bound_cuda_cores_ms=cores)
         del x
         torch.cuda.empty_cache()
     return {"xent_bwd_apply": rec}

@@ -1,7 +1,8 @@
-// Shared pieces of the batch-by-column tile kernels (K1/K2 in
-// sampled_lse.cu, K5/K6 in xent.cu): the tile geometry, one block's
-// shared-memory layout, row staging, and the 64-row tile product on tensor
-// cores (bf16, wmma) or CUDA cores (fp32).
+// Shared pieces of the batch-by-column tile kernels K1/K2 (sampled_lse.cu):
+// the tile geometry, one block's shared-memory layout, row staging, the
+// 64-row tile product on tensor cores (bf16, wmma) or CUDA cores (fp32),
+// and the running (max, sumexp) of a logits tile. The sweeps of K5-K7
+// (xent.cu) take the tile geometry and the running (max, sumexp) only.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -4,8 +4,7 @@
 // Replaces the Pallas kernels of sert_tpu/ops/xent.py: _fwd_kernel :152
 // (launched by _fwd_partials :270), _bwd_kernel :219 (launched by
 // _bwd_calls :364) and _bwd_update_kernel :468 (launched by xent_bwd_apply
-// :525). With z[b, j] = P[b] . W(j) + bias[j] over entities j < E
-// (z = -1e30 past E):
+// :525). With z[b, j] = P[b] . W(j) + bias[j] over entities j < E:
 //   K5: per (batch row, entity chunk) the running (max, sumexp) of z; the
 //       caller merges the chunks into lse[b] and gathers the gold logit
 //       itself (as the reference does outside its kernel);
@@ -18,8 +17,9 @@
 //       place, from G = gscale * dW in fp32, so dW never reaches device
 //       memory; it writes db (unscaled) and the tile's partial of
 //       sum G^2 for the grad-norm metric.
-// The [B, E] logits never reach device memory: every block keeps one
-// 64 x 64 tile of them in shared memory.
+// All three are modes of one sweep kernel (xent_sweep_kernel below), and
+// the [B, E] logits never reach device memory: a block holds one 64 x 64
+// tile of them, in registers and shared memory.
 //
 // W is read in its storage form, never copied, padded or transposed: its
 // layout is "de" ([d, E], the log-linear proj_w: entities contiguous) or
@@ -31,35 +31,40 @@
 // needs no padding of W and its zero rows cannot leak 0 * NaN into
 // dpooled. dW is written back in W's own layout and shape.
 //
-// What bounds it on the H100: at lse_full's flagship shape (B = 4096,
-// E = 1M, d = 128) each product is 2 B E d = 1.07 TFLOP and a training
-// step takes five (z in K5 and in each K6 sweep, then dW and dpooled),
-// while W is 0.5 GB of fp32: arithmetic bounds it, and the recompute is the
-// price of keeping 16 GB of fp32 logits out of device memory. At the
-// log-linear recipes' widths (E of a few thousand, fp32 compute) the work
-// is a few GFLOP a step. K5 and K7 use the tile products of K1/K2
-// (tile_mm.cuh): wmma bf16 fragments into fp32, or fp32 on the CUDA cores.
-// K6 has its own sweeps (xent6_sweep_kernel below): register accumulators,
-// fp32 products on the tensor cores as 3xTF32, and staging that overlaps
-// the products. wgmma, TMA and one merged sweep are later work.
+// What bounds them on the H100. K5 makes one product of [B, d] by [d, E],
+// K6 three (z, then dW and dpooled, with z made again in its second
+// sweep), K7 K6's three and the update. At lse_full's flagship shape
+// (B = 4096, E = 1M, d = 128, bf16) a product is 1.07 TFLOP, 1.1 ms at the
+// bf16 peak, against 0.5 GB of fp32 W: arithmetic bounds them, and the
+// recompute is the price of keeping 16 GB of fp32 logits out of device
+// memory. At the log-linear recipes' widths (E of a few thousand, fp32) a
+// product is a few GFLOP, 11 us at cerc's shape as 3xTF32 on the tensor
+// cores; there the barriers, the fragment loads and the TF32 splits between
+// the tensor-core instructions set the time, not the tensor cores. K7's
+// update moves W and its slots once each way: at the reference's
+// fused-step width (B = 1024, E = 500k, d = 256, fp32 params) adam's W, m, v
+// in and out are 3.1 GB (0.92 ms at 3.35 TB/s), against 0.79 TFLOP of
+// products (0.8 ms at the bf16 peak), so the two bounds are close.
 //
-// K7 does K6's three products and moves W, m and v once each way, instead
-// of writing dW for a separate optimizer pass to read back beside W, m and
-// v. At the reference's fused-step width (B = 1024, E = 500k, d = 256) the
-// products are 0.79 TFLOP (0.8 ms at the bf16 peak) and adam's W, m, v in
-// and out are 3.1 GB of fp32 (0.92 ms at 3.35 TB/s): the two bounds are
-// close, bytes for adam and operations for adagrad and sgd. This first
-// version recomputes z in its dpooled sweep as K6 does, and its update is
-// elementwise in the epilogue of K6's dW sweep.
+// What the design does about it: every mode streams one operand through a
+// cp.async / register ring that overlaps the products, keeps its
+// accumulators in registers and runs fp32 products on the tensor cores as
+// 3xTF32; each sweep splits its loop axis by a plan that fills one round of
+// two blocks an SM (ops/xent.py _dw_splits, _dp_chunks). K5 is the z pass
+// alone, with a running (max, sumexp) of each row in registers. K7 is K6's
+// dpooled sweep, then K6's dW sweep whose epilogue applies the update to the
+// block's own tile of W, so dW is never stored; where the entity tiles are
+// too few to fill the card the dW sweep is split over the batch too, and
+// the update moves into the kernel that sums the slices. wgmma, TMA and one
+// merged sweep are later work.
 //
-// Determinism: no float atomics. K7's dW / db sweep gives each entity tile
-// one block that loops over all batch tiles in order; K6's splits the batch
-// tiles into slices by a plan that depends on the shapes alone
-// (ops/xent.py _dw_splits), each block looping over its slice in order,
-// and a second kernel sums the slices in slice order. The dpooled sweeps
-// write one partial per (entity chunk, batch row), which the caller sums
-// in a fixed order. K7's sum of G^2 is one partial per entity tile, summed
-// in the block in a fixed order.
+// Determinism: no float atomics. The dW sweeps split the batch tiles into
+// slices by a plan that depends on the shapes alone (ops/xent.py
+// _dw_splits), each block looping over its slice in order, and a second
+// kernel sums the slices in slice order. The dpooled sweeps and K5 write
+// one partial per (entity chunk, batch row), which the caller sums or
+// merges in a fixed order. K7's sum of G^2 is one partial per entity tile,
+// summed in the block in a fixed order.
 //
 // K7's order: the dpooled sweep reads W, so it is launched first, on the
 // same stream; the update sweep's blocks read their own tile of W (and its
@@ -75,21 +80,6 @@
 #include "tile_mm.cuh"
 
 namespace {
-
-// Per-tile vectors: the entity tile's bias, the batch tile's labels and
-// lse, and WARPS floats of scratch for a block sum.
-struct XVecs {
-  float* bias;
-  int* lab;
-  float* lse;
-  float* red;
-  __device__ explicit XVecs(unsigned char* base) {
-    bias = reinterpret_cast<float*>(base);
-    lab = reinterpret_cast<int*>(bias + TILE);
-    lse = reinterpret_cast<float*>(lab + TILE);
-    red = lse + TILE;
-  }
-};
 
 // K7's optimizers, in the order of ops/xent.py's OPTIMIZERS; their
 // constants are baked in as the reference bakes them (xent_bwd_apply :552).
@@ -107,164 +97,97 @@ template <> __device__ inline bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Stage entities [j0, j0 + TILE) of W as an entity-major [TILE, dp] tile of
-// the compute type T (stride ld), and their biases; entities past E and
-// features past d are zero. The loop order follows W's contiguous axis.
-template <typename T, typename WT>
-__device__ void stage_w(T* s, int ld, XVecs v, const WT* __restrict__ W,
-                        const float* __restrict__ bias, int j0, int E, int d,
-                        int dp, long long sj, long long sk) {
-  for (int i = threadIdx.x; i < TILE * dp; i += THREADS) {
-    const int r = sk == 1 ? i / dp : i % TILE;
-    const int k = sk == 1 ? i % dp : i / TILE;
-    float x = 0.0f;
-    if (j0 + r < E && k < d) x = to_f32(W[(j0 + r) * sj + k * sk]);
-    s[r * ld + k] = from_f32<T>(x);
-  }
-  if (threadIdx.x < TILE)
-    v.bias[threadIdx.x] = j0 + threadIdx.x < E ? bias[j0 + threadIdx.x] : 0.0f;
+// K7's update: W itself (written in place), its slots s1, s2 ((m, v) for
+// adam, (acc, -) for adagrad, unused for sgd, each shaped and typed as W),
+// the per-entity-tile sums of G^2, and the update's constants.
+template <typename WT>
+struct Update {
+  WT* w;
+  WT* s1;
+  WT* s2;
+  float* gsq;
+  int opt;
+  float lr, gscale, bc1, bc2;
+};
+
+// W's element and its slots' (those the optimizer has), in fp32.
+struct Elem {
+  float w, s1, s2;
+};
+template <typename WT>
+__device__ inline Elem load_elem(const Update<WT>& u, long long at) {
+  Elem e{to_f32(u.w[at]), 0.0f, 0.0f};
+  if (u.opt != SGD) e.s1 = to_f32(u.s1[at]);
+  if (u.opt == ADAM) e.s2 = to_f32(u.s2[at]);
+  return e;
 }
 
-__device__ void stage_rows(XVecs v, const float* __restrict__ lse,
-                           const int* __restrict__ lab, int b0, int B) {
-  const int t = threadIdx.x;
-  if (t < TILE) {
-    const bool in = b0 + t < B;
-    v.lse[t] = in ? lse[b0 + t] : 0.0f;
-    v.lab[t] = in ? lab[b0 + t] : -1;
+// The update of W's element `at` (loaded as e) from its gradient g, in
+// place, in fp32 from the stored values, in the reference's order
+// (_bwd_update_kernel :501-522) with round-to-nearest intrinsics (no
+// contraction); results stored in W's type. Returns sq + g^2.
+template <typename WT>
+__device__ inline float store_update(const Update<WT>& u, long long at,
+                                     float g, Elem e, float sq) {
+  sq = __fadd_rn(sq, __fmul_rn(g, g));
+  float upd;
+  if (u.opt == ADAM) {
+    const float m2 = __fadd_rn(__fmul_rn(B1, e.s1), __fmul_rn(B1C, g));
+    const float v2 = __fadd_rn(__fmul_rn(B2, e.s2),
+                               __fmul_rn(__fmul_rn(B2C, g), g));
+    upd = __fdiv_rn(__fmul_rn(u.lr, __fdiv_rn(m2, u.bc1)),
+                    __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, u.bc2)), ADAM_EPS));
+    u.s1[at] = from_f32<WT>(m2);
+    u.s2[at] = from_f32<WT>(v2);
+  } else if (u.opt == ADAGRAD) {
+    const float a2 = __fadd_rn(e.s1, __fmul_rn(g, g));
+    upd = __fmul_rn(__fmul_rn(u.lr, g),
+                    a2 > 0.0f ? __frsqrt_rn(__fadd_rn(a2, ADAGRAD_EPS))
+                              : 0.0f);
+    u.s1[at] = from_f32<WT>(a2);
+  } else {
+    upd = __fmul_rn(u.lr, g);
   }
+  u.w[at] = from_f32<WT>(__fsub_rn(e.w, upd));
+  return sq;
 }
 
-// Overwrite the logits tile Zs with p = exp(z - lse) - onehot (0 for rows
-// past B and entities past E) in fp32 and, for bf16, write p rounded to bf16
-// into Ps.
-template <typename T>
-__device__ void xent_probs(float* Zs, bf16* Ps, XVecs v, int b0, int B,
-                           int j0, int E) {
-  for (int i = threadIdx.x; i < TILE * TILE; i += THREADS) {
-    const int r = i / TILE, c = i % TILE;
-    float p = 0.0f;
-    if (b0 + r < B && j0 + c < E) {
-      p = expf(Zs[r * LDZ + c] + v.bias[c] - v.lse[r]);
-      if (v.lab[r] == j0 + c) p -= 1.0f;
-    }
-    Zs[r * LDZ + c] = p;
-    if constexpr (sizeof(T) == 2) Ps[r * LDP + c] = __float2bfloat16(p);
-  }
-}
-
-// K5: grid (batch tiles, entity chunks). Each block keeps the running
-// (max, sumexp) of its 64 rows over its chunk's entity tiles.
-template <typename T, typename WT>
-__global__ void __launch_bounds__(THREADS)
-xent_fwd_kernel(const T* __restrict__ P, const WT* __restrict__ W,
-                const float* __restrict__ bias, float* __restrict__ m_out,
-                float* __restrict__ s_out, int B, int E, int d, int dp,
-                long long sj, long long sk, int tiles_per_chunk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout<T> L(dp, false);
-  T* Ps_in = reinterpret_cast<T*>(smem + L.r);
-  T* Ws = reinterpret_cast<T*>(smem + L.c);
-  float* Zs = reinterpret_cast<float*>(smem + L.z);
-  XVecs v(smem + L.vec);
-
-  const int b0 = blockIdx.x * TILE;
-  const int chunk = blockIdx.y;
-  const int n_tiles = (E + TILE - 1) / TILE;
-  const int t0 = chunk * tiles_per_chunk;
-  const int t1 = min(t0 + tiles_per_chunk, n_tiles);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int ROWS = TILE / WARPS;   // rows per warp
-
-  stage(Ps_in, L.ldt, P, b0, B, dp);
-  float m_run[ROWS], s_run[ROWS];
+// The block's sum of one value a thread in a fixed order (lanes, then warps
+// in turn), in thread 0; `red` is NW floats of shared memory, one a warp.
+template <int NW = WARPS>
+__device__ inline float block_sum(float x, float* red) {
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m_run[i] = -CUDART_INF_F;
-    s_run[i] = 0.0f;
-  }
-
-  for (int t = t0; t < t1; ++t) {
-    const int j0 = t * TILE;
-    __syncthreads();              // the previous tile is fully read
-    stage_w(Ws, L.ldt, v, W, bias, j0, E, d, dp, sj, sk);
-    __syncthreads();
-    block_mm<false, true>(Ps_in, L.ldt, Ws, L.ldt, Zs, LDZ, TILE, dp, false);
-    __syncthreads();
-    online_lse(
-        Zs, m_run, s_run, [&](int c) { return v.bias[c]; },
-        [&](int, int c) { return j0 + c < E; });
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = b0 + warp * ROWS + i;
-      if (row < B) {
-        m_out[size_t(chunk) * B + row] = m_run[i];
-        s_out[size_t(chunk) * B + row] = s_run[i];
-      }
-    }
-  }
-}
-
-// The dW sweep of K6 and K7, for the block's entity tile [j0, j0 + TILE):
-// stage the tile of W once, then loop over every batch tile in order. On
-// return (after a barrier) Acc holds the tile's unscaled sum_b p^T P,
-// entity-major, and thread t < TILE has column t's sum_b p. W is not read
-// after the staging, so K7 may overwrite the tile afterwards.
-template <typename T, typename WT>
-__device__ float dw_sweep(unsigned char* smem, const Layout<T>& L,
-                          const T* __restrict__ P, const WT* W,
-                          const float* __restrict__ bias,
-                          const float* __restrict__ lse,
-                          const int* __restrict__ lab, int B, int E, int d,
-                          int dp, long long sj, long long sk, int j0) {
-  T* Ps_in = reinterpret_cast<T*>(smem + L.r);
-  T* Ws = reinterpret_cast<T*>(smem + L.c);
-  float* Zs = reinterpret_cast<float*>(smem + L.z);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L.p);
-  float* Acc = reinterpret_cast<float*>(smem + L.acc);
-  XVecs v(smem + L.vec);
-
-  const int n_btiles = (B + TILE - 1) / TILE;
-  stage_w(Ws, L.ldt, v, W, bias, j0, E, d, dp, sj, sk);
-  float col_sum = 0.0f;                 // thread t < 64: column t of db
-
-  for (int bt = 0; bt < n_btiles; ++bt) {
-    const int b0 = bt * TILE;
-    __syncthreads();
-    stage(Ps_in, L.ldt, P, b0, B, dp);
-    stage_rows(v, lse, lab, b0, B);
-    __syncthreads();
-    block_mm<false, true>(Ps_in, L.ldt, Ws, L.ldt, Zs, LDZ, TILE, dp, false);
-    __syncthreads();
-    xent_probs<T>(Zs, Ps, v, b0, B, j0, E);
-    __syncthreads();
-    if (threadIdx.x < TILE)
-      for (int r = 0; r < TILE; ++r) col_sum += Zs[r * LDZ + threadIdx.x];
-    block_mm<true, false>(p_tile<T>(Zs, Ps), p_ld<T>(), Ps_in, L.ldt, Acc,
-                          L.lda, dp, TILE, bt > 0);
-  }
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
   __syncthreads();
-  return col_sum;
+  float s = 0.0f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < NW; ++w) s += red[w];
+  return s;
 }
 
-// ---- K6 on the tensor cores ----------------------------------------------
-// Both of K6's sweeps are xent6_sweep_kernel. A block keeps a "resident"
-// [64, dp] tile X of one operand in shared memory and streams the [64, dp]
-// tiles Y of the other through a ring of NST [64, CH] feature chunks, each
-// tile's chunks twice:
+// ---- The sweep: K5, K6 and K7 on the tensor cores --------------------------
+// Every launch of K5, K6 and K7 but the slice sums is xent_sweep_kernel, in
+// one of four modes. A block keeps a "resident" [64, dp] tile X of one
+// operand in shared memory and streams the [64, dp] tiles Y of the other
+// through a ring of NST [64, CH] feature chunks, each tile's chunks once
+// (FWD) or twice:
 //   z[x][y] = X[x] . Y[y]               chunk by chunk, in registers;
+//   FWD: the running (max, sumexp) of each row of z, through shared memory;
 //   p = exp(z - lse) - onehot           in shared memory (fp32, and bf16);
 //   acc[x][:] += sum_y p[x][y] Y[y][:]  chunk by chunk, in registers.
-// The dW sweep (DW): X is entity tile t of W (cast on the way in), Y the
+// FWD (K5) and DPOOL (the dpooled sweep of K6 and K7): X is a batch tile of
+// P (by cp.async), Y the entity tiles of one entity chunk of W, each chunk
+// loaded into registers one step ahead (16 bytes a load where W's rows
+// allow) and cast while stored (cp.async copies bytes unchanged, and W may
+// be fp32 multiplied as bf16); DPOOL's acc = sum_e p W. DW (K6's dW sweep)
+// and UPDATE (K7's): X is entity tile t of W (cast on the way in), Y the
 // batch tiles of slice s of P, which cp.async streams NST - 1 chunks ahead
 // of use, with each tile's lse and labels; acc = sum_b p^T P and
-// db = sum_b p. The dpooled sweep: X is a batch tile of P (by cp.async), Y
-// the entity tiles of one entity chunk of W, each chunk loaded into
-// registers one step ahead (16 bytes a load where W's rows allow) and cast
-// while stored (cp.async copies bytes unchanged, and W may be fp32
-// multiplied as bf16); acc = sum_e p W.
+// db = sum_b p. With one slice DW stores dW = g * acc and UPDATE applies
+// the optimizer to the tile from G = gscale * acc; with more, both write
+// their unscaled partials for a second kernel to sum in slice order.
 // fp32 products run on the tensor cores as 3xTF32: x = hi + lo with hi and
 // lo TF32, and a.b = lo.hi + hi.lo + hi.hi summed in fp32 (the dropped lo.lo
 // term is ~2^-22 of a product), which keeps fp32's accuracy class; bf16
@@ -273,14 +196,11 @@ __device__ float dw_sweep(unsigned char* smem, const Layout<T>& L,
 // generic addressing). Each warp owns 16 rows of X: four 16 x 8 tiles of z
 // and, in every chunk, CH / 16 16 x 8 tiles of acc (64 registers of acc at
 // dp = 256).
-// What bounds it: at the log-linear widths (cerc: B 1024, E 3500, d 256,
-// fp32) the three products are 5.5 GFLOP, 33 us as 3xTF32 at the tensor
-// cores' peak; between two barriers a warp does a few fragment products,
-// each fp32 operand element split in four integer operations and one
-// subtraction, so issue slots, load latency and the barriers, not the
-// tensor cores, set its time (PERF.md). At E = 1M bf16 the same holds with
-// 256 blocks of ~1.5k steps each, and W is read once for z and once for
-// acc by each of the 64 batch tiles.
+// Between two barriers a warp does a few fragment products, each fp32
+// operand element split in four integer operations and one subtraction, so
+// issue slots, load latency and the barriers, not the tensor cores, set its
+// time (PERF.md). At E = 1M bf16 each sweep has 256 blocks of ~3.9k entity
+// tiles, and each of the 64 batch tiles reads W once a pass.
 template <typename T>
 constexpr int CHUNK = sizeof(T) == 4 ? 32 : 64;
 constexpr int NACC = 256 / 16;       // 16 x 8 acc tiles a warp holds, dp 256
@@ -314,15 +234,20 @@ struct SweepLayout {
   static constexpr size_t total = vec + 7 * TILE * sizeof(float);
 };
 
+// The sweep's modes: K5's forward, the dpooled sweep (K6, K7), K6's dW
+// sweep and K7's update sweep.
+enum Mode : int { FWD = 0, DPOOL = 1, DW = 2, UPDATE = 3 };
+
 // A position in a sweep's stream of Y chunks: ring stage, Y tile of the
-// block, chunk, pass (0: z, 1: acc).
+// block, chunk, pass (0: z, 1: acc; FWD makes the z pass only).
+template <int PASSES>
 struct StreamPos {
   int st = 0, ti = 0, c = 0, pass = 0;
   __device__ void next(int nch) {
     if (++st == NST) st = 0;
     if (++c == nch) {
       c = 0;
-      if (++pass == 2) {
+      if (++pass == PASSES) {
         pass = 0;
         ++ti;
       }
@@ -330,21 +255,27 @@ struct StreamPos {
   }
 };
 
-// One of K6's sweeps (DW: the dW sweep). Grid: DW (entity tiles, slices of
-// `per` batch tiles), else (batch tiles, chunks of `per` entity tiles).
-// DW writes, with one slice, dW = g * acc in W's layout and db = g * sum p
-// into `out` and `db`; with S slices its unscaled partials into slice s of
-// `out` ([S, Ep, dp] in W's layout, Ep = entity tiles * 64, then the db
-// partials [S, Ep]). The dpooled sweep writes its unscaled partial into
-// `out` [chunks, Bp, dp] (Bp = batch tiles * 64).
-template <typename T, typename WT, bool DW>
+// Grid: DW and UPDATE (entity tiles, slices of `per` batch tiles), else
+// (batch tiles, chunks of `per` entity tiles). dp is a multiple of CH.
+// FWD writes each row's running max and sumexp over the chunk into `out`
+// and `out2` [chunks, B]. DPOOL writes its unscaled partial into `out`
+// [chunks, Bp, dp] (Bp = batch tiles * 64). DW writes, with one slice,
+// dW = g * acc in W's layout into `out` and db = g * sum p into `out2`;
+// UPDATE, with one slice, updates W and its slots in place (through up.w)
+// from G = up.gscale * acc, writes db unscaled into `out2` and the tile's
+// sum of G^2 into up.gsq; with S slices both write their unscaled partials
+// into slice s of `out` ([S, Ep, dp] in W's layout, Ep = entity tiles * 64,
+// then the db partials [S, Ep]).
+template <typename T, typename WT, int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
-xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ lse, const int* __restrict__ lab,
-                   const float* __restrict__ g, float* __restrict__ out,
-                   float* __restrict__ db, int B, int E, int d, int dp,
-                   long long sj, long long sk, int per) {
+xent_sweep_kernel(const T* __restrict__ P, const WT* W,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ lse, const int* __restrict__ lab,
+                  const float* __restrict__ g, float* __restrict__ out,
+                  float* __restrict__ out2, int B, int E, int d, int dp,
+                  long long sj, long long sk, int per, Update<WT> up) {
+  constexpr bool XW = MODE == DW || MODE == UPDATE;   // X is a tile of W
+  constexpr int PASSES = MODE == FWD ? 1 : 2;
   extern __shared__ __align__(128) unsigned char smem[];
   using L = SweepLayout<T>;
   constexpr int LDX = LD_X<T>, LDY = LD_Y<T>;
@@ -355,7 +286,7 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
   int* rl = reinterpret_cast<int*>(rv + TILE);          // X's labels
   float* sv = rv + 2 * TILE;       // Y's lse or bias, by tile parity
   int* sl = reinterpret_cast<int*>(sv + 2 * TILE);      // Y's labels, same
-  float* dbacc = sv + 4 * TILE;    // DW: the entity tile's sum_b p
+  float* dbacc = sv + 4 * TILE;    // DW, UPDATE: the entity tile's sum_b p
   auto ring = [&](int st) {
     return reinterpret_cast<T*>(smem + L::ring + st * L::stage);
   };
@@ -363,7 +294,7 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int mt = warp / 2, half = warp % 2;
   const int x0 = blockIdx.x * TILE;
-  const int n_y = DW ? (B + TILE - 1) / TILE : (E + TILE - 1) / TILE;
+  const int n_y = XW ? (B + TILE - 1) / TILE : (E + TILE - 1) / TILE;
   const int y_first = blockIdx.y * per;
   const int n_tiles = min(per, n_y - y_first);
   constexpr int CH = CHUNK<T>, NCH = 256 / CH, FPC = CH / 32;
@@ -396,7 +327,7 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
       r = (q % (TILE / VW)) * VW;
     }
   };
-  StreamPos at_fetch, at_put;
+  StreamPos<PASSES> at_fetch, at_put;
   int at_read = 0;                 // the stage the next step reads
   auto fetch = [&]() {
     const bool live = at_fetch.ti < n_tiles;
@@ -405,7 +336,7 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
     const int y0 = (y_first + ti) * TILE;
     T* dst = ring(at_fetch.st);
     at_fetch.next(nch);
-    if constexpr (DW) {
+    if constexpr (XW) {
       if (live) {
         constexpr int V = 16 / sizeof(T), VPR = CH / V;
         for (int q = tid; q < TILE * VPR; q += THREADS) {
@@ -451,7 +382,7 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
     }
   };
   auto put = [&]() {
-    const StreamPos at = at_put;
+    const StreamPos<PASSES> at = at_put;
     at_put.next(nch);
     if (at.ti >= n_tiles) return;
     T* dst = ring(at.st);
@@ -482,7 +413,7 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
   // stage the next load overwrites was last read a step or more before.
   // Returns the stage it reads.
   auto begin = [&]() {
-    if constexpr (DW) {
+    if constexpr (XW) {
       cp_wait<AHEAD - 1>();
       __syncthreads();
     } else {
@@ -494,12 +425,12 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
     return Y;
   };
   auto end = [&]() {
-    if constexpr (!DW) put();
+    if constexpr (!XW) put();
   };
   // The resident tile and its vectors, staged while the first loads of
   // the stream are in flight: W's tile through registers, RES loads a
   // thread in flight, cast on the way; P's tile by cp.async.
-  if constexpr (DW) {
+  if constexpr (XW) {
     for (int i = 0; i < AHEAD; ++i) fetch();
     constexpr int RES = 16;
     for (int i0 = tid; i0 < TILE * dp; i0 += RES * THREADS) {
@@ -534,10 +465,12 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
                  in);
     }
     cp_commit();
-    if (tid < TILE) {
-      const bool in = x0 + tid < B;
-      rv[tid] = in ? lse[x0 + tid] : 0.0f;
-      rl[tid] = in ? lab[x0 + tid] : -1;
+    if constexpr (MODE == DPOOL) {
+      if (tid < TILE) {
+        const bool in = x0 + tid < B;
+        rv[tid] = in ? lse[x0 + tid] : 0.0f;
+        rl[tid] = in ? lab[x0 + tid] : -1;
+      }
     }
     fetch();
     put();
@@ -556,6 +489,14 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
   };
 #pragma unroll
   for (int a = 0; a < NACC; ++a) ac[a] = Acc8{{0.0f, 0.0f, 0.0f, 0.0f}};
+  // FWD: the running (max, sumexp) of rows 8 warp.. of X.
+  constexpr int ROWS = TILE / WARPS;
+  float m_run[ROWS], s_run[ROWS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    m_run[i] = -CUDART_INF_F;
+    s_run[i] = 0.0f;
+  }
 
   for (int ti = 0; ti < n_tiles; ++ti) {
     const int y0 = (y_first + ti) * TILE;
@@ -581,8 +522,16 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
     for (int j = 0; j < 4; ++j)
       store_c(Z + 16 * mt * LDZ + 32 * half + 8 * j, LDZ, zc[j]);
     __syncthreads();
-    // p = exp(z - lse) - onehot, 0 past B and E; warp w owns rows 8w..8w+7.
     const int buf = (ti & 1) * TILE;
+    if constexpr (MODE == FWD) {
+      // The next tile's first barrier orders these reads before Z and this
+      // tile's half of sv are rewritten.
+      online_lse(
+          Z, m_run, s_run, [&](int col) { return sv[buf + col]; },
+          [&](int, int col) { return y0 + col < E; });
+      continue;
+    }
+    // p = exp(z - lse) - onehot, 0 past B and E; warp w owns rows 8w..8w+7.
 #pragma unroll
     for (int rr = 0; rr < TILE / WARPS; ++rr) {
       const int x = warp * (TILE / WARPS) + rr;
@@ -590,18 +539,18 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int y = lane + 32 * h;
-        const int b = DW ? y0 + y : x0 + x, e = DW ? x0 + x : y0 + y;
+        const int b = XW ? y0 + y : x0 + x, e = XW ? x0 + x : y0 + y;
         float p = 0.0f;
         if (b < B && e < E) {
-          p = expf(Z[x * LDZ + y] + (DW ? rv[x] : sv[buf + y]) -
-                   (DW ? sv[buf + y] : rv[x]));
-          if ((DW ? sl[buf + y] : rl[x]) == e) p -= 1.0f;
+          p = expf(Z[x * LDZ + y] + (XW ? rv[x] : sv[buf + y]) -
+                   (XW ? sv[buf + y] : rv[x]));
+          if ((XW ? sl[buf + y] : rl[x]) == e) p -= 1.0f;
         }
         Z[x * LDZ + y] = p;
         if constexpr (sizeof(T) == 2) Pb[x * LDP + y] = __float2bfloat16(p);
         sum += p;
       }
-      if constexpr (DW) {
+      if constexpr (XW) {
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -628,29 +577,28 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
     }
   }
 
-  if constexpr (DW) {
-    const int S = gridDim.y, Ep = gridDim.x * TILE;
-    if (S == 1) {               // dW = g * acc in W's layout, through Z
-      const float gs = *g;
+  if constexpr (MODE == FWD) {
+    if (lane == 0) {
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        if (c < nch) {
-          __syncthreads();
-#pragma unroll
-          for (int j = 0; j < 2 * FPC; ++j)
-            store_c(Z + 16 * mt * LDZ + 16 * FPC * half + 8 * j, LDZ,
-                    ac[2 * FPC * c + j]);
-          __syncthreads();
-          for (int i = tid; i < TILE * CH; i += THREADS) {
-            const int r = sk == 1 ? i / CH : i % TILE;
-            const int k = sk == 1 ? i % CH : i / TILE;
-            if (x0 + r < E && c * CH + k < d)
-              out[(x0 + r) * sj + (c * CH + k) * sk] = gs * Z[r * LDZ + k];
-          }
+      for (int i = 0; i < ROWS; ++i) {
+        const int row = x0 + warp * ROWS + i;
+        if (row < B) {
+          out[size_t(blockIdx.y) * B + row] = m_run[i];
+          out2[size_t(blockIdx.y) * B + row] = s_run[i];
         }
       }
-      if (tid < TILE && x0 + tid < E) db[x0 + tid] = gs * dbacc[tid];
-    } else {                    // slice s's partials, unscaled
+    }
+  } else if constexpr (MODE == DPOOL) {
+    const size_t Bp = size_t(gridDim.x) * TILE;
+    float* part = out + (blockIdx.y * Bp + x0 + 16 * mt) * dp;
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) {
+      const int f = feature(a);
+      if (f < dp) store_c(part + f, dp, ac[a]);
+    }
+  } else {
+    const int S = gridDim.y, Ep = gridDim.x * TILE;
+    if (S > 1) {                // slice s's partials, unscaled
       float* part = out + size_t(blockIdx.y) * Ep * dp;
 #pragma unroll
       for (int a = 0; a < NACC; ++a) {
@@ -665,26 +613,53 @@ xent6_sweep_kernel(const T* __restrict__ P, const WT* __restrict__ W,
       if (tid < TILE)
         out[size_t(S) * Ep * dp + size_t(blockIdx.y) * Ep + x0 + tid] =
             dbacc[tid];
+      return;
     }
-  } else {
-    const size_t Bp = size_t(gridDim.x) * TILE;
-    float* part = out + (blockIdx.y * Bp + x0 + 16 * mt) * dp;
+    // One slice: the tile's gradient, chunk by chunk through Z in W's
+    // layout, stored as dW = g * acc (DW) or applied as the update (UPDATE).
+    const float gs = MODE == DW ? *g : up.gscale;
+    float sq = 0.0f;                  // UPDATE: this thread's sum of G^2
 #pragma unroll
-    for (int a = 0; a < NACC; ++a) {
-      const int f = feature(a);
-      if (f < dp) store_c(part + f, dp, ac[a]);
+    for (int c = 0; c < NCH; ++c) {
+      if (c < nch) {
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < 2 * FPC; ++j)
+          store_c(Z + 16 * mt * LDZ + 16 * FPC * half + 8 * j, LDZ,
+                  ac[2 * FPC * c + j]);
+        __syncthreads();
+        for (int i = tid; i < TILE * CH; i += THREADS) {
+          const int r = sk == 1 ? i / CH : i % TILE;
+          const int k = sk == 1 ? i % CH : i / TILE;
+          if (x0 + r < E && c * CH + k < d) {
+            const long long at = (x0 + r) * sj + (c * CH + k) * sk;
+            if constexpr (MODE == DW)
+              out[at] = gs * Z[r * LDZ + k];
+            else
+              sq = store_update(up, at, __fmul_rn(Z[r * LDZ + k], gs),
+                                load_elem(up, at), sq);
+          }
+        }
+      }
+    }
+    if (tid < TILE && x0 + tid < E)
+      out2[x0 + tid] = MODE == DW ? gs * dbacc[tid] : dbacc[tid];
+    if constexpr (MODE == UPDATE) {
+      // rl (X's labels) is unused by the dW sweeps.
+      const float total = block_sum(sq, reinterpret_cast<float*>(rl));
+      if (tid == 0) up.gsq[blockIdx.x] = total;
     }
   }
 }
 
-// K6's reduce of S > 1 slices: dW = g * sum_s scratch[s] in W's layout and
+// K6's sum of S > 1 slices: dW = g * sum_s scratch[s] in W's layout and
 // db = g * sum_s (db partial s), each summed in slice order (no atomics, so
 // two calls give the same bits). Elementwise along W's contiguous axis.
 __global__ void __launch_bounds__(THREADS)
-xent6_reduce_kernel(const float* __restrict__ scratch,
-                    const float* __restrict__ g, float* __restrict__ dW,
-                    float* __restrict__ db, int E, int d, int dp,
-                    long long sk, int S) {
+xent_reduce_kernel(const float* __restrict__ scratch,
+                   const float* __restrict__ g, float* __restrict__ dW,
+                   float* __restrict__ db, int E, int d, int dp, long long sk,
+                   int S) {
   const int Ep = (E + TILE - 1) / TILE * TILE;
   const size_t slice = size_t(Ep) * dp, n = size_t(E) * d;
   const float gs = *g;
@@ -708,122 +683,69 @@ xent6_reduce_kernel(const float* __restrict__ scratch,
   }
 }
 
-// K7's update sweep: K6's dW sweep, whose epilogue applies the optimizer to
-// the block's entity tile in place, elementwise in fp32 from W's stored
-// value, in the reference's order (_bwd_update_kernel :501-522), with
-// G = gscale * dW; s1, s2 are (m, v) for adam, (acc, -) for adagrad, unused
-// for sgd, each shaped and typed as W. Writes db unscaled and the tile's
-// sum of G^2 into gsq[tile].
-template <typename T, typename WT>
-__global__ void __launch_bounds__(THREADS)
-xent_bwd_apply_kernel(const T* __restrict__ P, WT* W,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ lse,
-                      const int* __restrict__ lab, WT* s1, WT* s2,
-                      float* __restrict__ db, float* __restrict__ gsq, int B,
-                      int E, int d, int dp, long long sj, long long sk,
-                      int opt, float lr, float gscale, float bc1, float bc2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout<T> L(dp, true);
-  const int j0 = blockIdx.x * TILE;
-  const float col_sum = dw_sweep<T, WT>(smem, L, P, W, bias, lse, lab, B, E,
-                                        d, dp, sj, sk, j0);
-  const float* Acc = reinterpret_cast<const float*>(smem + L.acc);
+// K7's sum of S > 1 slices, with the update: one block per entity tile sums
+// the tile's S partials in slice order, applies the update from
+// G = gscale * sum in place (as the one-slice UPDATE epilogue does), and
+// writes db unscaled and the tile's sum of G^2. With one block per tile the
+// grid is small where S > 1 (18 blocks at w3c's shape), so a block has
+// RA_THREADS threads and each keeps U elements' loads in flight before it
+// stores any (a store may alias a later element's load, so the compiler
+// would not hoist the loads itself).
+constexpr int RA_THREADS = 1024;
+template <typename WT>
+__global__ void __launch_bounds__(RA_THREADS)
+xent_reduce_apply_kernel(const float* __restrict__ scratch,
+                         float* __restrict__ db, int E, int d, int dp,
+                         long long sj, long long sk, int S, Update<WT> up) {
+  constexpr int U = 4;
+  __shared__ float red[RA_THREADS / 32];
+  const int j0 = blockIdx.x * TILE, Ep = gridDim.x * TILE;
+  const size_t slice = size_t(Ep) * dp;
   float sq = 0.0f;
-  for (int i = threadIdx.x; i < TILE * dp; i += THREADS) {
-    const int r = sk == 1 ? i / dp : i % TILE;
-    const int k = sk == 1 ? i % dp : i / TILE;
-    if (j0 + r >= E || k >= d) continue;
-    const long long at = (j0 + r) * sj + k * sk;
-    const float g = __fmul_rn(Acc[r * L.lda + k], gscale);
-    sq = __fadd_rn(sq, __fmul_rn(g, g));
-    float upd;
-    if (opt == ADAM) {
-      const float m2 = __fadd_rn(__fmul_rn(B1, to_f32(s1[at])),
-                                 __fmul_rn(B1C, g));
-      const float v2 = __fadd_rn(__fmul_rn(B2, to_f32(s2[at])),
-                                 __fmul_rn(__fmul_rn(B2C, g), g));
-      upd = __fdiv_rn(__fmul_rn(lr, __fdiv_rn(m2, bc1)),
-                      __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, bc2)), ADAM_EPS));
-      s1[at] = from_f32<WT>(m2);
-      s2[at] = from_f32<WT>(v2);
-    } else if (opt == ADAGRAD) {
-      const float a2 = __fadd_rn(to_f32(s1[at]), __fmul_rn(g, g));
-      upd = __fmul_rn(__fmul_rn(lr, g),
-                      a2 > 0.0f ? __frsqrt_rn(__fadd_rn(a2, ADAGRAD_EPS))
-                                : 0.0f);
-      s1[at] = from_f32<WT>(a2);
-    } else {
-      upd = __fmul_rn(lr, g);
-    }
-    W[at] = from_f32<WT>(__fsub_rn(to_f32(W[at]), upd));
-  }
-  // The tile's sum of G^2 in a fixed order: lanes, then warps in turn.
+  for (int i0 = threadIdx.x; i0 < TILE * dp; i0 += U * RA_THREADS) {
+    long long at[U];
+    float g[U];
+    Elem e[U];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    sq += __shfl_xor_sync(0xffffffffu, sq, off);
-  XVecs v(smem + L.vec);
-  if (threadIdx.x % 32 == 0) v.red[threadIdx.x / 32] = sq;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < WARPS; ++w) s += v.red[w];
-    gsq[blockIdx.x] = s;
+    for (int q = 0; q < U; ++q) {
+      const int i = i0 + q * RA_THREADS;
+      const int r = sk == 1 ? i / dp : i % TILE;
+      const int k = sk == 1 ? i % dp : i / TILE;
+      at[q] = -1;
+      float acc = 0.0f;
+      if (i < TILE * dp && j0 + r < E && k < d) {
+        const float* src = scratch + (sk == 1 ? size_t(j0 + r) * dp + k
+                                              : size_t(k) * Ep + j0 + r);
+        for (int s = 0; s < S; ++s) acc += src[s * slice];
+        at[q] = (j0 + r) * sj + k * sk;
+        e[q] = load_elem(up, at[q]);
+      }
+      g[q] = __fmul_rn(acc, up.gscale);
+    }
+#pragma unroll
+    for (int q = 0; q < U; ++q)
+      if (at[q] >= 0) sq = store_update(up, at[q], g[q], e[q], sq);
   }
-  if (threadIdx.x < TILE && j0 + threadIdx.x < E)
-    db[j0 + threadIdx.x] = col_sum;
+  const int t = threadIdx.x;
+  if (t < TILE && j0 + t < E) {
+    float acc = 0.0f;
+    for (int s = 0; s < S; ++s) acc += scratch[S * slice + s * Ep + j0 + t];
+    db[j0 + t] = acc;
+  }
+  const float total = block_sum<RA_THREADS / 32>(sq, red);
+  if (t == 0) up.gsq[blockIdx.x] = total;
 }
 
-// K6, second sweep: grid (batch tiles, entity chunks); each block writes
-// its rows' partial dpooled = p W over the chunk's entity tiles (unscaled).
-template <typename T, typename WT>
-__global__ void __launch_bounds__(THREADS)
-xent_bwd_dp_kernel(const T* __restrict__ P, const WT* __restrict__ W,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ lse, const int* __restrict__ lab,
-                   float* __restrict__ part, int B, int E, int d, int dp,
-                   long long sj, long long sk, int tiles_per_chunk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout<T> L(dp, true);
-  T* Ps_in = reinterpret_cast<T*>(smem + L.r);
-  T* Ws = reinterpret_cast<T*>(smem + L.c);
-  float* Zs = reinterpret_cast<float*>(smem + L.z);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L.p);
-  float* Acc = reinterpret_cast<float*>(smem + L.acc);
-  XVecs v(smem + L.vec);
-
-  const int b0 = blockIdx.x * TILE;
-  const int chunk = blockIdx.y;
-  const int n_tiles = (E + TILE - 1) / TILE;
-  const int t0 = chunk * tiles_per_chunk;
-  const int t1 = min(t0 + tiles_per_chunk, n_tiles);
-  stage(Ps_in, L.ldt, P, b0, B, dp);
-  stage_rows(v, lse, lab, b0, B);
-
-  for (int t = t0; t < t1; ++t) {
-    const int j0 = t * TILE;
-    __syncthreads();
-    stage_w(Ws, L.ldt, v, W, bias, j0, E, d, dp, sj, sk);  // zero past E
-    __syncthreads();
-    block_mm<false, true>(Ps_in, L.ldt, Ws, L.ldt, Zs, LDZ, TILE, dp, false);
-    __syncthreads();
-    xent_probs<T>(Zs, Ps, v, b0, B, j0, E);
-    __syncthreads();
-    block_mm<false, false>(p_tile<T>(Zs, Ps), p_ld<T>(), Ws, L.ldt, Acc,
-                           L.lda, dp, TILE, t > t0);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE * dp; i += THREADS) {
-    const int r = i / dp, c = i % dp;
-    if (b0 + r < B)
-      part[(size_t(chunk) * B + b0 + r) * dp + c] = Acc[r * L.lda + c];
-  }
-}
-
+// The dynamic shared memory of a sweep, and the carveout that holds two of
+// its blocks an SM.
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(
+cudaError_t prepare_sweep(K kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              int(cudaSharedmemCarveoutMaxShared));
 }
 
 template <typename T, typename WT>
@@ -831,20 +753,20 @@ int launch_fwd(const void* P, const void* W, const void* bias, void* m_out,
                void* s_out, int B, int E, int d, int dp, long long sj,
                long long sk, int tiles_per_chunk, int n_chunks,
                cudaStream_t stream) {
-  const size_t smem = Layout<T>(dp, false).total;
-  cudaError_t err = allow_smem(xent_fwd_kernel<T, WT>, smem);
+  const size_t smem = SweepLayout<T>::total;
+  auto k = xent_sweep_kernel<T, WT, FWD>;
+  const cudaError_t err = prepare_sweep(k, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((B + TILE - 1) / TILE, n_chunks);
-  xent_fwd_kernel<T, WT><<<grid, THREADS, smem, stream>>>(
+  k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
       static_cast<const T*>(P), static_cast<const WT*>(W),
-      static_cast<const float*>(bias), static_cast<float*>(m_out),
-      static_cast<float*>(s_out), B, E, d, dp, sj, sk, tiles_per_chunk);
+      static_cast<const float*>(bias), nullptr, nullptr, nullptr,
+      static_cast<float*>(m_out), static_cast<float*>(s_out), B, E, d, dp,
+      sj, sk, tiles_per_chunk, Update<WT>{});
   return int(cudaGetLastError());
 }
 
-// K6's launches: the dW sweep, the ordered reduce of its slices (S > 1),
-// then the dpooled sweep. Each sweep asks for the shared-memory carveout
-// that holds two of its blocks an SM.
+// K6's launches: the dW sweep, the ordered sum of its slices (S > 1), then
+// the dpooled sweep.
 template <typename T, typename WT>
 int launch_bwd(const void* P, const void* W, const void* bias,
                const void* lse, const void* lab, const void* g, void* dW,
@@ -853,14 +775,10 @@ int launch_bwd(const void* P, const void* W, const void* bias,
                int n_chunks, int btiles_per_slice, int n_slices,
                cudaStream_t stream) {
   const size_t smem = SweepLayout<T>::total;
-  auto dw_k = xent6_sweep_kernel<T, WT, true>;
-  auto dp_k = xent6_sweep_kernel<T, WT, false>;
+  auto dw_k = xent_sweep_kernel<T, WT, DW>;
+  auto dp_k = xent_sweep_kernel<T, WT, DPOOL>;
   for (auto k : {dw_k, dp_k}) {
-    cudaError_t err = allow_smem(k, smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          k, cudaFuncAttributePreferredSharedMemoryCarveout,
-          int(cudaSharedmemCarveoutMaxShared));
+    const cudaError_t err = prepare_sweep(k, smem);
     if (err != cudaSuccess) return int(err);
   }
   const T* p = static_cast<const T*>(P);
@@ -873,14 +791,15 @@ int launch_bwd(const void* P, const void* W, const void* bias,
   dw_k<<<dim3(n_etiles, n_slices), THREADS, smem, stream>>>(
       p, w, b, ls, lb, gp,
       static_cast<float*>(n_slices > 1 ? scratch : dW),
-      static_cast<float*>(db), B, E, d, dp, sj, sk, btiles_per_slice);
+      static_cast<float*>(db), B, E, d, dp, sj, sk, btiles_per_slice,
+      Update<WT>{});
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   if (n_slices > 1) {
     const size_t n = size_t(E) * d + E;
     const int blocks = int(std::min<size_t>((n + THREADS - 1) / THREADS,
                                             size_t(8) * 132));
-    xent6_reduce_kernel<<<blocks, THREADS, 0, stream>>>(
+    xent_reduce_kernel<<<blocks, THREADS, 0, stream>>>(
         static_cast<const float*>(scratch), gp, static_cast<float*>(dW),
         static_cast<float*>(db), E, d, dp, sk, n_slices);
     err = cudaGetLastError();
@@ -888,80 +807,84 @@ int launch_bwd(const void* P, const void* W, const void* bias,
   }
   dp_k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
       p, w, b, ls, lb, gp, static_cast<float*>(part), nullptr, B, E, d, dp,
-      sj, sk, tiles_per_chunk);
+      sj, sk, tiles_per_chunk, Update<WT>{});
   return int(cudaGetLastError());
 }
 
+// K7's launches: the dpooled sweep first (it reads W, which the update
+// overwrites), then the update sweep, then, with S > 1 slices, the ordered
+// sum of the slices that applies the update.
 template <typename T, typename WT>
 int launch_apply(const void* P, void* W, const void* bias, const void* lse,
                  const void* lab, void* s1, void* s2, void* db, void* part,
-                 void* gsq, int B, int E, int d, int dp, long long sj,
-                 long long sk, int tiles_per_chunk, int n_chunks, int opt,
+                 void* gsq, void* scratch, int B, int E, int d, int dp,
+                 long long sj, long long sk, int tiles_per_chunk,
+                 int n_chunks, int btiles_per_slice, int n_slices, int opt,
                  float lr, float gscale, float bc1, float bc2,
                  cudaStream_t stream) {
-  const size_t smem = Layout<T>(dp, true).total;
-  cudaError_t err = allow_smem(xent_bwd_dp_kernel<T, WT>, smem);
-  if (err != cudaSuccess) return int(err);
-  err = allow_smem(xent_bwd_apply_kernel<T, WT>, smem);
-  if (err != cudaSuccess) return int(err);
+  const size_t smem = SweepLayout<T>::total;
+  auto dp_k = xent_sweep_kernel<T, WT, DPOOL>;
+  auto up_k = xent_sweep_kernel<T, WT, UPDATE>;
+  for (auto k : {dp_k, up_k}) {
+    const cudaError_t err = prepare_sweep(k, smem);
+    if (err != cudaSuccess) return int(err);
+  }
   const T* p = static_cast<const T*>(P);
+  WT* w = static_cast<WT*>(W);
   const float* b = static_cast<const float*>(bias);
   const float* ls = static_cast<const float*>(lse);
   const int* lb = static_cast<const int*>(lab);
-  // The dpooled sweep first: it reads W, which the update sweep overwrites.
-  const dim3 grid((B + TILE - 1) / TILE, n_chunks);
-  xent_bwd_dp_kernel<T, WT><<<grid, THREADS, smem, stream>>>(
-      p, static_cast<const WT*>(W), b, ls, lb, static_cast<float*>(part), B,
-      E, d, dp, sj, sk, tiles_per_chunk);
-  err = cudaGetLastError();
+  const Update<WT> u{w, static_cast<WT*>(s1), static_cast<WT*>(s2),
+                     static_cast<float*>(gsq), opt, lr, gscale, bc1, bc2};
+  dp_k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
+      p, w, b, ls, lb, nullptr, static_cast<float*>(part), nullptr, B, E, d,
+      dp, sj, sk, tiles_per_chunk, Update<WT>{});
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  xent_bwd_apply_kernel<T, WT>
-      <<<(E + TILE - 1) / TILE, THREADS, smem, stream>>>(
-          p, static_cast<WT*>(W), b, ls, lb, static_cast<WT*>(s1),
-          static_cast<WT*>(s2), static_cast<float*>(db),
-          static_cast<float*>(gsq), B, E, d, dp, sj, sk, opt, lr, gscale,
-          bc1, bc2);
+  const int n_etiles = (E + TILE - 1) / TILE;
+  up_k<<<dim3(n_etiles, n_slices), THREADS, smem, stream>>>(
+      p, w, b, ls, lb, nullptr, static_cast<float*>(scratch),
+      static_cast<float*>(db), B, E, d, dp, sj, sk, btiles_per_slice, u);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_slices == 1) return int(err);
+  xent_reduce_apply_kernel<WT><<<n_etiles, RA_THREADS, 0, stream>>>(
+      static_cast<const float*>(scratch), static_cast<float*>(db), E, d, dp,
+      sj, sk, n_slices, u);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // P [B, dp] in the compute type (bf16 when `use_bf16` is nonzero, else
-// fp32), dp % 32 == 0 and <= 256, rows 16-byte aligned; W in its storage
-// type (bf16 when `w_bf16` is nonzero, else fp32) with W(j, k) at
-// W[j * sj + k * sk] for entities j < E and features k < d; bias [E] fp32.
-// K5 writes m_out / s_out [n_chunks, B]; chunk c covers entity tiles
-// [c * tiles_per_chunk, ...) of 64. The Python wrapper checks every shape
-// and type. Returns the cudaError_t.
+// fp32), dp a multiple of 128 bytes (32 fp32, 64 bf16) and <= 256, rows
+// 16-byte aligned, zero past d; W in its storage type (bf16 when `w_bf16` is
+// nonzero, else fp32) with W(j, k) at W[j * sj + k * sk] for entities j < E
+// and features k < d; bias [E] fp32. K5 writes m_out / s_out [n_chunks, B];
+// chunk c covers entity tiles [c * tiles_per_chunk, ...) of 64. The Python
+// wrapper checks every shape and type. Returns the cudaError_t.
 extern "C" int sert_xent_fwd(const void* P, const void* W, const void* bias,
                              void* m_out, void* s_out, int B, int E, int d,
                              int dp, long long sj, long long sk,
                              int tiles_per_chunk, int n_chunks, int use_bf16,
                              int w_bf16, void* stream) {
   const cudaStream_t st = cudaStream_t(stream);
-  if (use_bf16)
-    return w_bf16 ? launch_fwd<bf16, bf16>(P, W, bias, m_out, s_out, B, E, d,
-                                           dp, sj, sk, tiles_per_chunk,
-                                           n_chunks, st)
-                  : launch_fwd<bf16, float>(P, W, bias, m_out, s_out, B, E, d,
-                                            dp, sj, sk, tiles_per_chunk,
-                                            n_chunks, st);
-  return w_bf16 ? launch_fwd<float, bf16>(P, W, bias, m_out, s_out, B, E, d,
-                                          dp, sj, sk, tiles_per_chunk,
-                                          n_chunks, st)
-                : launch_fwd<float, float>(P, W, bias, m_out, s_out, B, E, d,
-                                           dp, sj, sk, tiles_per_chunk,
-                                           n_chunks, st);
+  auto go = [&](auto t, auto wt) {
+    return launch_fwd<decltype(t), decltype(wt)>(
+        P, W, bias, m_out, s_out, B, E, d, dp, sj, sk, tiles_per_chunk,
+        n_chunks, st);
+  };
+  if (use_bf16) return w_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.0f);
+  return w_bf16 ? go(0.0f, bf16()) : go(0.0f, 0.0f);
 }
 
 // K6: as K5, plus lse [B] fp32, labels [B] int32 (-1: no gold entity) and
 // g, one fp32 scalar on the device. Writes dW fp32 with W's shape and
 // strides, db [E] fp32 (both scaled by g) and the unscaled dpooled partials
 // part [n_chunks, Bp, dp] fp32 (Bp = B rounded up to 64), which the caller
-// sums over the chunk axis; dp is a multiple of 64 for bf16. The dW sweep
-// splits the batch tiles into n_slices slices of btiles_per_slice; with
-// more than one, `scratch` holds n_slices * Ep * (dp + 1) floats of
-// partials (Ep = E rounded up to 64), else it is unused.
+// sums over the chunk axis. The dW sweep splits the batch tiles into
+// n_slices slices of btiles_per_slice; with more than one, `scratch` holds
+// n_slices * Ep * (dp + 1) floats of partials (Ep = E rounded up to 64),
+// else it is unused.
 extern "C" int sert_xent_bwd(const void* P, const void* W, const void* bias,
                              const void* lse, const void* lab, const void* g,
                              void* dW, void* db, void* part, void* scratch,
@@ -986,22 +909,24 @@ extern "C" int sert_xent_bwd(const void* P, const void* W, const void* bias,
 // dW to the update's gradient (1 / B for the mean loss), bc1 and bc2 adam's
 // bias corrections 1 - 0.9^t and 1 - 0.999^t (fp32, t = count + 1).
 // Writes db [E] unscaled, the unscaled dpooled partials part
-// [n_chunks, B, dp] (summed by the caller) and gsq [ceil(E / 64)], each
-// entity tile's sum of (gscale * dW)^2.
+// [n_chunks, Bp, dp] (summed by the caller) and gsq [ceil(E / 64)], each
+// entity tile's sum of (gscale * dW)^2. The plans and `scratch` are K6's.
 extern "C" int sert_xent_bwd_apply(const void* P, void* W, const void* bias,
                                    const void* lse, const void* lab,
                                    void* s1, void* s2, void* db, void* part,
-                                   void* gsq, int B, int E, int d, int dp,
-                                   long long sj, long long sk,
-                                   int tiles_per_chunk, int n_chunks, int opt,
-                                   float lr, float gscale, float bc1,
+                                   void* gsq, void* scratch, int B, int E,
+                                   int d, int dp, long long sj, long long sk,
+                                   int tiles_per_chunk, int n_chunks,
+                                   int btiles_per_slice, int n_slices,
+                                   int opt, float lr, float gscale, float bc1,
                                    float bc2, int use_bf16, int w_bf16,
                                    void* stream) {
   const cudaStream_t st = cudaStream_t(stream);
   auto go = [&](auto t, auto wt) {
     return launch_apply<decltype(t), decltype(wt)>(
-        P, W, bias, lse, lab, s1, s2, db, part, gsq, B, E, d, dp, sj, sk,
-        tiles_per_chunk, n_chunks, opt, lr, gscale, bc1, bc2, st);
+        P, W, bias, lse, lab, s1, s2, db, part, gsq, scratch, B, E, d, dp,
+        sj, sk, tiles_per_chunk, n_chunks, btiles_per_slice, n_slices, opt,
+        lr, gscale, bc1, bc2, st);
   };
   if (use_bf16) return w_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.0f);
   return w_bf16 ? go(0.0f, bf16()) : go(0.0f, 0.0f);

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "sert_sampled_lse_bwd": [_P] * 10 + [_I] * 6 + [_P],
     "sert_xent_fwd": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 4 + [_P],
     "sert_xent_bwd": [_P] * 10 + [_I] * 4 + [_L] * 2 + [_I] * 6 + [_P],
-    "sert_xent_bwd_apply": ([_P] * 10 + [_I] * 4 + [_L] * 2 + [_I] * 3
+    "sert_xent_bwd_apply": ([_P] * 11 + [_I] * 4 + [_L] * 2 + [_I] * 5
                             + [_F] * 4 + [_I] * 2 + [_P]),
 }
 

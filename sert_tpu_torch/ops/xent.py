@@ -10,7 +10,8 @@
 log-linear ``proj_w``) or "ed" = [E, d] (the LSE ``entity_emb``). On CUDA
 tensors :func:`xent_loss` is a ``torch.autograd.Function`` whose forward
 launches K5 (per-chunk (max, sumexp), merged here) and whose backward
-launches K6 (dpooled, dW in W's layout, db); the [B, E] logits never reach
+launches K6 (dpooled, dW in W's layout, db): all of them modes of one sweep
+kernel, planned here from the shapes alone; the [B, E] logits never reach
 device memory, and W is read in place, in its own dtype, never copied or
 transposed. :func:`xent_lse` is the forward alone (the log-linear query
 normalizer). On CPU tensors both are their plain versions
@@ -21,19 +22,20 @@ fp32 sum of compute-dtype-rounded products, and p = softmax - onehot rounded
 to the compute dtype before the dW and dpooled products.
 
 :func:`xent_loss_apply` is the optimizer-in-backward step's loss: K5, then
-K7, which is K6 with adam, adagrad or sgd applied to W (and its optimizer
-slots) where K6 would store dW, so dW never reaches device memory; its
-plain version is :func:`xent_loss_apply_plain`.
+K7, which is K6's dpooled sweep and then its dW sweep with adam, adagrad
+or sgd applied to W (and its optimizer slots) where K6 would store dW (or,
+where the dW sweep is split over the batch, in the ordered sum of its
+slices), so dW never reaches device memory; its plain version is
+:func:`xent_loss_apply_plain`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from sert_tpu_torch.ops import _build
-from sert_tpu_torch.ops.sampled_lse import (DIM_MULTIPLE, MAX_DIM, _chunking,
+from sert_tpu_torch.ops.sampled_lse import (DIM_MULTIPLE, MAX_DIM,
                                             _compute_dtype, _operand,
                                             _operand_fp32, _RoundGrad)
 
@@ -91,9 +93,17 @@ def _check_layout(layout: str) -> None:
                          f"{layout!r}")
 
 
-def _check(pooled, W, b, labels, layout):
+def _sweep_width(d: int, ct: torch.dtype) -> int:
+    """d padded to the sweep's feature chunk, 128 bytes of a row: a multiple
+    of 32 for fp32 products, of 64 for bf16 ones."""
+    chunk = 128 // (torch.finfo(ct).bits // 8)
+    return -(-d // chunk) * chunk
+
+
+def _check(pooled, W, b, labels, layout, ct=torch.float32):
     """(B, E, d, dp, strides (sj, sk) of W(j, k)) after checking shapes,
-    devices, dtypes and the kernels' limits."""
+    devices, dtypes and the kernels' limits; dp is the width P is padded to
+    for compute dtype ``ct``."""
     _check_layout(layout)
     if pooled.dim() != 2 or W.dim() != 2:
         raise ValueError("xent: pooled [B, d] and W 2-D")
@@ -125,7 +135,7 @@ def _check(pooled, W, b, labels, layout):
     problem = kernel_limits(B, E, d)
     if problem:
         raise ValueError(f"xent: {problem}")
-    dp = -(-d // DIM_MULTIPLE) * DIM_MULTIPLE
+    dp = _sweep_width(d, ct)
     strides = (1, E) if layout == "de" else (d, 1)
     return B, E, d, dp, strides
 
@@ -143,14 +153,14 @@ def kernel_limits(B: int, E: int, d: int):
     return None
 
 
-# K6's sweeps hold two blocks an SM of an H100 (their shared memory and
-# registers); each splits its loop axis into parts so that the grid is at
-# most one round of such blocks.
+# The sweeps of K5, K6 and K7 hold two blocks an SM of an H100 (their
+# shared memory and registers); each splits its loop axis into parts so
+# that the grid is at most one round of such blocks.
 K6_BLOCKS = 2 * 132
 
 
 def _k6_split(n_fixed: int, n_loop: int):
-    """(tiles per part, parts) of a K6 sweep whose grid is n_fixed tiles x
+    """(tiles per part, parts) of a sweep whose grid is n_fixed tiles x
     parts of its n_loop looped tiles: as many parts as one round of
     K6_BLOCKS holds, at least one."""
     n = max(1, min(n_loop, K6_BLOCKS // n_fixed))
@@ -159,26 +169,48 @@ def _k6_split(n_fixed: int, n_loop: int):
 
 
 def _dw_splits(B: int, E: int):
-    """(batch tiles per slice, slices S) of K6's dW sweep, whose block
-    (entity tile, slice) sums its slice's batch tiles, the slices then
-    summed in order. A function of the shapes alone (never of the card or
-    of timing), so that a run and its resume take the same sums; S = 1
-    once the entity tiles alone fill the card."""
+    """(batch tiles per slice, slices S) of the dW sweep of K6 and K7,
+    whose block (entity tile, slice) sums its slice's batch tiles, the
+    slices then summed in order. A function of the shapes alone (never of
+    the card or of timing), so that a run and its resume take the same
+    sums; S = 1 once the entity tiles alone fill the card."""
     return _k6_split(-(-E // TILE), -(-B // TILE))
 
 
 def _dp_chunks(B: int, E: int):
-    """(entity tiles per chunk, chunks) of K6's dpooled sweep, whose block
-    (batch tile, chunk) writes one partial that the wrapper sums in
-    order."""
+    """(entity tiles per chunk, chunks) of K5 and of the dpooled sweep of
+    K6 and K7, whose block (batch tile, chunk) writes one partial that the
+    wrapper merges or sums in order."""
     return _k6_split(-(-B // TILE), -(-E // TILE))
 
 
+def _dw_scratch_numel(B: int, E: int, dp: int) -> int:
+    """fp32 values of the dW sweep's slice partials ([S, Ep, dp] in W's
+    layout, then [S, Ep]; Ep = E rounded up to 64), or 0 with one slice,
+    where the sweep writes dW or applies the update itself."""
+    S = _dw_splits(B, E)[1]
+    return S * -(-E // TILE) * TILE * (dp + 1) if S > 1 else 0
+
+
+def _backward_sweeps(B, E, dp, dev):
+    """The plans and buffers of the backward's two sweeps, K6's and K7's:
+    ((entity tiles per chunk, chunks) of the dpooled sweep, (batch tiles
+    per slice, slices) of the dW sweep, the dpooled partials [chunks, Bp,
+    dp] (Bp = B rounded up to 64), the dW sweep's scratch or None)."""
+    per, n_chunks = _dp_chunks(B, E)
+    part = torch.empty((n_chunks, -(-B // TILE) * TILE, dp),
+                       dtype=torch.float32, device=dev)
+    n = _dw_scratch_numel(B, E, dp)
+    scratch = (torch.empty((n,), dtype=torch.float32, device=dev) if n
+               else None)
+    return (per, n_chunks), _dw_splits(B, E), part, scratch
+
+
 def _fwd(P, W, b, B, E, d, dp, strides, ct):
-    """Launch K5 and merge its chunks: lse [B] fp32."""
+    """Launch K5 on P [B, dp] and merge its chunks: lse [B] fp32."""
     global fwd_launches
     dev = P.device
-    per, n_chunks = _chunking(B, E)
+    per, n_chunks = _dp_chunks(B, E)
     m = torch.empty((n_chunks, B), dtype=torch.float32, device=dev)
     s = torch.empty_like(m)
     with torch.cuda.device(dev):
@@ -201,8 +233,10 @@ def _cuda_only(pooled: torch.Tensor) -> None:
 
 def _loss_forward(pooled, W, b, labels, layout, ct):
     """K5 and the gold logit: (loss sum, the backward's operands (P, W, fp32
-    bias, int32 labels, lse [B]), geometry (B, E, d, dp, strides))."""
-    B, E, d, dp, strides = _check(pooled, W, b, labels, layout)
+    bias, int32 labels, lse [B]), geometry (B, E, d, dp, strides)). P is
+    padded here, once, to the sweeps' width dp, and K6 or K7 reads it as
+    it is."""
+    B, E, d, dp, strides = _check(pooled, W, b, labels, layout, ct)
     P = _operand(pooled.detach(), ct, dp)
     Wd = W.detach()
     bf = b.detach().float().contiguous()
@@ -235,22 +269,10 @@ class _XentLoss(torch.autograd.Function):
         ct, B, E, d, dp, strides, pooled_dtype, b_dtype = ctx.meta
         dev = P.device
         g = g.float().reshape(1).contiguous()
-        # K6 streams features in chunks of 128 bytes a row: 32 fp32 or 64
-        # bf16, so a bf16 P is zero-padded to a multiple of 64.
-        chunk = 128 // P.element_size()
-        if dp % chunk:
-            dp = -(-dp // chunk) * chunk
-            P = F.pad(P, (0, dp - P.shape[1]))
-        per, n_chunks = _dp_chunks(B, E)
-        bper, n_slices = _dw_splits(B, E)
+        (per, n_chunks), (bper, n_slices), part, scratch = _backward_sweeps(
+            B, E, dp, dev)
         dW = torch.empty(W.shape, dtype=torch.float32, device=dev)
         db = torch.empty((E,), dtype=torch.float32, device=dev)
-        part = torch.empty((n_chunks, -(-B // TILE) * TILE, dp),
-                           dtype=torch.float32, device=dev)
-        # The dW sweep's partials: [S, Ep, dp] in W's layout, then [S, Ep].
-        scratch = (torch.empty((n_slices * -(-E // TILE) * TILE * (dp + 1),),
-                               dtype=torch.float32, device=dev)
-                   if n_slices > 1 else None)
         with torch.cuda.device(dev):
             err = _build.kernel("sert_xent_bwd")(
                 P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
@@ -293,7 +315,7 @@ def xent_lse(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         return xent_lse_plain(pooled, W, b, layout, dtype)
     _cuda_only(pooled)
     ct = _compute_dtype(dtype)
-    B, E, d, dp, strides = _check(pooled, W, b, None, layout)
+    B, E, d, dp, strides = _check(pooled, W, b, None, layout, ct)
     return _fwd(_operand(pooled, ct, dp), W, b.float().contiguous(), B, E, d,
                 dp, strides, ct)
 
@@ -370,16 +392,18 @@ def xent_loss_apply_plain(pooled: torch.Tensor, W: torch.Tensor,
 
 
 def _bwd_apply(saved, geometry, slots, opt, lr, count, gscale, ct):
-    """Launch K7 on :func:`_loss_forward`'s operands and geometry: updates
-    W and the slots in place; returns (db * gscale, dpooled * gscale,
-    gsq)."""
+    """Launch K7 on :func:`_loss_forward`'s operands and geometry: K6's
+    dpooled sweep, then its dW sweep with the update in place of the dW
+    store (and, with S > 1 slices, the update in the ordered sum of the
+    slices), on K6's plans. Updates W and the slots in place; returns
+    (db * gscale, dpooled * gscale, gsq)."""
     global apply_launches
     P, W, bf, lab, lse = saved
     B, E, d, dp, strides = geometry
     dev = P.device
-    per, n_chunks = _chunking(B, E)
+    (per, n_chunks), (bper, n_slices), part, scratch = _backward_sweeps(
+        B, E, dp, dev)
     db = torch.empty((E,), dtype=torch.float32, device=dev)
-    part = torch.empty((n_chunks, B, dp), dtype=torch.float32, device=dev)
     gsq = torch.empty((-(-E // TILE),), dtype=torch.float32, device=dev)
     bc1, bc2 = _bias_corr(count) if opt == "adam" else (1.0, 1.0)
     s1, s2 = ([s.data_ptr() for s in slots] + [None, None])[:2]
@@ -387,13 +411,14 @@ def _bwd_apply(saved, geometry, slots, opt, lr, count, gscale, ct):
         err = _build.kernel("sert_xent_bwd_apply")(
             P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
             lab.data_ptr(), s1, s2, db.data_ptr(), part.data_ptr(),
-            gsq.data_ptr(), B, E, d, dp, strides[0], strides[1], per,
-            n_chunks, OPTIMIZERS.index(opt), lr, gscale, bc1, bc2,
+            gsq.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, E, d, dp, strides[0], strides[1], per, n_chunks, bper,
+            n_slices, OPTIMIZERS.index(opt), lr, gscale, bc1, bc2,
             int(ct == torch.bfloat16), int(W.dtype == torch.bfloat16),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "xent backward with the optimizer update (K7)")
     apply_launches += 1
-    return db * gscale, part.sum(dim=0)[:, :d] * gscale, torch.sum(gsq)
+    return (db * gscale, part.sum(dim=0)[:B, :d] * gscale, torch.sum(gsq))
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
 """The port's "auto" switches against the kernels' own limits, and the shape
-plan of K6's split dW sweep, on the CPU.
+plans of the sweeps of K5, K6 and K7 (with what each launch is given), on
+the CPU.
 
 "auto" takes a kernel on a CUDA device only where the kernel takes the
 shapes, decided from the shapes before any launch; past them it takes the
@@ -12,6 +13,9 @@ reference's Pallas kernel in interpret mode, with test_torch_xent.py's
 tolerances.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 
@@ -22,7 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from sert_tpu.ops.xent import xent_loss as ref_xent_loss  # noqa: E402
 from sert_tpu_torch.models.common import use_fused  # noqa: E402
-from sert_tpu_torch.ops import xent  # noqa: E402
+from sert_tpu_torch.ops import _build, xent  # noqa: E402
 from sert_tpu_torch.scoring.run import resolve_engine  # noqa: E402
 from sert_tpu_torch.scoring.scorer import normalizer_engine  # noqa: E402
 from sert_tpu_torch.utils.config import ModelConfig, ScoreConfig  # noqa: E402
@@ -118,6 +122,111 @@ def test_dp_chunks_cover_every_entity_tile_once(B, E):
                for t in range(c * per, min((c + 1) * per, n_etiles))]
     assert covered == list(range(n_etiles))
     assert all(c * per < n_etiles for c in range(chunks))
+
+
+# chip_smoke.py's K5 / K7 shapes (B, E, d) and the dW sweep's slices there.
+SMOKE_SHAPES = {"w3c": (1024, 1100, 128, 8),
+                "w3c_ragged": (1000, 1100, 128, 8),
+                "cerc": (1024, 3500, 256, 4),
+                "ll_500k": (1024, 500_000, 256, 1),
+                "lse_full_128k": (4096, 131072, 128, 1),
+                "lse_full_tail": (4096, 131071, 128, 1),
+                "lse_full_1m": (4096, 1_000_000, 128, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SMOKE_SHAPES))
+def test_dw_scratch_holds_the_slices_partials_or_nothing(name, dtype):
+    B, E, d, slices = SMOKE_SHAPES[name]
+    dp = xent._sweep_width(d, dtype)
+    assert dp == d                    # the smoke's widths need no padding
+    assert xent._dw_splits(B, E)[1] == slices
+    n = xent._dw_scratch_numel(B, E, dp)
+    if slices > 1:
+        assert n == slices * -(-E // 64) * 64 * (dp + 1)
+    else:
+        assert n == 0 and xent._backward_sweeps(B, E, dp, CPU)[3] is None
+
+
+@pytest.mark.parametrize("d,dtype,dp", [(24, torch.float32, 32),
+                                        (24, torch.bfloat16, 64),
+                                        (96, torch.bfloat16, 128),
+                                        (256, torch.bfloat16, 256)])
+def test_sweep_width_is_whole_128_byte_chunks(d, dtype, dp):
+    assert xent._sweep_width(d, dtype) == dp
+    assert dp * torch.finfo(dtype).bits // 8 % 128 == 0
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """The kernels' entry points replaced by recorders that check the
+    argument count against the C signature: [(name, args)] of each call.
+    What the launches are given is a function of the shapes alone, so it
+    is checked here, on CPU tensors, without a card."""
+    calls = []
+
+    def kernel(name):
+        def launch(*args):
+            assert len(args) == len(_build._SIGNATURES[name]), name
+            calls.append((name, args))
+            return 0
+        return launch
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(_build, "check", lambda err, what: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+# (B, E, d, layout, dtype): the dW sweep split (8 slices) and whole (one
+# slice, a one-entity tail tile), bf16 widths padded to 64.
+WIRING = [(1000, 1100, 24, "de", "float32"), (300, 9001, 40, "ed", "bfloat16"),
+          (64, 130, 96, "de", "bfloat16"), (1024, 3500, 256, "de", "float32")]
+
+
+@pytest.mark.parametrize("B,E,d,layout,dtype", WIRING)
+def test_each_sweep_takes_its_plan(launches, B, E, d, layout, dtype):
+    """K5's grid is _dp_chunks; K6's and K7's dpooled sweeps the same plan,
+    their dW sweeps _dw_splits with scratch only where S > 1; every launch
+    reads the one P padded in the forward; at most one round of
+    K6_BLOCKS a sweep."""
+    rng = np.random.default_rng(0)
+    ct = xent._compute_dtype(dtype)
+    pooled = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32))
+    W = torch.from_numpy(rng.normal(size=(d, E) if layout == "de"
+                                    else (E, d)).astype(np.float32))
+    b = torch.zeros(E)
+    labels = torch.from_numpy(rng.integers(0, E, size=B))
+    per, chunks = xent._dp_chunks(B, E)
+    bper, slices = xent._dw_splits(B, E)
+    n_bt, n_et = -(-B // 64), -(-E // 64)
+    assert n_bt * chunks <= max(n_bt, xent.K6_BLOCKS)
+    assert n_et * slices <= max(n_et, xent.K6_BLOCKS)
+    dp = xent._sweep_width(d, ct)
+
+    p = pooled.clone().requires_grad_(True)
+    loss = xent._XentLoss.apply(p, W, b, labels, layout, dtype)
+    torch.autograd.grad(loss, [p])
+    _, saved, geometry = xent._loss_forward(pooled, W, b, labels, layout, ct)
+    assert saved[0].shape == (B, dp) and geometry[3] == dp
+    slots = [torch.zeros_like(W), torch.zeros_like(W)]
+    xent._bwd_apply(saved, geometry, slots, "adam", 1e-3, 0, 1.0 / B, ct)
+
+    names = [n for n, _ in launches]
+    assert names == ["sert_xent_fwd", "sert_xent_bwd", "sert_xent_fwd",
+                     "sert_xent_bwd_apply"]
+    fwd, bwd, _, apply = (a for _, a in launches)
+    assert fwd[5:9] == (B, E, d, dp) and fwd[11:13] == (per, chunks)
+    assert bwd[10:14] == (B, E, d, dp)
+    assert bwd[16:20] == (per, chunks, bper, slices)
+    assert (bwd[9] is None) == (slices == 1)
+    assert apply[11:15] == (B, E, d, dp)
+    assert apply[17:21] == (per, chunks, bper, slices)
+    assert (apply[10] is None) == (slices == 1)
+    assert apply[5] is not None and apply[6] is not None   # adam's m, v
 
 
 @pytest.mark.parametrize("layout", ["de", "ed"])

@@ -328,6 +328,26 @@ class TestXentOnCard:
         b = _xent_run(xent.xent_loss, *x, "de", "float32")
         assert all(torch.equal(u, v) for u, v in zip(a, b))
 
+    # K5 alone: at its most chunks (one entity tile a chunk, the last one
+    # entity wide), at the log-linear normalizer's 64 x 16 query rows, and
+    # at d = 24 in bf16, whose P is zero-padded to the sweep's 64.
+    @pytest.mark.parametrize("B,E,d,layout,dtype,chunks", [
+        (64, 16001, 128, "ed", "float32", 251),
+        (1024, 3500, 256, "de", "float32", 14),
+        (100, 777, 24, "de", "bfloat16", 13),
+        (100, 777, 24, "ed", "bfloat16", 13)])
+    def test_forward_matches_plain(self, cuda, B, E, d, layout, dtype,
+                                   chunks):
+        assert xent._dp_chunks(B, E)[1] == chunks
+        pooled, W, b, _ = _xent_inputs(cuda, B, E, d, layout)
+        n = xent.fwd_launches
+        got = xent.xent_lse(pooled, W, b, layout, dtype)
+        assert xent.fwd_launches == n + 1
+        want = xent.xent_lse_plain(pooled, W, b, layout, dtype)
+        assert got.shape == want.shape == (B,)
+        err = (got - want).abs().max().item()
+        assert err <= XENT_SUM_RTOL * want.abs().max().item()
+
     def test_wrapper_refuses_what_the_kernels_do_not_take(self, cuda):
         pooled, W, b, labels = _xent_inputs(cuda, 8, 16, 16, "ed")
         with pytest.raises(ValueError, match="d <= 256"):
@@ -418,6 +438,58 @@ class TestXentApplyOnCard:
         a = _apply_run(xent.xent_loss_apply, x, "adam", "de", "bfloat16")
         b = _apply_run(xent.xent_loss_apply, x, "adam", "de", "bfloat16")
         assert all(torch.equal(a[k], b[k]) for k in a)
+
+    # The update sweep split over the batch (ops.xent._dw_splits: S > 1,
+    # the update in the ordered sum of the slices) and whole (S = 1, the
+    # update in the sweep's epilogue, here with a one-entity tail tile).
+    @pytest.mark.parametrize("opt", ["adam", "adagrad", "sgd"])
+    @pytest.mark.parametrize("B,E,d,layout,dtype,slices", [
+        (1024, 1100, 128, "de", "float32", 8),
+        (1024, 1100, 128, "ed", "bfloat16", 8),
+        (1024, 3500, 256, "de", "float32", 4),
+        (4096, 131071, 128, "ed", "bfloat16", 1)])
+    def test_slices_match_plain(self, cuda, B, E, d, layout, dtype, slices,
+                                opt):
+        assert xent._dw_splits(B, E)[1] == slices
+        x = _apply_inputs(cuda, B, E, d, layout, opt)
+        got = _apply_run(xent.xent_loss_apply, x, opt, layout, dtype)
+        want = _apply_run(xent.xent_loss_apply_plain, x, opt, layout, dtype)
+        _check_apply(got, want, dtype)
+
+    @pytest.mark.parametrize("B,E,d,layout,dtype", [
+        (1024, 3500, 256, "de", "float32"),       # 4 slices
+        (4096, 131071, 128, "ed", "bfloat16")])   # one slice
+    def test_two_calls_are_bit_equal(self, cuda, B, E, d, layout, dtype):
+        x = _apply_inputs(cuda, B, E, d, layout, "adam")
+        a = _apply_run(xent.xent_loss_apply, x, "adam", layout, dtype)
+        b = _apply_run(xent.xent_loss_apply, x, "adam", layout, dtype)
+        assert set(a) == {"loss", "gsq", "db", "dpooled", "W", "m", "v"}
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+    def test_fused_step_launches_k5_and_k7_only(self, cuda):
+        from sert_tpu_torch.train.step import init_state, make_train_step
+        from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
+        B, E, n = 256, 1100, 3
+        mcfg = ModelConfig(model="loglinear", vocab_size=500, num_entities=E,
+                           word_dim=128, entity_dim=128, fused_softmax="on")
+        tcfg = TrainConfig(optimizer="adam", batch_size=B,
+                           learning_rate=1e-3, fused_update="on")
+        state = init_state(0, mcfg, tcfg, device="cuda")
+        step = make_train_step(mcfg, tcfg, device="cuda")
+        g = torch.Generator(device=cuda).manual_seed(0)
+        before = (xent.fwd_launches, xent.bwd_launches, xent.apply_launches)
+        for _ in range(n):
+            batch = {"windows": torch.randint(1, 500, (B, 8), generator=g,
+                                              device=cuda).int(),
+                     "lengths": torch.full((B,), 8, dtype=torch.int32,
+                                           device=cuda),
+                     "entities": torch.randint(0, E, (B,), generator=g,
+                                               device=cuda).int()}
+            state, m = step(state, batch)
+        assert torch.isfinite(m["loss"]).item()
+        assert (xent.fwd_launches, xent.bwd_launches,
+                xent.apply_launches) == (before[0] + n, before[1],
+                                         before[2] + n)
 
     def test_wrapper_refuses_what_the_kernel_does_not_take(self, cuda):
         pooled, W, b, labels, tree = _apply_inputs(cuda, 8, 16, 16, "ed",

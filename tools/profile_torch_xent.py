@@ -1,17 +1,29 @@
 #!/usr/bin/env python3
-"""Device time by kernel of the full-softmax backward (K6) and of its plain
-version, at chip_smoke.py's xent shapes, on one card.
+"""Device time by kernel of the full-softmax kernels (K5 forward, K6
+backward, K7 backward with the optimizer update) and of their plain
+versions, at chip_smoke.py's xent shapes, on one card.
 
-    python tools/profile_torch_xent.py [--cases cerc w3c ...] [--calls 20]
+    python tools/profile_torch_xent.py [--kernel fwd|bwd|apply]
+        [--cases cerc w3c ...] [--opt adam] [--calls 20]
 
-For each case, seeded inputs on the card (chip_smoke's ``_xent_case``), one
-forward, three warm-up backward calls, then ``--calls`` backward calls
-under ``torch.profiler``: the device time of each kernel per call (K6's dW
-sweep, the reduce of its slices, its dpooled sweep, the wrapper's sum of
-the dpooled partials), and of the plain version's kernels (autograd of
-``xent_loss_plain``, TF32 off) where its [B, E] logits fit. Unlike the
-smoke's CUDA-event times these leave out the host's launch work. Prints
-one line per kernel and one JSON object as its last line. Needs a CUDA
+For each case, seeded inputs on the card (chip_smoke's ``_xent_case``, and
+``_apply_case`` for K7), three warm-up calls, then ``--calls`` calls under
+``torch.profiler``: the device time of each kernel per call, and of the
+plain version's kernels (TF32 off) where its [B, E] logits fit; then the
+CUDA-event time of ``--calls`` more calls without the profiler, host work
+included, as chip_smoke.py times them.
+- ``fwd``: the forward of ``xent_loss`` (K5's sweep, the merge of its
+  chunks and the gold logit) against ``xent_loss_plain``'s;
+- ``bwd``: the backward of ``xent_loss`` (K6's dW sweep, the sum of its
+  slices, its dpooled sweep, the wrapper's sum of the dpooled partials)
+  against autograd of ``xent_loss_plain``;
+- ``apply``: K7 alone on K5's outputs (its dpooled sweep, its update
+  sweep, the sum of its slices with the update, the wrapper's sums), W and
+  the slots updated in place, against autograd of the plain loss and the
+  plain update.
+The device times leave out the host's launch work, which the event times
+hold; on a host slow to launch, small shapes are host-bound. Prints one
+line per kernel and one JSON object as its last line. Needs a CUDA
 device.
 """
 
@@ -29,15 +41,26 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-CASES = {   # name: (B, E, d, layout, dtype), as chip_smoke.phase_xent_kernels
+CASES = {   # name: (B, E, d, layout, dtype), as chip_smoke's xent phases
     "cerc": (1024, 3500, 256, "de", "float32"),
+    "w3c": (1024, 1100, 128, "de", "float32"),
     "w3c_ragged": (1000, 1100, 128, "de", "float32"),
     "cerc_bf16": (1024, 3500, 256, "de", "bfloat16"),
     "split_max": (4096, 300, 256, "de", "float32"),
+    "ll_500k": (1024, 500_000, 256, "de", "bfloat16"),
     "lse_full_128k": (4096, 131072, 128, "ed", "bfloat16"),
+    "lse_full_tail": (4096, 131071, 128, "ed", "bfloat16"),
     "lse_full_flagship": (4096, 1_000_000, 128, "ed", "bfloat16"),
 }
+DEFAULT_CASES = {
+    "fwd": ["cerc", "w3c_ragged", "cerc_bf16", "lse_full_128k",
+            "lse_full_flagship"],
+    "bwd": ["cerc", "w3c_ragged", "cerc_bf16", "split_max", "lse_full_128k",
+            "lse_full_flagship"],
+    "apply": ["w3c", "cerc", "ll_500k", "lse_full_128k", "lse_full_tail"],
+}
 PLAIN_MAX_LOGITS = 1 << 30     # [B, E] fp32 entries the plain version may hold
+APPLY_LR, APPLY_COUNT = 1e-2, 3
 
 
 def device_ms(fn, calls: int) -> dict:
@@ -56,43 +79,92 @@ def device_ms(fn, calls: int) -> dict:
     return {k: v / calls for k, v in sorted(by.items(), key=lambda t: -t[1])}
 
 
+def calls_of(kernel: str, name: str, opt: str, with_plain: bool):
+    """[(label, fn)] of the kernel's call and, with ``with_plain``, its
+    plain version's, on the case's seeded inputs."""
+    import chip_smoke
+    from sert_tpu_torch.ops import xent
+    from sert_tpu_torch.ops.sampled_lse import _compute_dtype
+    B, E, d, layout, dtype = CASES[name]
+    if kernel == "fwd":
+        x = chip_smoke._xent_case(B, E, d, layout, 1)
+        out = []
+        for label, fn in [("kernel", xent.xent_loss),
+                          ("plain", xent.xent_loss_plain)][:1 + with_plain]:
+            out.append((label, torch.no_grad()(
+                lambda fn=fn: fn(*x, layout, dtype))))
+        return out
+    if kernel == "bwd":
+        x = chip_smoke._xent_case(B, E, d, layout, 1)
+        out = []
+        for label, fn in [("kernel", xent.xent_loss),
+                          ("plain", xent.xent_loss_plain)][:1 + with_plain]:
+            p, w, bb = (t.clone().requires_grad_(True) for t in x[:3])
+            loss = fn(p, w, bb, x[3], layout, dtype)
+            out.append((label, lambda loss=loss, args=(p, w, bb):
+                        torch.autograd.grad(loss, list(args),
+                                            retain_graph=True)))
+        return out
+    pooled, W, b, labels, slots = chip_smoke._apply_case(
+        B, E, d, layout, opt, 1, torch.float32)
+    ct = _compute_dtype(dtype)
+    kw = dict(opt=opt, lr=APPLY_LR, count=APPLY_COUNT, gscale=1.0 / B)
+    ordered = [slots[k] for k in xent.SLOTS[opt]]
+    with torch.no_grad():
+        _, saved, geometry = xent._loss_forward(pooled, W, b, labels, layout,
+                                                ct)
+    out = [("kernel", lambda: xent._bwd_apply(saved, geometry, ordered,
+                                              ct=ct, **kw))]
+    if with_plain:
+        Wp, plain_slots = W.clone(), [s.clone() for s in ordered]
+        p, w, bb = (t.detach().float().clone().requires_grad_(True)
+                    for t in (pooled, W, b))
+        loss = xent.xent_loss_plain(p, w, bb, labels, layout, dtype)
+
+        def plain():
+            dW = torch.autograd.grad(loss, [p, w, bb], retain_graph=True)[1]
+            with torch.no_grad():
+                xent._update_plain(Wp, plain_slots, dW, **kw)
+
+        out.append(("plain", plain))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cases", nargs="*", default=list(CASES))
+    ap.add_argument("--kernel", choices=sorted(DEFAULT_CASES), default="bwd")
+    ap.add_argument("--cases", nargs="*", choices=sorted(CASES))
+    ap.add_argument("--opt", default="adam", choices=["adam", "adagrad",
+                                                      "sgd"])
     ap.add_argument("--calls", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_xent: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
-    from sert_tpu_torch.ops import xent
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi)
-    out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
-    for name in args.cases:
-        B, E, d, layout, dtype = CASES[name]
-        x = chip_smoke._xent_case(B, E, d, layout, 1)
-        fns = [("kernel", xent.xent_loss)]
-        if B * E <= PLAIN_MAX_LOGITS:
-            fns.append(("plain", xent.xent_loss_plain))
-        for label, fn in fns:
-            p, w, b = (t.clone().requires_grad_(True) for t in x[:3])
-            loss = fn(p, w, b, x[3], layout, dtype)
-            calls = args.calls if E <= 200_000 else max(2, args.calls // 10)
-            ms = device_ms(lambda: torch.autograd.grad(
-                loss, [p, w, b], retain_graph=True), calls)
+    out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "kernel": args.kernel, "opt": args.opt}
+    for name in args.cases or DEFAULT_CASES[args.kernel]:
+        B, E = CASES[name][:2]
+        calls = args.calls if E <= 200_000 else max(2, args.calls // 10)
+        for label, fn in calls_of(args.kernel, name, args.opt,
+                                  B * E <= PLAIN_MAX_LOGITS):
+            ms = device_ms(fn, calls)
             total = sum(ms.values())
-            print(f"{name} {label} device_ms_per_backward={total:.4f}")
+            event = chip_smoke.cuda_ms(fn, iters=calls, warmup=1)
+            print(f"{args.kernel} {name} {label} device_ms_per_call="
+                  f"{total:.4f} event_ms_per_call={event:.4f}")
             for k, v in list(ms.items())[:6]:
                 print(f"    {v:.4f}  {k[:90]}")
-            out[f"{name}/{label}"] = {"total_ms": total,
+            out[f"{name}/{label}"] = {"total_ms": total, "event_ms": event,
                                       "by_kernel": [[k[:90], v] for k, v
                                                     in list(ms.items())[:6]]}
-            del loss, p, w, b
-        del x
+            del fn
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
