@@ -12,9 +12,13 @@ Phases (each prints one line or more; any failure exits non-zero):
   4. train_kernels: K1 (the masked-LSE forward) and K2 (its backward)
      against sampled_lse_plain + autograd on the same inputs, at the
      flagship's B=4096, k=32768, d=128 in bf16 and fp32, at a ragged
-     k=32767 and a small k=1024, with accidental hits, and a case with an
-     all-masked row; errors of lse, dreps, dC and dcorr with their
-     tolerances, CUDA-event times of kernel and plain;
+     k=32767 and a small k=1024, at the amazon_* recipes' k=256 shapes
+     (B=4096, d=256, bf16; B=1024, d=128, fp32), at k=100 (the dC sweep's
+     most batch slices), with accidental hits, and a case with an
+     all-masked row; each case's sweep plan (chunks, slices, blocks), two
+     K2 calls bit for bit at the flagship and at k=100, errors of lse,
+     dreps, dC and dcorr with their tolerances, CUDA-event times of kernel
+     and plain;
   5. serve: a random-weight synthetic_1m_retrieval checkpoint at full width
      (V=250k, E=1M) behind the port's EntitySearcher: one search, then
      200 queries; recall against an fp32 dense oracle and score agreement.
@@ -86,10 +90,11 @@ Phases (each prints one line or more; any failure exits non-zero):
      in turns: ms per micro-step, peak memory, and the two modes' losses
      within 1e-4 of each other.
 Then one JSON line of kernel records (with each one's bound: the larger of
-its operations over the H100's peak rate for their type and its bytes over
-3.35 TB/s; fp32 products of K5-K7 run as 3xTF32 on the tensor cores, and
-their CUDA-core bound is kept beside), and the device record as the last
-line.
+its operations over the H100's peak rate for their type, K1/K2's also
+their exponentials over the special-function units' rate, and its bytes
+over 3.35 TB/s; fp32 products of K5-K7 run as 3xTF32 on the tensor cores,
+and their CUDA-core bound is kept beside), and the device record as the
+last line.
 
 Imports nothing of JAX and nothing of the JAX package by name; only
 `sert_tpu_torch`. Exits 1 without a CUDA device.
@@ -156,6 +161,10 @@ AB_STEPS_PER_CALL, AB_CALLS = 8, 3
 # as K5-K7 run them) and its memory rate, for each kernel's bound.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
+# Exponentials a second: 16 special-function-unit results a clock on each
+# of the 132 SMs (Hopper architecture white paper: four SFUs in each of an
+# SM's four partitions) at the 1.98 GHz boost clock.
+EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def say(phase: str, **kw) -> None:
@@ -179,11 +188,12 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound(flops: float, moved: float, dtype: str) -> dict:
+def bound(flops: float, moved: float, dtype: str, exps: float = 0) -> dict:
     """The least time the card could take for the work: the larger of the
-    operations over the peak rate of their type and the bytes moved over
-    the memory rate; and which of the two it is."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    operations over the peak rate of their type (and ``exps``
+    exponentials over the special-function units' rate) and the bytes
+    moved over the memory rate; and which of the two it is."""
+    t_ops = max(flops / PEAK_FLOPS[dtype], exps / EXP_PER_S) * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     if t_ops >= t_bytes:
         return dict(bound_ms=t_ops, bound_by="operations")
@@ -288,15 +298,15 @@ def phase_kernels() -> dict:
     return records
 
 
-def _slse_case(B, k, dtype, seed, all_masked=False):
+def _slse_case(B, k, dtype, seed, all_masked=False, d=D):
     """Seeded inputs on the card: tanh reps, N(0, 1/d) candidates scaled
     up, -log(k q) corrections, and ids with accidental hits (or, with
     ``all_masked``, every candidate id equal to row 0's positive)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    reps = torch.tanh(torch.randn(B, D, generator=g, device=dev))
-    cand = torch.randn(k, D, generator=g, device=dev) * (2.0 / D ** 0.5)
+    reps = torch.tanh(torch.randn(B, d, generator=g, device=dev))
+    cand = torch.randn(k, d, generator=g, device=dev) * (2.0 / d ** 0.5)
     corr = (torch.log(torch.tensor(float(k), device=dev))
             + 0.5 * torch.randn(k, generator=g, device=dev))
     pos = torch.randint(0, E, (B,), generator=g, device=dev)
@@ -312,6 +322,35 @@ def _slse_case(B, k, dtype, seed, all_masked=False):
     return reps, cand, corr, ids, pos, s_pos
 
 
+def _slse_plan_text(B, k, d, dtype) -> str:
+    """A case's sweep plan (ops.sampled_lse._plan) in one word."""
+    from sert_tpu_torch.ops import sampled_lse as slse
+    fwd, dc = slse._plan(B, k, d, dtype)
+    return (f"fwd/dreps:{fwd.n_x}x{fwd.parts}chunks_of_{fwd.per}x"
+            f"{fwd.y_rows}rows={fwd.blocks}blocks,"
+            f"dc:{dc.n_x}x{dc.parts}slices_of_{dc.per}x{dc.y_rows}rows="
+            f"{dc.blocks}blocks")
+
+
+# K1/K2's cases: (label, B, k, d, dtype, all-masked row, two K2 calls held
+# bit for bit). The flagship in both dtypes, a ragged k, a small k, the
+# amazon_* recipes' k = 256 shapes (home_kitchen: d = 256, bf16;
+# musical_instruments: B = 1024, fp32), the dC sweep at its most batch
+# slices (k under one candidate tile: one batch tile a slice), and an
+# all-masked row.
+SLSE_CASES = [("flagship", B_TRAIN, K_NEG, D, "bfloat16", False, True),
+              ("flagship", B_TRAIN, K_NEG, D, "float32", False, False),
+              ("ragged", B_TRAIN, K_NEG - 1, D, "bfloat16", False, False),
+              ("small_k", B_TRAIN, 1024, D, "bfloat16", False, False),
+              ("small_k", B_TRAIN, 1024, D, "float32", False, False),
+              ("amazon_home_kitchen", 4096, 256, 256, "bfloat16", False,
+               False),
+              ("amazon_musical_instruments", 1024, 256, D, "float32", False,
+               False),
+              ("dc_slices_max", B_TRAIN, 100, D, "bfloat16", False, True),
+              ("all_masked", 256, 1024, D, "bfloat16", True, False)]
+
+
 def phase_train_kernels() -> dict:
     """K1 and K2 against sampled_lse_plain + autograd on the same inputs.
     Returns the kernel records of the flagship bf16 case (the training
@@ -319,12 +358,6 @@ def phase_train_kernels() -> dict:
     import torch
     import torch.nn.functional as F
     from sert_tpu_torch.ops import sampled_lse as slse
-    cases = [("flagship", B_TRAIN, K_NEG, "bfloat16", False),
-             ("flagship", B_TRAIN, K_NEG, "float32", False),
-             ("ragged", B_TRAIN, K_NEG - 1, "bfloat16", False),
-             ("small_k", B_TRAIN, 1024, "bfloat16", False),
-             ("small_k", B_TRAIN, 1024, "float32", False),
-             ("all_masked", 256, 1024, "bfloat16", True)]
     src = "sert_tpu_torch/csrc/sampled_lse.cu"
     records = {
         "sampled_lse_fwd": dict(name="sampled_lse_fwd", route="cuda",
@@ -337,9 +370,11 @@ def phase_train_kernels() -> dict:
                                 replaces="sert_tpu/ops/sampled_lse.py:89",
                                 launches=0, max_abs_err=0.0,
                                 library_ms=None)}
-    for i, (label, B, k, dtype, masked) in enumerate(cases):
+    for i, (label, B, k, d, dtype, masked, twice) in enumerate(SLSE_CASES):
         reps, cand, corr, ids, pos, s_pos = _slse_case(B, k, dtype, i,
-                                                       masked)
+                                                       masked, d)
+        say("train_kernels", case=label, B=B, k=k, d=d, dtype=dtype,
+            plan=_slse_plan_text(B, k, d, dtype))
         tol = SLSE_TOL[dtype]
         out = {}
         for name, fn in (("kernel", slse.sampled_lse),
@@ -351,6 +386,15 @@ def phase_train_kernels() -> dict:
             grads = torch.autograd.grad(loss, [r, c, co], retain_graph=True)
             out[name] = dict(lse=lse.detach(), dreps=grads[0],
                              dC=grads[1], dcorr=grads[2])
+            if name == "kernel" and twice:
+                again = torch.autograd.grad(loss, [r, c, co],
+                                            retain_graph=True)
+                same = all(torch.equal(a, b) for a, b in zip(grads, again))
+                say("train_kernels", case=label, dtype=dtype,
+                    two_backward_calls_bit_equal=same)
+                if not same:
+                    raise AssertionError(f"{label}: two K2 calls differ")
+                del again
             with torch.no_grad():
                 fwd_ms = cuda_ms(lambda: fn(reps, cand, corr, ids, pos,
                                             dtype), iters=5, warmup=1)
@@ -368,7 +412,7 @@ def phase_train_kernels() -> dict:
             err = (a - b).abs().max().item()
             limit = tol * b.abs().max().item()
             errs[key] = err
-            say("train_kernels", case=label, B=B, k=k, dtype=dtype,
+            say("train_kernels", case=label, B=B, k=k, d=d, dtype=dtype,
                 output=key, max_abs_err=err, tol=f"{tol}*max|plain|",
                 bound=limit)
             if err > limit:
@@ -380,7 +424,7 @@ def phase_train_kernels() -> dict:
                 raise AssertionError("the all-masked row's lse is not "
                                      "~-1e30 or its dreps is not exactly 0")
         k_, p_ = out["kernel"], out["plain"]
-        say("train_kernels", case=label, B=B, k=k, dtype=dtype,
+        say("train_kernels", case=label, B=B, k=k, d=d, dtype=dtype,
             fwd_ms=k_["fwd_ms"], fwd_plain_ms=p_["fwd_ms"],
             bwd_ms=k_["bwd_ms"], bwd_plain_ms=p_["bwd_ms"])
         fwd, bwd = records["sampled_lse_fwd"], records["sampled_lse_bwd"]
@@ -390,14 +434,18 @@ def phase_train_kernels() -> dict:
         if i == 0:
             # One product of [B, d] by [d, k] a pass: K1 makes one, K2
             # three (z again, dC and dreps); inputs read once, outputs
-            # written once.
+            # written once. Each sweep also takes one exponential of every
+            # logit (K1 one sweep, K2 two), and those run on the SMs'
+            # special-function units, a floor of their own beside the
+            # tensor cores' (the larger of the two counts).
             ins = nbytes(reps, cand, corr, ids, pos)
             fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"],
-                       **bound(2 * B * k * D, ins + 4 * B, dtype))
+                       **bound(2 * B * k * d, ins + 4 * B, dtype,
+                               exps=B * k))
             bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"],
-                       **bound(6 * B * k * D,
+                       **bound(6 * B * k * d,
                                ins + 8 * B + nbytes(reps, cand, corr),
-                               dtype))
+                               dtype, exps=2 * B * k))
         del out
         torch.cuda.empty_cache()
     return records

@@ -12,19 +12,32 @@ card. Both round where the reference does: reps and candidates to the
 compute dtype, fp32 products, and the probabilities to the compute dtype
 before the dC and dreps products. A row whose every candidate is masked
 gives ~-1e30 (the softplus loss then has gradient exactly 0).
+
+The kernels are three modes of one warp-specialized sweep: a block keeps a
+resident tile of 128 rows (X) and streams the other operand's tiles (Y)
+through a TMA-fed ring. K1 and K2's dreps sweep take a batch tile of R as X
+and one chunk of C's tiles as Y; K2's dC sweep a candidate tile of C as X
+and one slice of R's batch tiles as Y. How the Y tiles split into chunks
+and slices is :func:`_plan`, from the shapes alone (so two calls give the
+same bits), chosen to fill the card's 132 SMs with one block each; the
+wrapper merges K1's chunks and sums K2's partials.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from sert_tpu_torch.ops import _build
 
-TILE = 64           # the kernels' batch and candidate tile
 DIM_MULTIPLE = 32   # the kernels' operand width multiple
 MAX_DIM = 256       # widest padded d whose tiles fit the shared memory
-TARGET_BLOCKS = 4 * 132   # ~4 blocks per SM of an H100
+X_ROWS = 128        # rows of a sweep's resident tile (two warpgroups of 64)
+SMS = 132           # SMs of an H100; a sweep holds one block on each
+BLOCK_FILL = 2      # a block's start-up (its resident tile, the ring's fill),
+                    # in Y tiles, as the plan weighs it
 MASKED = -1e30
 
 # Kernel launches since the last reset (chip_smoke.py shows the training
@@ -92,13 +105,62 @@ def sampled_lse_plain(reps: torch.Tensor, cand: torch.Tensor,
     return torch.logsumexp(z, dim=-1)
 
 
-def _chunking(B: int, k: int):
-    """(candidate tiles per chunk, chunks): enough (batch tile, chunk)
-    blocks to fill the card, and no more partials than that needs."""
-    n_btiles, n_ktiles = -(-B // TILE), -(-k // TILE)
-    n_chunks = max(1, min(n_ktiles, -(-TARGET_BLOCKS // n_btiles)))
-    per = -(-n_ktiles // n_chunks)
-    return per, -(-n_ktiles // per)
+def _width(dp: int) -> int:
+    """The kernels' width for a padded d: 64, 128 or 256 (TMA zero-fills
+    the columns between)."""
+    return 64 if dp <= 64 else 128 if dp <= 128 else 256
+
+
+def _ytile(ct: torch.dtype, dp: int) -> int:
+    """Rows of a streamed Y tile, as csrc/sampled_lse.cu's Geom sizes it:
+    narrower where the accumulator is wide, so that the registers and four
+    stages (three for fp32 at 256) fit."""
+    kw = _width(dp)
+    if ct == torch.bfloat16:
+        return 128 if kw <= 128 else 64
+    return 128 if kw <= 64 else 64 if kw <= 128 else 32
+
+
+class Sweep(NamedTuple):
+    """One sweep's plan: ``n_x`` resident tiles of 128 rows, ``n_y`` streamed
+    tiles of ``y_rows`` rows, split into ``parts`` runs of ``per`` tiles in
+    order (the last may be shorter). ``parts * n_x`` blocks."""
+    n_x: int
+    n_y: int
+    y_rows: int
+    per: int
+    parts: int
+
+    @property
+    def blocks(self) -> int:
+        return self.n_x * self.parts
+
+
+def _split(n_x: int, n_y: int, y_rows: int) -> Sweep:
+    """The fewest parts whose blocks finish soonest, each block one SM's
+    work in turn: rounds of SMS blocks times (tiles a block + its start-up).
+    """
+    best, best_cost = 1, None
+    for c in range(1, n_y + 1):
+        per = -(-n_y // c)
+        cost = -(-(n_x * c) // SMS) * (per + BLOCK_FILL)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    per = -(-n_y // best)
+    return Sweep(n_x, n_y, y_rows, per, -(-n_y // per))
+
+
+def _plan(B: int, k: int, d: int, dtype: str = "bfloat16"):
+    """(K1's and the dreps sweep's plan, the dC sweep's plan) for B rows, k
+    candidates and width d in ``dtype``, from the shapes alone. K1 / dreps:
+    batch tiles resident, candidate tiles in chunks; dC: candidate tiles
+    resident, batch tiles in slices (many where k is small: k = 256 leaves
+    two candidate tiles for 132 SMs)."""
+    dp = -(-d // DIM_MULTIPLE) * DIM_MULTIPLE
+    yr = _ytile(_compute_dtype(dtype), dp)
+    fwd = _split(-(-B // X_ROWS), -(-k // yr), yr)
+    dc = _split(-(-k // X_ROWS), -(-B // yr), yr)
+    return fwd, dc
 
 
 def _operand(x: torch.Tensor, ct: torch.dtype, dp: int) -> torch.Tensor:
@@ -149,6 +211,12 @@ def kernel_limits(B: int, k: int, d: int):
     return None
 
 
+def _sum_parts(part: torch.Tensor) -> torch.Tensor:
+    """A plan's partials summed over their first axis (a fixed-order
+    reduction, no atomics); one part is taken as it is."""
+    return part[0] if part.shape[0] == 1 else part.sum(dim=0)
+
+
 class _SampledLse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, reps, cand, corr, cand_ids, pos_ids, dtype):
@@ -161,47 +229,48 @@ class _SampledLse(torch.autograd.Function):
         co = corr.detach().float().contiguous()
         ids = cand_ids.to(torch.int32).contiguous()
         pos = pos_ids.to(torch.int32).contiguous()
-        per, n_chunks = _chunking(B, k)
-        m = torch.empty((n_chunks, B), dtype=torch.float32, device=dev)
+        fwd, dc = _plan(B, k, d, dtype)
+        m = torch.empty((fwd.parts, B), dtype=torch.float32, device=dev)
         s = torch.empty_like(m)
         with torch.cuda.device(dev):
             err = _build.kernel("sert_sampled_lse_fwd")(
                 R.data_ptr(), C.data_ptr(), co.data_ptr(), ids.data_ptr(),
-                pos.data_ptr(), m.data_ptr(), s.data_ptr(), B, k, dp, per,
-                n_chunks, int(ct == torch.bfloat16),
+                pos.data_ptr(), m.data_ptr(), s.data_ptr(), B, k, dp,
+                fwd.per, fwd.parts, fwd.y_rows, int(ct == torch.bfloat16),
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "sampled_lse forward (K1)")
         fwd_launches += 1
         M = m.amax(dim=0)
         lse = M + torch.log(torch.sum(s * torch.exp(m - M[None, :]), dim=0))
         ctx.save_for_backward(R, C, co, ids, pos, lse)
-        ctx.meta = (ct, d, dp, per, n_chunks, reps.dtype, cand.dtype)
+        ctx.meta = (ct, d, dp, fwd, dc, reps.dtype, cand.dtype)
         return lse
 
     @staticmethod
     def backward(ctx, g):
         global bwd_launches
         R, C, co, ids, pos, lse = ctx.saved_tensors
-        ct, d, dp, per, n_chunks, reps_dtype, cand_dtype = ctx.meta
+        ct, d, dp, fwd, dc, reps_dtype, cand_dtype = ctx.meta
         B, k = R.shape[0], C.shape[0]
         dev = R.device
         g = g.float().contiguous()
-        kp = -(-k // TILE) * TILE
-        dC = torch.empty((kp, dp), dtype=torch.float32, device=dev)
-        dcorr = torch.empty((kp,), dtype=torch.float32, device=dev)
-        part = torch.empty((n_chunks, B, dp), dtype=torch.float32, device=dev)
+        dC = torch.empty((dc.parts, k, dp), dtype=torch.float32, device=dev)
+        dcorr = torch.empty((dc.parts, k), dtype=torch.float32, device=dev)
+        dreps = torch.empty((fwd.parts, B, dp), dtype=torch.float32,
+                            device=dev)
         with torch.cuda.device(dev):
             err = _build.kernel("sert_sampled_lse_bwd")(
                 R.data_ptr(), C.data_ptr(), co.data_ptr(), ids.data_ptr(),
                 pos.data_ptr(), lse.data_ptr(), g.data_ptr(), dC.data_ptr(),
-                dcorr.data_ptr(), part.data_ptr(), B, k, dp, per, n_chunks,
+                dcorr.data_ptr(), dreps.data_ptr(), B, k, dp, fwd.per,
+                fwd.parts, dc.per, dc.parts, fwd.y_rows,
                 int(ct == torch.bfloat16),
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "sampled_lse backward (K2)")
         bwd_launches += 1
-        dreps = part.sum(dim=0)[:, :d].to(reps_dtype)
-        return (dreps, dC[:k, :d].to(cand_dtype), dcorr[:k], None, None,
-                None)
+        return (_sum_parts(dreps)[:, :d].to(reps_dtype),
+                _sum_parts(dC)[:, :d].to(cand_dtype), _sum_parts(dcorr),
+                None, None, None)
 
 
 def sampled_lse(reps: torch.Tensor, cand: torch.Tensor, corr: torch.Tensor,

@@ -206,6 +206,34 @@ class TestSampledLseOnCard:
         b = _slse_run(sampled_lse.sampled_lse, *x, "bfloat16")
         assert all(torch.equal(u, v) for u, v in zip(a, b))
 
+    # The amazon_* recipes' k = 256 (d 256 bf16, d 128 fp32: the dC sweep
+    # split into one slice a batch tile), k under one tile (the most
+    # slices), d = 256 with many candidate tiles, and a ragged B.
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,k,d", [(4096, 256, 256), (1024, 256, 128),
+                                       (4096, 100, 128), (512, 3000, 256),
+                                       (1000, 2049, 128)])
+    def test_planned_shapes_match_plain(self, cuda, B, k, d, dtype):
+        fwd, dc = sampled_lse._plan(B, k, d, dtype)
+        assert fwd.blocks >= 1 and dc.blocks >= 1
+        x = _slse_inputs(cuda, B, k, d)
+        got = _slse_run(sampled_lse.sampled_lse, *x, dtype)
+        want = _slse_run(sampled_lse.sampled_lse_plain, *x, dtype)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= SLSE_TOL[dtype] * b.abs().max().item()
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("B,k,d", [(4096, 100, 128), (4096, 256, 256)])
+    def test_sliced_backward_is_bit_equal(self, cuda, B, k, d, dtype):
+        dc = sampled_lse._plan(B, k, d, dtype)[1]
+        assert dc.parts >= 32 and (k > 128 or dc.parts == dc.n_y)
+        x = _slse_inputs(cuda, B, k, d)
+        a = _slse_run(sampled_lse.sampled_lse, *x, dtype)
+        b = _slse_run(sampled_lse.sampled_lse, *x, dtype)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
     def test_wrapper_refuses_what_the_kernels_do_not_take(self, cuda):
         reps, cand, corr, ids, pos = _slse_inputs(cuda, 8, 16, 16)
         with pytest.raises(ValueError, match="d <= 256"):

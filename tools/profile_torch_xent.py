@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Device time by kernel of the full-softmax kernels (K5 forward, K6
-backward, K7 backward with the optimizer update) and of their plain
-versions, at chip_smoke.py's xent shapes, on one card.
+backward, K7 backward with the optimizer update) and of the sampled-softmax
+kernels (K1 forward, K2 backward), and of their plain versions, at
+chip_smoke.py's shapes, on one card.
 
-    python tools/profile_torch_xent.py [--kernel fwd|bwd|apply]
-        [--cases cerc w3c ...] [--opt adam] [--calls 20]
+    python tools/profile_torch_xent.py [--kernel fwd|bwd|apply|slse_fwd|
+        slse_bwd] [--cases cerc w3c ...] [--opt adam] [--calls 20]
 
 For each case, seeded inputs on the card (chip_smoke's ``_xent_case``, and
 ``_apply_case`` for K7), three warm-up calls, then ``--calls`` calls under
@@ -20,7 +21,12 @@ included, as chip_smoke.py times them.
 - ``apply``: K7 alone on K5's outputs (its dpooled sweep, its update
   sweep, the sum of its slices with the update, the wrapper's sums), W and
   the slots updated in place, against autograd of the plain loss and the
-  plain update.
+  plain update;
+- ``slse_fwd`` / ``slse_bwd``: ``sampled_lse``'s forward (K1 and the merge
+  of its chunks) / its backward (K2's dC and dreps sweeps and the sums of
+  their partials) against ``sampled_lse_plain``'s, on chip_smoke's
+  ``_slse_case`` inputs: the flagship in bf16 and fp32, and the amazon_*
+  recipes' k = 256 shapes.
 The device times leave out the host's launch work, which the event times
 hold; on a host slow to launch, small shapes are host-bound. Prints one
 line per kernel and one JSON object as its last line. Needs a CUDA
@@ -52,12 +58,20 @@ CASES = {   # name: (B, E, d, layout, dtype), as chip_smoke's xent phases
     "lse_full_tail": (4096, 131071, 128, "ed", "bfloat16"),
     "lse_full_flagship": (4096, 1_000_000, 128, "ed", "bfloat16"),
 }
+SLSE_CASES = {   # name: (B, k, d, dtype), as chip_smoke's train_kernels
+    "flagship_bf16": (4096, 32768, 128, "bfloat16"),
+    "flagship_fp32": (4096, 32768, 128, "float32"),
+    "amazon_home_kitchen": (4096, 256, 256, "bfloat16"),
+    "amazon_musical_instruments": (1024, 256, 128, "float32"),
+}
 DEFAULT_CASES = {
     "fwd": ["cerc", "w3c_ragged", "cerc_bf16", "lse_full_128k",
             "lse_full_flagship"],
     "bwd": ["cerc", "w3c_ragged", "cerc_bf16", "split_max", "lse_full_128k",
             "lse_full_flagship"],
     "apply": ["w3c", "cerc", "ll_500k", "lse_full_128k", "lse_full_tail"],
+    "slse_fwd": list(SLSE_CASES),
+    "slse_bwd": list(SLSE_CASES),
 }
 PLAIN_MAX_LOGITS = 1 << 30     # [B, E] fp32 entries the plain version may hold
 APPLY_LR, APPLY_COUNT = 1e-2, 3
@@ -83,8 +97,28 @@ def calls_of(kernel: str, name: str, opt: str, with_plain: bool):
     """[(label, fn)] of the kernel's call and, with ``with_plain``, its
     plain version's, on the case's seeded inputs."""
     import chip_smoke
+    from sert_tpu_torch.ops import sampled_lse as slse
     from sert_tpu_torch.ops import xent
     from sert_tpu_torch.ops.sampled_lse import _compute_dtype
+    if kernel.startswith("slse"):
+        B, k, d, dtype = SLSE_CASES[name]
+        reps, cand, corr, ids, pos, s_pos = chip_smoke._slse_case(
+            B, k, dtype, 0, d=d)
+        out = []
+        for label, fn in [("kernel", slse.sampled_lse),
+                          ("plain", slse.sampled_lse_plain)][:1 + with_plain]:
+            if kernel == "slse_fwd":
+                out.append((label, torch.no_grad()(
+                    lambda fn=fn: fn(reps, cand, corr, ids, pos, dtype))))
+                continue
+            r, c, co = (t.clone().requires_grad_(True)
+                        for t in (reps, cand, corr))
+            loss = torch.nn.functional.softplus(
+                fn(r, c, co, ids, pos, dtype) - s_pos).sum()
+            out.append((label, lambda loss=loss, args=(r, c, co):
+                        torch.autograd.grad(loss, list(args),
+                                            retain_graph=True)))
+        return out
     B, E, d, layout, dtype = CASES[name]
     if kernel == "fwd":
         x = chip_smoke._xent_case(B, E, d, layout, 1)
@@ -133,7 +167,8 @@ def calls_of(kernel: str, name: str, opt: str, with_plain: bool):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=sorted(DEFAULT_CASES), default="bwd")
-    ap.add_argument("--cases", nargs="*", choices=sorted(CASES))
+    ap.add_argument("--cases", nargs="*",
+                    choices=sorted(CASES) + sorted(SLSE_CASES))
     ap.add_argument("--opt", default="adam", choices=["adam", "adagrad",
                                                       "sgd"])
     ap.add_argument("--calls", type=int, default=20)
@@ -150,7 +185,8 @@ def main() -> int:
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "kernel": args.kernel, "opt": args.opt}
     for name in args.cases or DEFAULT_CASES[args.kernel]:
-        B, E = CASES[name][:2]
+        B, E = (SLSE_CASES if args.kernel.startswith("slse") else
+                CASES)[name][:2]
         calls = args.calls if E <= 200_000 else max(2, args.calls // 10)
         for label, fn in calls_of(args.kernel, name, args.opt,
                                   B * E <= PLAIN_MAX_LOGITS):
