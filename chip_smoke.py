@@ -8,7 +8,11 @@ Phases (each prints one line or more; any failure exits non-zero):
   3. kernels: K3 (score + bin-max, with and without bias) and K4
      (gather-rescore, fp32 and bf16 rows) against their plain PyTorch
      versions at the serving shapes (Q=64, E=1M, d=128, bw=128, NB=1012),
-     with CUDA-event times for both;
+     with CUDA-event times for both; K3 also at bw=64 and at a partial
+     tail (E=1M-1), with and without the bias; K4 also on shared bins
+     (every query the same 1012, each row in its own order), with a bin
+     twice in a row, with out-of-range ids (NaN scores), and two calls
+     bit for bit;
   4. train_kernels: K1 (the masked-LSE forward) and K2 (its backward)
      against sampled_lse_plain + autograd on the same inputs, at the
      flagship's B=4096, k=32768, d=128 in bf16 and fp32, at a ragged
@@ -277,6 +281,39 @@ def phase_kernels() -> dict:
     # K3's record is its no-bias variant: it reads the bf16 copy once.
     records["score_binmax"].update(bound(
         2 * Q * E * Mp.shape[1], nbytes(Mp, R, bins), "bfloat16"))
+
+    def check(name, variant, got, want):
+        """An untimed case: within TOL of the plain version."""
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **TOL)
+        say("kernels", name=name, variant=variant, max_abs_err=err,
+            rtol=TOL["rtol"], atol=TOL["atol"])
+        rec = records[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+    # K3 at bw = 64 (two bins a tile) and at a partial tail tile.
+    for e, bw in ((E, 64), (E - 1, BW)):
+        for ba in ((), (bias, alpha)):
+            check("score_binmax",
+                  f"E={e},bw={bw},{'bias' if ba else 'nobias'}",
+                  k3.score_binmax_prepared(R, Mp, e, *ba, bin_width=bw),
+                  k3.score_binmax_plain(R, Mp, e, *ba, bin_width=bw))
+    # K3 at wide rows, where every block walks its ring many times over with
+    # more sub-tiles a tile (8 and 5) than a warpgroup's share of the ring.
+    gw = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for q, d in ((Q, 512), (130, 320)):
+        Rw = torch.randn(q, d, generator=gw, device=dev)
+        Mw = torch.randn(E, d, generator=gw, device=dev)
+        Mw = k3.prepare_binmax_matrix(Mw / Mw.norm(dim=1, keepdim=True))
+        Rw = Rw / Rw.norm(dim=1, keepdim=True)
+        aw = torch.randint(1, 9, (q,), generator=gw, device=dev).float()
+        for ba in ((), (bias, aw)):
+            check("score_binmax",
+                  f"Q={q},d={d},{'bias' if ba else 'nobias'}",
+                  k3.score_binmax_prepared(Rw, Mw, E, *ba, bin_width=BW),
+                  k3.score_binmax_plain(Rw, Mw, E, *ba, bin_width=BW))
+        del Mw
     bin_idx = torch.topk(bins, K + PAD_BINS, dim=1).indices.int()
     n_bins = bins.shape[1]
     M_binned = torch.nn.functional.pad(M, (0, 0, 0, n_bins * BW - E))
@@ -289,12 +326,38 @@ def phase_kernels() -> dict:
                 lambda: k4.gather_rescore_plain(R, mb, bin_idx),
                 src4, "sert_tpu/ops/gather_rescore.py:31")
     # K4's record is its fp32-row variant. The least it must read is each
-    # bin this run's queries chose, once (the kernel reads a bin once per
-    # query that chose it).
+    # bin this run's queries chose, once.
     rows = torch.unique(bin_idx).numel() * BW * D * 4
     n_out = Q * bin_idx.shape[1] * BW
     records["gather_rescore"].update(bound(
         2 * n_out * D, rows + nbytes(R, bin_idx) + 4 * n_out, "float32"))
+
+    # K4 on shared bins (every query holds query 0's bins, each row in its
+    # own order), with a bin twice in a row, and two calls bit for bit.
+    shared = torch.stack([bin_idx[0][torch.randperm(
+        bin_idx.shape[1], generator=g, device=dev)] for _ in range(Q)])
+    dup = bin_idx.clone()
+    dup[:, 1] = dup[:, 0]
+    dup[::2, -1] = dup[::2, 2]
+    for variant, idx in (("shared_bins", shared), ("duplicates", dup)):
+        check("gather_rescore", variant, k4.gather_rescore(R, M_binned, idx),
+              k4.gather_rescore_plain(R, M_binned, idx))
+    same = torch.equal(k4.gather_rescore(R, M_binned, bin_idx),
+                       k4.gather_rescore(R, M_binned, bin_idx))
+    say("kernels", name="gather_rescore", two_calls_bit_equal=same)
+    if not same:
+        raise AssertionError("two K4 calls differ")
+    # An id outside [0, n_bins) yields NaN for its bw scores, the rest as
+    # plain on the in-range ids.
+    bad = bin_idx.clone()
+    bad[0, 5], bad[3, 0], bad[Q - 1, -1] = n_bins, -1, 1 << 30
+    out_of_range = ((bad < 0) | (bad >= n_bins)).repeat_interleave(BW, 1)
+    got = k4.gather_rescore(R, M_binned, bad)
+    want = k4.gather_rescore_plain(R, M_binned, bad.clamp(0, n_bins - 1))
+    if not bool(got[out_of_range].isnan().all()):
+        raise AssertionError("an out-of-range bin did not give NaN")
+    check("gather_rescore", "out_of_range_ids", got[~out_of_range],
+          want[~out_of_range])
     return records
 
 

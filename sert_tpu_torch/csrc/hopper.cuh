@@ -1,7 +1,8 @@
 // Hopper's asynchronous pieces for sm_90a, as inline PTX: mbarriers, TMA
 // tile loads into 128-byte-swizzled shared memory, wgmma descriptors and
 // the bf16 wgmma instructions, warpgroup register rebalancing. Used by the
-// warp-specialized sweep of K1/K2 (sampled_lse.cu).
+// warp-specialized sweeps of K1/K2 (sampled_lse.cu) and K3
+// (score_binmax.cu), with the host side's tensor maps.
 //
 // Layout conventions. A tile of rows x (128 bytes) is loaded by one TMA box
 // with CU_TENSOR_MAP_SWIZZLE_128B: row r lands at byte 128 r, and its 16-byte
@@ -16,6 +17,7 @@
 //     offset 1024 (the next 8 rows of depth).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -98,6 +100,11 @@ __device__ inline void wgmma_commit() {
 }
 __device__ inline void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keep the compiler from moving accesses of registers that an asynchronous
 // wgmma reads or writes across its issue and its wait.
@@ -256,5 +263,54 @@ template <> struct Wgmma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
+
+// ---- Host side: tensor maps ----------------------------------------------
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a row-major [rows, cols] matrix of T at `ptr`: boxes of
+// box_rows x 128 bytes, 128-byte swizzle, zeros past its edges.
+template <typename T>
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+                     int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * sizeof(T)};
+  const cuuint32_t box[2] = {cuuint32_t(128 / sizeof(T)),
+                             cuuint32_t(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = enc(
+      map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(ptr), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace

@@ -1,6 +1,7 @@
 // Warp-level tensor-core products through mma.sync for sm_90a, and
 // asynchronous global -> shared copies (cp.async): the pieces of K6's sweeps
-// (xent.cu) that a block's own tiling does not decide.
+// (xent.cu) that a block's own tiling does not decide; K4's rescore sweep
+// (gather_rescore.cu) takes the copies alone.
 //
 // Fragments are laid out as the PTX ISA lays out m16n8k8 (tf32) and
 // m16n8k16 (bf16): lane l holds rows g = l / 4 and g + 8, and columns (k)
@@ -141,12 +142,17 @@ __device__ inline void store_c_t(float* S, size_t ld, const Acc8& c) {
   S[(t + 1) * ld + g + 8] = c.c[3];
 }
 
-// Asynchronous global -> shared copies of 16 (or 4) bytes; `valid` false
+// Asynchronous global -> shared copies of 16, 8 or 4 bytes; `valid` false
 // fills the destination with zeros and reads nothing.
 __device__ inline void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned s = unsigned(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ inline void cp_async8(void* dst, const void* src) {
+  const unsigned s = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src) : "memory");
 }
 __device__ inline void cp_async4(void* dst, const void* src, bool valid) {
   const unsigned s = unsigned(__cvta_generic_to_shared(dst));

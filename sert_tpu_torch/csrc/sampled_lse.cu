@@ -513,54 +513,6 @@ slse_sweep_kernel(const __grid_constant__ CUtensorMap tx,
 }
 
 // ---- Host side -----------------------------------------------------------------
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of a row-major [rows, cols] matrix of T at `ptr`: boxes of
-// box_rows x 128 bytes, 128-byte swizzle, zeros past its edges.
-template <typename T>
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                     int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols) * sizeof(T)};
-  const cuuint32_t box[2] = {cuuint32_t(128 / sizeof(T)),
-                             cuuint32_t(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = enc(
-      map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-      2, const_cast<void*>(ptr), dims, strides, box, step,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The pointers of one launch: R [B, dp], C [k, dp], their vectors, and the
 // outputs of the mode.
 struct Args {

@@ -5,15 +5,31 @@
 // :87). out[q, b] = max over the bw consecutive entities e of bin b of
 //     S[q, e] = R[q] . M[e]  (+ alpha[q] * bias[e]),
 // with bf16 inputs and fp32 accumulation. The [Q, E] score matrix never
-// reaches device memory: each block keeps its [TQ, TE] score tile in shared
-// memory and writes only TE / bw maxima per query row.
+// leaves the registers that hold it: only the bin maxima reach memory.
 //
-// What bounds it on the H100: at the serving shape (Q = 64, E = 1M, d = 128)
-// the sweep reads the 256 MB bf16 entity matrix once (~76 us at 3.35 TB/s)
-// and does 16.4 GFLOP (~17 us at the dense bf16 tensor-core rate), so it is
-// bound by device-memory bandwidth once the products run on tensor cores.
-// This first version uses nvcuda::wmma bf16 fragments (mma.sync underneath)
-// and plain 16-byte loads; TMA and wgmma are later work.
+// What bounds it on the H100: bytes. At the serving shape (Q = 64, E = 1M,
+// d = 128) the sweep reads the 256 MB bf16 entity matrix once (0.077 ms at
+// 3.35 TB/s) and does 16.4 GFLOP (0.017 ms at the dense bf16 tensor-core
+// rate). So the design keeps device memory busy all the time:
+//
+//   * persistent blocks, one an SM: block (x, y) holds query tile y (64
+//     rows of R, loaded once by TMA, resident) and walks entity tiles x,
+//     x + gridDim.x, ... of 128 rows;
+//   * two consumer warpgroups take the tiles in turn (one's epilogue
+//     overlaps the other's products); each runs wgmma m64n128k16 (fp32
+//     accumulators) with R and M both K-major, as K1's z = X Y^T does;
+//   * a producer warp streams each tile's 128 x 64-column sub-tiles (TMA,
+//     128-byte swizzle, zeros past E and past d) into the ring of the
+//     warpgroup that takes the tile: NST / 2 stages each, with full /
+//     empty mbarriers, so loads run ahead of the products and epilogues.
+//     A ring of its own keeps every phase of a stage's barriers with one
+//     warpgroup, which consumes them in order; a consumer frees each
+//     sub-tile's stage as soon as its products are done, so a tile of
+//     more sub-tiles than the ring holds (d > 256) streams through it;
+//   * the epilogue stays in registers: + alpha[q] bias[e], -inf for
+//     e >= E, each row's max over its bin from the accumulator fragment (a
+//     thread-local max over its columns, then __shfl_xor within the quad of
+//     lanes that share the row), and one lane writes out[q, bin].
 //
 // Differences from the TPU kernel, on purpose:
 //   * entities >= E are masked to -inf here, so the partial tail bin holds
@@ -21,137 +37,250 @@
 //     rows, which can inflate that bin);
 //   * the output is [Q, n_bins] row-major, not the bins-major transpose
 //     Mosaic's (8, 128) block rule needed;
-//   * any bw dividing TE is a plain warp max, not a masked 128-lane max.
+//   * any bw dividing 128 is a register max: bw >= 8 a quad reduction, a
+//     smaller bw within a thread's column pair (and one shuffle at 4).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
+
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+constexpr int TQ = 64;             // query rows a block holds (wgmma M)
+constexpr int TE = 128;            // entity rows a tile (wgmma N)
+constexpr int SUB = 64;            // bf16 columns of a 128-byte sub-tile
+constexpr int NST = 8;             // ring stages, one M sub-tile each
+constexpr int HALF = NST / 2;      // a consumer warpgroup's own stages
+constexpr int MAX_NSUB = 8;        // d <= 512
+constexpr int THREADS = 384;       // a producer and two consumer warpgroups
+constexpr uint32_t R_SUB = TQ * 128;
+constexpr uint32_t M_SUB = TE * 128;
 
-constexpr int TQ = 64;          // query rows per block
-constexpr int TE = 128;         // entity rows per block
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD_H = 8;        // bf16 padding per shared row (16 bytes)
-constexpr int LDS = TE + 4;     // fp32 score-tile row stride
-
-__host__ __device__ inline int bf16_ld(int d) { return d + PAD_H; }
-
-inline size_t smem_bytes(int d) {
-  const size_t r = size_t(TQ) * bf16_ld(d) * 2;
-  const size_t m = size_t(TE) * bf16_ld(d) * 2;
-  const size_t s = size_t(TQ) * LDS * 4;
-  return r + (m > s ? m : s);   // the score tile reuses the M tile's space
+// Bytes of shared memory for nsub sub-tiles of width: R, the ring, the
+// barriers. At most 64 + 128 KB.
+inline size_t smem_bytes(int nsub) {
+  return size_t(nsub) * R_SUB + NST * M_SUB + (2 * NST + 1) * 8;
 }
 
-__global__ void __launch_bounds__(THREADS)
-score_binmax_kernel(const __nv_bfloat16* __restrict__ R,
-                    const __nv_bfloat16* __restrict__ M,
+__global__ void __launch_bounds__(THREADS, 1)
+score_binmax_kernel(const __grid_constant__ CUtensorMap tr,
+                    const __grid_constant__ CUtensorMap tm,
                     const float* __restrict__ bias,
                     const float* __restrict__ alpha,
-                    float* __restrict__ out,
-                    int Q, int E, int d, int bw, int n_bins) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = bf16_ld(d);
-  __nv_bfloat16* Rs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ms = Rs + TQ * ld;
-  float* Ss = reinterpret_cast<float*>(Ms);
-
+                    float* __restrict__ out, int Q, int E, int nsub, int bw,
+                    int n_bins) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const uint32_t ring = base + nsub * R_SUB;
+  const uint32_t full = ring + NST * M_SUB, empty = full + 8 * NST,
+                 rbar = empty + 8 * NST;
   const int q0 = blockIdx.y * TQ;
-  const int e0 = blockIdx.x * TE;
-  const int tid = threadIdx.x;
-  const int vecs = d / 8;       // 16-byte vectors per row
+  const int n_et = (E + TE - 1) / TE;
+  const int n_tiles = int(blockIdx.x) < n_et
+                          ? (n_et - 1 - int(blockIdx.x)) / int(gridDim.x) + 1
+                          : 0;
+  const int tid = threadIdx.x, wg = tid / 128;
 
-  // Stage the R and M tiles; rows past Q or E are zero (masked below).
-  for (int i = tid; i < TQ * vecs; i += THREADS) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (q0 + r < Q)
-      v = *reinterpret_cast<const uint4*>(R + size_t(q0 + r) * d + c);
-    *reinterpret_cast<uint4*>(Rs + r * ld + c) = v;
-  }
-  for (int i = tid; i < TE * vecs; i += THREADS) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (e0 + r < E)
-      v = __ldg(reinterpret_cast<const uint4*>(M + size_t(e0 + r) * d + c));
-    *reinterpret_cast<uint4*>(Ms + r * ld + c) = v;
-  }
-  __syncthreads();
-
-  // 8 warps cover the 64 x 128 tile: warp w owns query rows 16*(w/2) and
-  // four 16-wide entity column blocks starting at 64*(w%2).
-  const int warp = tid / 32, lane = tid % 32;
-  const int wr = warp / 2;
-  const int wc = (warp % 2) * 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  for (int kk = 0; kk < d; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, Rs + wr * 16 * ld + kk, ld);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // B(k, n) = M[e0 + n][kk + k]: the M tile read column-major.
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, Ms + (wc + j) * 16 * ld + kk, ld);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
+  if (tid == 0) {
+    if (base & 1023) __trap();     // the swizzled tiles need 1 KB alignment
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + 8 * s, 1);      // the producer's arrival + its bytes
+      mbar_init(empty + 8 * s, 4);     // the consuming warpgroup's warps
     }
+    mbar_init(rbar, 1);
+    mbar_fence_init();
   }
-  __syncthreads();              // every warp is done reading Ms
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(Ss + wr * 16 * LDS + (wc + j) * 16, acc[j], LDS,
-                            wmma::mem_row_major);
   __syncthreads();
 
-  // Epilogue: one warp per (query row, bin) pair of the tile.
-  const int bins_per_tile = TE / bw;
-  const int b0 = e0 / bw;
-  for (int p = warp; p < TQ * bins_per_tile; p += WARPS) {
-    const int r = p / bins_per_tile, bi = p % bins_per_tile;
-    const int q = q0 + r, bin = b0 + bi;
-    if (q >= Q || bin >= n_bins) continue;      // uniform across the warp
-    const float a = alpha != nullptr ? alpha[q] : 1.0f;
-    float m = -CUDART_INF_F;
-    for (int l = lane; l < bw; l += 32) {
-      const int c = bi * bw + l, e = e0 + c;
-      if (e < E) {
-        float s = Ss[r * LDS + c];
-        if (bias != nullptr) s += a * bias[e];
-        m = fmaxf(m, s);
+  if (wg == 0) {
+    // The producer: one thread loads R's tile, then every sub-tile of this
+    // block's entity tiles, each into the next stage of the taking
+    // warpgroup's ring once it is free.
+    setmaxnreg_dec<40>();
+    if (tid != 0) return;
+    mbar_arrive_tx(rbar, nsub * R_SUB);
+    for (int s = 0; s < nsub; ++s)
+      tma_load_2d(base + s * R_SUB, &tr, rbar, s * SUB, q0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int e0 = (blockIdx.x + t * gridDim.x) * TE;
+      const int half = (t & 1) * HALF;
+      for (int s = 0; s < nsub; ++s) {
+        const int g = (t >> 1) * nsub + s, st = half + g % HALF;
+        mbar_wait(empty + 8 * st, ((g / HALF) & 1) ^ 1);
+        mbar_arrive_tx(full + 8 * st, M_SUB);
+        tma_load_2d(ring + st * M_SUB, &tm, full + 8 * st, s * SUB, e0);
       }
     }
+    return;
+  }
+
+  // The consumers: warpgroup c takes tiles c, c + 2, ... of this block,
+  // its g-th sub-tile from stage c HALF + g % HALF of the ring. A thread
+  // holds rows 16 w + gq (+ 8) of the 64 and, of every 8-column block j,
+  // columns 8 j + 2 tq (+ 1): acc[4 j + 2 h + i] is row h, column i.
+  setmaxnreg_inc<232>();
+  const int c = wg - 1, w = (tid / 32) % 4, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  int qr[2];
+  float al[2];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) out[size_t(q) * n_bins + bin] = m;
+  for (int h = 0; h < 2; ++h) {
+    qr[h] = q0 + 16 * w + gq + 8 * h;
+    al[h] = alpha != nullptr && qr[h] < Q ? alpha[qr[h]] : 1.0f;
+  }
+  const int gmask = bw / 8 - 1;     // (8-column groups a bin) - 1, bw >= 8
+  // This warp's release of the stage of its g-th sub-tile, once the
+  // products that read it are done.
+  auto release = [&](int g) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (c * HALF + g % HALF));
+  };
+  mbar_wait(rbar, 0);
+
+  for (int t = c; t < n_tiles; t += 2) {
+    const int g0 = (t >> 1) * nsub;
+    float acc[64];
+    fence_regs(acc);
+    wgmma_fence();
+    for (int s = 0; s < nsub; ++s) {
+      const int g = g0 + s, st = c * HALF + g % HALF;
+      mbar_wait(full + 8 * st, (g / HALF) & 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<128>::ss(acc,
+                       wgmma_desc(base + s * R_SUB + kk * 32, 16, 1024),
+                       wgmma_desc(ring + st * M_SUB + kk * 32, 16, 1024),
+                       s > 0 || kk > 0);
+      wgmma_commit();
+      if (s > 0) {                  // sub-tile s - 1's products are done
+        wgmma_wait<1>();
+        release(g - 1);
+      }
+    }
+    const int e0 = (blockIdx.x + t * gridDim.x) * TE;
+    const bool inside = e0 + TE <= E;
+    float bv[32];                   // the columns' bias, loaded meanwhile
+    if (bias != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = e0 + 8 * j + 2 * tq + i;
+          bv[2 * j + i] = inside || e < E ? __ldg(bias + e) : 0.0f;
+        }
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    release(g0 + nsub - 1);
+
+    // Scores: + alpha bias (as the plain version rounds it: a product, then
+    // a sum), -inf past E.
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e & 1, h = e >> 1;
+        float v = acc[4 * j + e];
+        if (bias != nullptr) v = __fadd_rn(v, __fmul_rn(al[h], bv[2 * j + i]));
+        if (!inside && e0 + 8 * j + 2 * tq + i >= E) v = -CUDART_INF_F;
+        acc[4 * j + e] = v;
+      }
+
+    if (bw >= 8) {
+      // Each thread's max over its two columns of every 8-column block j,
+      // into acc[4 j + 2 h]; then over the blocks of a bin (a tree over j,
+      // the bin's first block keeps it); then across the quad.
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          acc[4 * j + 2 * h] = fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+#pragma unroll
+      for (int s = 1; s < 16; s <<= 1) {
+        if (16 * s > bw) break;
+#pragma unroll
+        for (int j = 0; j < 16; j += 2 * s)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            acc[4 * j + 2 * h] =
+                fmaxf(acc[4 * j + 2 * h], acc[4 * (j + s) + 2 * h]);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (j & gmask) continue;    // uniform: bw is the whole grid's
+        const int bin = (e0 + 8 * j) / bw;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float m = acc[4 * j + 2 * h];
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          if (tq == 0 && qr[h] < Q && bin < n_bins)
+            out[size_t(qr[h]) * n_bins + bin] = m;
+        }
+      }
+    } else {
+      // bw 1, 2 or 4: within the thread's column pair (and, at 4, with the
+      // neighbouring lane).
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = e0 + 8 * j + 2 * tq;
+          const float a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
+          float* o = out + size_t(qr[h]) * n_bins;
+          if (bw == 1) {
+            if (qr[h] < Q && e < n_bins) o[e] = a;
+            if (qr[h] < Q && e + 1 < n_bins) o[e + 1] = b;
+            continue;
+          }
+          float m = fmaxf(a, b);
+          if (bw == 4) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          if ((bw == 2 || (tq & 1) == 0) && qr[h] < Q && e / bw < n_bins)
+            o[e / bw] = m;
+        }
+    }
   }
 }
 
 }  // namespace
 
-// R [Q, d] bf16, M [>=E, d] bf16, bias [E] fp32 or null, alpha [Q] fp32 or
-// null, out [Q, n_bins] fp32. d % 16 == 0 and TE % bw == 0 (the Python
-// wrapper checks both). Returns the cudaError_t of the launch.
+// R [Q, d] bf16, M [>=E, d] bf16 (rows 16-byte aligned), bias [E] fp32 or
+// null, alpha [Q] fp32 or null, out [Q, n_bins] fp32. d % 16 == 0, d <=
+// 512 and 128 % bw == 0 (the Python wrapper checks all three). Returns the
+// cudaError_t of the launch.
 extern "C" int sert_score_binmax(const void* R, const void* M,
                                  const void* bias, const void* alpha,
                                  void* out, int Q, int E, int d, int bw,
                                  int n_bins, void* stream) {
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      score_binmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+  const int nsub = (d + SUB - 1) / SUB;
+  if (nsub > MAX_NSUB || TE % bw != 0) return int(cudaErrorInvalidValue);
+  CUtensorMap tr, tm;
+  cudaError_t err = make_map<__nv_bfloat16>(&tr, R, Q, d, TQ);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((E + TE - 1) / TE, (Q + TQ - 1) / TQ);
-  score_binmax_kernel<<<grid, THREADS, smem, cudaStream_t(stream)>>>(
-      static_cast<const __nv_bfloat16*>(R),
-      static_cast<const __nv_bfloat16*>(M), static_cast<const float*>(bias),
-      static_cast<const float*>(alpha), static_cast<float*>(out), Q, E, d,
+  err = make_map<__nv_bfloat16>(&tm, M, E, d, TE);
+  if (err != cudaSuccess) return int(err);
+  const size_t smem = smem_bytes(nsub);
+  err = cudaFuncSetAttribute(score_binmax_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem));
+  if (err != cudaSuccess) return int(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return int(err);
+  const int n_qt = (Q + TQ - 1) / TQ, n_et = (E + TE - 1) / TE;
+  const int per_qt = sms / n_qt;   // blocks a query tile, one an SM
+  const int gx = per_qt < 1 ? 1 : per_qt < n_et ? per_qt : n_et;
+  score_binmax_kernel<<<dim3(gx, n_qt), THREADS, smem,
+                        cudaStream_t(stream)>>>(
+      tr, tm, static_cast<const float*>(bias),
+      static_cast<const float*>(alpha), static_cast<float*>(out), Q, E, nsub,
       bw, n_bins);
   return int(cudaGetLastError());
 }

@@ -38,8 +38,8 @@ _F = ctypes.c_float
 # Every exported entry point and its C signature (all return cudaError_t).
 _SIGNATURES = {
     "sert_score_binmax": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sert_gather_rescore_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sert_gather_rescore_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sert_gather_rescore_f32": [_P] * 5 + [_I] * 9 + [_P],
+    "sert_gather_rescore_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "sert_sampled_lse_fwd": [_P] * 7 + [_I] * 7 + [_P],
     "sert_sampled_lse_bwd": [_P] * 10 + [_I] * 9 + [_P],
     "sert_xent_fwd": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 4 + [_P],

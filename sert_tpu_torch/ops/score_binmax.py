@@ -8,6 +8,9 @@ replaces and what bounds it on the H100.
 
 A CUDA tensor goes to the kernel, a CPU tensor to :func:`score_binmax_plain`
 (the same arithmetic in plain PyTorch, and the kernel's oracle on the card).
+The kernel is a persistent sweep: TMA streams the entity tiles, wgmma
+scores them against the resident query tile, and the bin maxima are taken
+from the accumulator registers.
 Entities past ``num_entities`` are -inf in both, so a partial tail bin holds
 the max over its valid entities only.
 """
@@ -23,7 +26,8 @@ from sert_tpu_torch.ops import _build
 
 LANES = 128          # default bin width; the kernel's entity tile is 128
 DIM_MULTIPLE = 16    # the bf16 tensor-core fragment depth
-MAX_DIM = 512        # widest d whose staged tiles fit 227 KB of shared memory
+MAX_DIM = 512        # widest d: the resident R tile (8 sub-tiles of 64
+                     # columns) and the ring fit 227 KB of shared memory
 
 # Kernel launches since the last reset (chip_smoke.py shows the serving path
 # went through the kernel with it).

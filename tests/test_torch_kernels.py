@@ -113,6 +113,114 @@ class TestOnCard:
         assert out[0, :64].eq(16).all() and out[0, 64:].isnan().all()
         assert out[1, :64].isnan().all() and out[1, 64:].eq(16).all()
 
+    @pytest.mark.parametrize("with_bias", [False, True])
+    @pytest.mark.parametrize("E", [1024, 1025])       # a tile edge, one past
+    @pytest.mark.parametrize("Q,d", [(1, 48), (130, 512)])
+    @pytest.mark.parametrize("bw", [128, 64, 16, 2])
+    def test_score_binmax_shapes(self, cuda, bw, Q, d, E, with_bias):
+        R, M, bias, alpha = (torch.from_numpy(x).to(cuda)
+                             for x in _data(Q + E, Q=Q, E=E, d=d))
+        Mp = score_binmax.prepare_binmax_matrix(M)
+        b, a = (bias, alpha) if with_bias else (None, None)
+        got = score_binmax.score_binmax_prepared(R, Mp, E, b, a, bw)
+        want = score_binmax.score_binmax_plain(R, Mp, E, b, a, bw)
+        assert got.shape == (Q, -(-E // bw))
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("with_bias", [False, True])
+    @pytest.mark.parametrize("d", [192, 320, 512])
+    @pytest.mark.parametrize("Q", [64, 130])
+    def test_score_binmax_walks_many_tiles(self, cuda, Q, d, with_bias):
+        """E past 100k: every block takes many tiles in turn between its
+        two warpgroups, each tile of 3, 5 or 8 sub-tiles through a ring of
+        4 stages a warpgroup."""
+        E = 100_003
+        g = torch.Generator(device=cuda).manual_seed(Q + d)
+        R = torch.nn.functional.normalize(
+            torch.randn(Q, d, generator=g, device=cuda), dim=1)
+        M = torch.nn.functional.normalize(
+            torch.randn(E, d, generator=g, device=cuda), dim=1)
+        ba = ((torch.randn(E, generator=g, device=cuda),
+               torch.randint(1, 5, (Q,), generator=g, device=cuda).float())
+              if with_bias else ())
+        Mp = score_binmax.prepare_binmax_matrix(M)
+        got = score_binmax.score_binmax_prepared(R, Mp, E, *ba, bin_width=128)
+        want = score_binmax.score_binmax_plain(R, Mp, E, *ba, bin_width=128)
+        assert got.shape == (Q, -(-E // 128))
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("bw", [1, 2, 4, 8, 16, 32, 64, 128])
+    def test_score_binmax_every_bin_width(self, cuda, bw):
+        R, M, bias, alpha = (torch.from_numpy(x).to(cuda)
+                             for x in _data(bw, Q=70, E=1000, d=64))
+        Mp = score_binmax.prepare_binmax_matrix(M)
+        got = score_binmax.score_binmax_prepared(R, Mp, 1000, bias, alpha,
+                                                 bw)
+        want = score_binmax.score_binmax_plain(R, Mp, 1000, bias, alpha, bw)
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("Q,d", [(1, 48), (70, 512), (300, 48),
+                                     (33, 36)])
+    @pytest.mark.parametrize("bw", [64, 128])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_gather_rescore_shapes(self, cuda, dtype, bw, Q, d):
+        """40 bins, 13 drawn a query with repeats (duplicates in a row); d
+        36 gives rows of 72 bytes in bf16, which a 16-byte copy does not
+        divide. Rows of unit norm, as the serving path's cosine scores: the 1e-5
+        contract is absolute at that scale (N(0, 1) rows at d = 512 give
+        scores near 22, whose fp32 sums in two orders differ by ~3e-5)."""
+        g = torch.Generator(device=cuda).manual_seed(Q + d + bw)
+        R = torch.randn(Q, d, generator=g, device=cuda)
+        R = R / R.norm(dim=1, keepdim=True)
+        Mb = torch.randn(40, bw, d, generator=g, device=cuda)
+        Mb = (Mb / Mb.norm(dim=2, keepdim=True)).to(dtype)
+        idx = torch.randint(0, 40, (Q, 13), generator=g, device=cuda,
+                            dtype=torch.int32)
+        got = gather_rescore.gather_rescore(R, Mb, idx)
+        want = gather_rescore.gather_rescore_plain(R, Mb, idx)
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_gather_rescore_duplicates_and_one_bin(self, cuda, dtype):
+        """Every query holds bin 3 in every slot: one bin, 70 * 9 pairs."""
+        g = torch.Generator(device=cuda).manual_seed(1)
+        R = torch.randn(70, 128, generator=g, device=cuda)
+        Mb = torch.randn(6, 128, 128, generator=g, device=cuda).to(dtype)
+        idx = torch.full((70, 9), 3, dtype=torch.int32, device=cuda)
+        got = gather_rescore.gather_rescore(R, Mb, idx)
+        want = gather_rescore.gather_rescore_plain(R, Mb, idx)
+        torch.testing.assert_close(got, want, **TOL)
+
+    def test_gather_rescore_shared_bins(self, cuda):
+        """Every query holds the same bins, each row in its own order (unit
+        rows, as in test_gather_rescore_shapes)."""
+        g = torch.Generator(device=cuda).manual_seed(2)
+        R = torch.randn(64, 128, generator=g, device=cuda)
+        R = R / R.norm(dim=1, keepdim=True)
+        Mb = torch.randn(300, 128, 128, generator=g, device=cuda)
+        Mb = Mb / Mb.norm(dim=2, keepdim=True)
+        idx = torch.stack([torch.randperm(100, generator=g, device=cuda)
+                           for _ in range(64)]).int()
+        got = gather_rescore.gather_rescore(R, Mb, idx)
+        want = gather_rescore.gather_rescore_plain(R, Mb, idx)
+        torch.testing.assert_close(got, want, **TOL)
+
+    def test_gather_rescore_no_bins(self, cuda):
+        R = torch.randn(5, 16, device=cuda)
+        Mb = torch.randn(3, 64, 16, device=cuda)
+        idx = torch.zeros(5, 0, dtype=torch.int32, device=cuda)
+        assert gather_rescore.gather_rescore(R, Mb, idx).shape == (5, 0)
+
+    def test_gather_rescore_two_calls_are_bit_equal(self, cuda):
+        g = torch.Generator(device=cuda).manual_seed(3)
+        R = torch.randn(64, 128, generator=g, device=cuda)
+        Mb = torch.randn(500, 128, 128, generator=g, device=cuda)
+        idx = torch.randint(0, 500, (64, 120), generator=g, device=cuda,
+                            dtype=torch.int32)
+        a = gather_rescore.gather_rescore(R, Mb, idx)
+        b = gather_rescore.gather_rescore(R, Mb, idx)
+        assert torch.equal(a, b)
+
     def test_wrappers_refuse_what_the_kernels_do_not_take(self, cuda):
         R = torch.randn(4, 24, device=cuda)                 # d % 16 != 0
         Mp = torch.randn(100, 24, device=cuda).bfloat16()

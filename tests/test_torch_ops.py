@@ -84,6 +84,29 @@ class TestScoreBinmax:
         tail = _bf16_scores(R, M)[:, full * 128:].max(axis=1)
         np.testing.assert_allclose(got[:, full], tail, **TOL)
 
+    @pytest.mark.parametrize("E", [1024, 1000])
+    def test_bw64_bias_matches_pallas_and_tail(self, E):
+        """bw = 64 with the bias: full bins equal the reference; at E = 1000
+        the partial tail bin (40 valid entities) is the max over its valid
+        entities, held against numpy (the reference's zero rows score
+        alpha * 0 + 0 there and may inflate it)."""
+        R, M, bias, alpha = _data(E + 64, E=E)
+        Mp = ref_k3.prepare_binmax_matrix(jnp.asarray(M), te=512)
+        want = np.asarray(ref_k3.score_binmax_prepared(
+            jnp.asarray(R), Mp, E, jnp.asarray(bias), jnp.asarray(alpha),
+            te=512, bin_width=64))
+        got = score_binmax.score_binmax(
+            torch.from_numpy(R), torch.from_numpy(M), torch.from_numpy(bias),
+            torch.from_numpy(alpha), bin_width=64).numpy()
+        full = E // 64
+        assert got.shape == (8, -(-E // 64))
+        np.testing.assert_allclose(got[:, :full], want[:, :full], **TOL)
+        if full < got.shape[1]:
+            s = (_bf16_scores(R, M) + alpha[:, None].astype(np.float64)
+                 * bias[None, :])
+            np.testing.assert_allclose(got[:, full],
+                                       s[:, full * 64:].max(axis=1), **TOL)
+
     def test_feature_width_is_padded_to_16(self):
         M = torch.randn(10, 20)
         Mp = score_binmax.prepare_binmax_matrix(M)
@@ -105,6 +128,34 @@ class TestGatherRescore:
         R = rng.normal(size=(Q, d)).astype(np.float32)
         Mb = rng.normal(size=(n_bins, bw, d)).astype(np.float32)
         idx = rng.integers(0, n_bins, size=(Q, NB)).astype(np.int32)
+        Mj = jnp.asarray(Mb, getattr(jnp, dtype))
+        want = np.asarray(ref_k4.gather_rescore(jnp.asarray(R), Mj,
+                                                jnp.asarray(idx)))
+        Mt = torch.from_numpy(Mb).to(getattr(torch, dtype))
+        got = gather_rescore.gather_rescore(torch.from_numpy(R), Mt,
+                                            torch.from_numpy(idx))
+        assert got.shape == (Q, NB * bw)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("case", ["duplicates", "bw64", "shared"])
+    def test_plain_matches_pallas_on_bin_choices(self, case, dtype):
+        """The kernel's card cases the reference takes (Q a multiple of its
+        16): a bin twice in a row, bins of 64, and every query on the same
+        bins, each row in its own order."""
+        rng = np.random.default_rng(4)
+        Q, n_bins, d, NB = 32, 12, 32, 6
+        bw = 64 if case == "bw64" else 128
+        R = rng.normal(size=(Q, d)).astype(np.float32)
+        Mb = rng.normal(size=(n_bins, bw, d)).astype(np.float32)
+        idx = rng.integers(0, n_bins, size=(Q, NB)).astype(np.int32)
+        if case == "duplicates":
+            idx[:, 1] = idx[:, 0]
+            idx[::2, 5] = idx[::2, 2]
+        elif case == "shared":
+            idx = np.stack([rng.permutation(NB) for _ in range(Q)])
+            idx = idx.astype(np.int32)
         Mj = jnp.asarray(Mb, getattr(jnp, dtype))
         want = np.asarray(ref_k4.gather_rescore(jnp.asarray(R), Mj,
                                                 jnp.asarray(idx)))

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Device time by kernel of the full-softmax kernels (K5 forward, K6
-backward, K7 backward with the optimizer update) and of the sampled-softmax
-kernels (K1 forward, K2 backward), and of their plain versions, at
-chip_smoke.py's shapes, on one card.
+backward, K7 backward with the optimizer update), of the sampled-softmax
+kernels (K1 forward, K2 backward) and of the serving kernels (K3 score +
+bin max, K4 rescore), and of their plain versions, at chip_smoke.py's
+shapes, on one card.
 
     python tools/profile_torch_xent.py [--kernel fwd|bwd|apply|slse_fwd|
-        slse_bwd] [--cases cerc w3c ...] [--opt adam] [--calls 20]
+        slse_bwd|binmax|rescore] [--cases cerc w3c ...] [--opt adam]
+        [--calls 20]
 
 For each case, seeded inputs on the card (chip_smoke's ``_xent_case``, and
 ``_apply_case`` for K7), three warm-up calls, then ``--calls`` calls under
@@ -26,7 +28,20 @@ included, as chip_smoke.py times them.
   of its chunks) / its backward (K2's dC and dreps sweeps and the sums of
   their partials) against ``sampled_lse_plain``'s, on chip_smoke's
   ``_slse_case`` inputs: the flagship in bf16 and fp32, and the amazon_*
-  recipes' k = 256 shapes.
+  recipes' k = 256 shapes;
+- ``binmax``: K3 (``score_binmax_prepared``) against
+  ``score_binmax_plain`` at the serving shape (Q 64, E 1M, d 128, bw 128,
+  chip_smoke's seeded unit rows), without and with the bias, at a partial
+  tail (E = 1M - 1) and at bw = 64 with the bias;
+- ``rescore``: K4 (``gather_rescore``: its index build, count, scan and
+  scatter, then its sweep) against ``gather_rescore_plain``, fp32 and bf16
+  rows, on the smoke's ``bin_idx`` (each query's top 1012 bins by K3's
+  maxima) and on a shared-bins input (every query holds the same 1012
+  bins, each row in its own order). Besides K4's calls back to back
+  (``kernel``, ``plain``; the shared-bins rows, 66 MB, then partly stay in
+  the 50 MB L2), each is profiled after K3's sweep, as the serving path
+  runs it (``kernel_after_k3``: K3 then K4 a call, the device time summed
+  over K4's own kernels; no event time).
 The device times leave out the host's launch work, which the event times
 hold; on a host slow to launch, small shapes are host-bound. Prints one
 line per kernel and one JSON object as its last line. Needs a CUDA
@@ -64,6 +79,19 @@ SLSE_CASES = {   # name: (B, k, d, dtype), as chip_smoke's train_kernels
     "amazon_home_kitchen": (4096, 256, 256, "bfloat16"),
     "amazon_musical_instruments": (1024, 256, 128, "float32"),
 }
+SERVE_Q, SERVE_E, SERVE_D, SERVE_NB = 64, 1_000_000, 128, 1012
+BINMAX_CASES = {   # name: (E, bw, with bias)
+    "serving": (SERVE_E, 128, False),
+    "serving_bias": (SERVE_E, 128, True),
+    "tail": (SERVE_E - 1, 128, False),
+    "bw64_bias": (SERVE_E, 64, True),
+}
+RESCORE_CASES = {   # name: (bins, row dtype)
+    "serving_fp32": ("chosen", "float32"),
+    "serving_bf16": ("chosen", "bfloat16"),
+    "shared_fp32": ("shared", "float32"),
+    "shared_bf16": ("shared", "bfloat16"),
+}
 DEFAULT_CASES = {
     "fwd": ["cerc", "w3c_ragged", "cerc_bf16", "lse_full_128k",
             "lse_full_flagship"],
@@ -72,7 +100,10 @@ DEFAULT_CASES = {
     "apply": ["w3c", "cerc", "ll_500k", "lse_full_128k", "lse_full_tail"],
     "slse_fwd": list(SLSE_CASES),
     "slse_bwd": list(SLSE_CASES),
+    "binmax": list(BINMAX_CASES),
+    "rescore": list(RESCORE_CASES),
 }
+_serving = {}
 PLAIN_MAX_LOGITS = 1 << 30     # [B, E] fp32 entries the plain version may hold
 APPLY_LR, APPLY_COUNT = 1e-2, 3
 
@@ -93,10 +124,68 @@ def device_ms(fn, calls: int) -> dict:
     return {k: v / calls for k, v in sorted(by.items(), key=lambda t: -t[1])}
 
 
+def serving_inputs() -> dict:
+    """chip_smoke's serving inputs (phase 3), made once: unit rows R [64,
+    128] and M [1M, 128], bias, alpha, the bf16 sweep copy, each query's top
+    1012 bins by the plain bin maxima, a shared-bins index and the
+    bin-major rows in both dtypes."""
+    if not _serving:
+        from sert_tpu_torch.ops import score_binmax as k3
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(0)
+        R = torch.randn(SERVE_Q, SERVE_D, generator=g, device=dev)
+        R = R / R.norm(dim=1, keepdim=True)
+        M = torch.randn(SERVE_E, SERVE_D, generator=g, device=dev)
+        M = M / M.norm(dim=1, keepdim=True)
+        bias = 0.1 * torch.randn(SERVE_E, generator=g, device=dev)
+        alpha = torch.randint(1, 9, (SERVE_Q,), generator=g,
+                              device=dev).float()
+        Mp = k3.prepare_binmax_matrix(M)
+        bins = k3.score_binmax_plain(R, Mp, SERVE_E)
+        chosen = torch.topk(bins, SERVE_NB, dim=1).indices.int()
+        shared = torch.stack([
+            chosen[0][torch.randperm(SERVE_NB, generator=g, device=dev)]
+            for _ in range(SERVE_Q)]).int()
+        n_bins = bins.shape[1]
+        Mb = torch.nn.functional.pad(M, (0, 0, 0, n_bins * 128 - SERVE_E))
+        Mb = Mb.view(n_bins, 128, SERVE_D)
+        _serving.update(R=R, Rb=R.bfloat16(), bias=bias, alpha=alpha, Mp=Mp,
+                        chosen=chosen, shared=shared, float32=Mb,
+                        bfloat16=Mb.bfloat16())
+    return _serving
+
+
+def serving_calls(kernel: str, name: str, with_plain: bool):
+    """[(label, fn)] of K3 or K4 and their plain versions on the serving
+    inputs; K4's also after K3's sweep (see the docstring)."""
+    from sert_tpu_torch.ops import gather_rescore as k4
+    from sert_tpu_torch.ops import score_binmax as k3
+    x = serving_inputs()
+    if kernel == "binmax":
+        E, bw, with_bias = BINMAX_CASES[name]
+        ba = (x["bias"], x["alpha"]) if with_bias else (None, None)
+        return [(label, lambda fn=fn: fn(x["R"], x["Mp"], E, *ba, bw))
+                for label, fn in [("kernel", k3.score_binmax_prepared),
+                                  ("plain", k3.score_binmax_plain)]
+                [:1 + with_plain]]
+    bins, dtype = RESCORE_CASES[name]
+    Mb, idx = x[dtype], x[bins]
+    out = []
+    for label, fn in [("kernel", k4.gather_rescore),
+                      ("plain", k4.gather_rescore_plain)][:1 + with_plain]:
+        out.append((label, lambda fn=fn: fn(x["R"], Mb, idx)))
+        out.append((label + "_after_k3", lambda fn=fn: (
+            k3.score_binmax_prepared(x["Rb"], x["Mp"], SERVE_E),
+            fn(x["R"], Mb, idx))))
+    return out
+
+
 def calls_of(kernel: str, name: str, opt: str, with_plain: bool):
     """[(label, fn)] of the kernel's call and, with ``with_plain``, its
     plain version's, on the case's seeded inputs."""
     import chip_smoke
+    if kernel in ("binmax", "rescore"):
+        return serving_calls(kernel, name, with_plain)
     from sert_tpu_torch.ops import sampled_lse as slse
     from sert_tpu_torch.ops import xent
     from sert_tpu_torch.ops.sampled_lse import _compute_dtype
@@ -168,7 +257,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", choices=sorted(DEFAULT_CASES), default="bwd")
     ap.add_argument("--cases", nargs="*",
-                    choices=sorted(CASES) + sorted(SLSE_CASES))
+                    choices=sorted(CASES) + sorted(SLSE_CASES)
+                    + sorted(BINMAX_CASES) + sorted(RESCORE_CASES))
     ap.add_argument("--opt", default="adam", choices=["adam", "adagrad",
                                                       "sgd"])
     ap.add_argument("--calls", type=int, default=20)
@@ -184,15 +274,23 @@ def main() -> int:
     print(smi)
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "kernel": args.kernel, "opt": args.opt}
+    serving = args.kernel in ("binmax", "rescore")
     for name in args.cases or DEFAULT_CASES[args.kernel]:
-        B, E = (SLSE_CASES if args.kernel.startswith("slse") else
-                CASES)[name][:2]
-        calls = args.calls if E <= 200_000 else max(2, args.calls // 10)
+        if serving:
+            B, E, calls = 1, 1, args.calls
+        else:
+            B, E = (SLSE_CASES if args.kernel.startswith("slse") else
+                    CASES)[name][:2]
+            calls = args.calls if E <= 200_000 else max(2, args.calls // 10)
         for label, fn in calls_of(args.kernel, name, args.opt,
                                   B * E <= PLAIN_MAX_LOGITS):
             ms = device_ms(fn, calls)
+            if label.endswith("_after_k3"):   # K4's own kernels only
+                ms = {k: v for k, v in ms.items() if "score_binmax" not in k}
+                event = float("nan")
+            else:
+                event = chip_smoke.cuda_ms(fn, iters=calls, warmup=1)
             total = sum(ms.values())
-            event = chip_smoke.cuda_ms(fn, iters=calls, warmup=1)
             print(f"{args.kernel} {name} {label} device_ms_per_call="
                   f"{total:.4f} event_ms_per_call={event:.4f}")
             for k, v in list(ms.items())[:6]:
