@@ -92,7 +92,37 @@ Phases (each prints one line or more; any failure exits non-zero):
      E=500k, V=60k, d=256, B=1024, bf16 compute, fp32 params,
      steps_per_call=8) for adam, adagrad and sgd, fused_update off and on
      in turns: ms per micro-step, peak memory, and the two modes' losses
-     within 1e-4 of each other.
+     within 1e-4 of each other;
+ 15. train_10m: synthetic_10m_training at its widths (V=250k, E=10M,
+     d=128, B=4096, k=32768 unigram negatives, bf16 compute and params,
+     the row-sparse lazy adam step, cosine, steps_per_call=4, bf16
+     params-only snapshots), cut to one epoch of a 2^20-window training
+     fixture (256 micro-steps) in place of 500.5M instances, through
+     pipeline.train_from_dir: the loss finite and falling, K1 and K2 once
+     each a micro-step, mid-run steps/s and peak memory; then the first
+     micro-step through K1/K2 against the plain version from the same
+     state and negatives (loss within 1e-4, gradient norm within the bf16
+     class), two lazy runs of 8 micro-steps bit for bit, and the rows no
+     micro-step touched (drawn again from a copy of the generator) at
+     their initial bits;
+ 16. serve_10m: that run's final snapshot served through K3 + K4 at
+     E = 10M (64 topics, depth 1000) against the fp32 dense oracle
+     (recall >= 0.99, score error <= 1e-5), with the latencies of one query
+     and of a batch; then, on the searcher's staged rows (bf16 prefilter
+     2.56 GB, fp32 rescore rows 5.12 GB), K3's bin maxima for one batch of
+     64 topics against score_binmax_plain and K4's every rescored score for
+     that batch's bins against gather_rescore_plain, within 1e-5;
+ 17. sparse_ab_10m: the same recipe's micro-step with the lazy step and
+     with the dense one (dense adam over the bf16 params), in turns, a
+     warm call then 16 timed micro-steps each: ms a micro-step and peak
+     memory (reported; only the losses must be finite);
+ 18. sparse_resume: synthetic_1m_retrieval on phase 7's fixture with the
+     lazy adam step, a full checkpoint every 32 micro-steps; after a crash
+     right after the first, a fresh loop resumes and must end bit for bit
+     where the unbroken run ended (params, moments, generator);
+ 19. nce_tiny: tiny_recipe("lse") as it stands (the NCE objective) end to
+     end on the card with the dense step and with the lazy one: the loss
+     falls, NDCG@100 printed.
 Then one JSON line of kernel records (with each one's bound: the larger of
 its operations over the H100's peak rate for their type, K1/K2's also
 their exponentials over the special-function units' rate, and its bytes
@@ -163,6 +193,17 @@ AB_STEPS_PER_CALL, AB_CALLS = 8, 3
 # The H100 SXM's published dense peaks (bf16 on tensor cores, fp32 on the
 # CUDA cores, and fp32 products as three TF32 passes on the tensor cores,
 # as K5-K7 run them) and its memory rate, for each kernel's bound.
+# synthetic_10m_training at its widths (SYNTH_10M's vocabulary and
+# entities) on one epoch of a seeded training fixture of 2^20 windows (256
+# micro-steps) in place of its 500.5M instances; served to 64 topics.
+RECIPE_10M = "synthetic_10m_training"
+V_10M, E_10M = 250_000, 10_000_000
+TRAIN_10M_INSTANCES = 1 << 20
+TRAIN_10M_LOG_EVERY = 16
+N_QUERIES_10M = 64
+LAZY_REPEAT_STEPS = 8     # two lazy runs of this many micro-steps, bit for bit
+AB_10M_STEPS = 16         # timed micro-steps of each mode in sparse_ab_10m
+RESUME_CKPT_EVERY = 32    # sparse_resume: the mid-epoch full checkpoint
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # Exponentials a second: 16 special-function-unit results a clock on each
@@ -514,11 +555,12 @@ def phase_train_kernels() -> dict:
     return records
 
 
-def full_width_searcher(root: str):
-    """Write a random-weight RECIPE serving fixture at full width under
-    ``root`` and stage the port's EntitySearcher on it, with peak memory
-    counted from the load. Returns (searcher, data_dir, run_dir, topics,
-    fixture seconds, load + stage + warm-up seconds)."""
+def full_width_searcher(root: str, entities: int = E):
+    """Write a random-weight RECIPE serving fixture at full width (with
+    ``entities`` entities) under ``root`` and stage the port's
+    EntitySearcher on it, with peak memory counted from the load. Returns
+    (searcher, data_dir, run_dir, topics, fixture seconds, load + stage +
+    warm-up seconds)."""
     import torch
     from sert_tpu_torch.cli import load_recipe
     from sert_tpu_torch.fixture import write_serving_fixture
@@ -527,7 +569,7 @@ def full_width_searcher(root: str):
     recipe = load_recipe(RECIPE)
     t0 = time.perf_counter()
     data_dir, run_dir, topics = write_serving_fixture(
-        root, recipe, V, E, N_QUERIES, seed=SEED, device="cuda")
+        root, recipe, V, entities, N_QUERIES, seed=SEED, device="cuda")
     t1 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -654,15 +696,19 @@ def phase_cli(root: str, data_dir: str, run_dir: str, topics: dict,
                              f"{metrics}")
 
 
-def train_recipe_json(root: str) -> str:
-    """The flagship recipe with this phase's cuts (2 epochs, a log every
-    16 steps so that the 128 steps log at all) as a recipe JSON."""
+def train_recipe_json(root: str, name: str = RECIPE,
+                      epochs: int = TRAIN_EPOCHS,
+                      log_every: int = TRAIN_LOG_EVERY,
+                      filename: str = "recipe.json") -> str:
+    """A recipe with a phase's cuts (``epochs`` epochs, a log every
+    ``log_every`` micro-steps so that a short run logs at all) as a recipe
+    JSON under ``root``; by default the flagship's for phase 7."""
     import dataclasses
     from sert_tpu_torch.cli import load_recipe
-    r = load_recipe(RECIPE)
+    r = load_recipe(name)
     r = dataclasses.replace(r, train=dataclasses.replace(
-        r.train, num_epochs=TRAIN_EPOCHS, log_every_steps=TRAIN_LOG_EVERY))
-    path = os.path.join(root, "recipe.json")
+        r.train, num_epochs=epochs, log_every_steps=log_every))
+    path = os.path.join(root, filename)
     with open(path, "w") as fh:
         json.dump(dataclasses.asdict(r), fh, indent=2, sort_keys=True)
     return path
@@ -733,14 +779,7 @@ def phase_train(root: str):
         raise AssertionError(f"snapshots are not the recipe's: {written}")
 
     loaded, _ = ckpt.load_checkpoint(final, state)
-    same = (loaded.step == state.step
-            and all(torch.equal(loaded.params[n], state.params[n])
-                    for n in state.params)
-            and all(torch.equal(v, state.opt_state[n])
-                    if torch.is_tensor(v) else v == state.opt_state[n]
-                    for n, v in loaded.opt_state.items())
-            and torch.equal(loaded.generator.get_state(),
-                            state.generator.get_state()))
+    same = _states_equal(loaded, state)
     say("train", reloaded_final=os.path.basename(final),
         equals_state_in_memory=same)
     if not same:
@@ -1412,16 +1451,11 @@ def _check_served_loglinear(phase, recipe, col, data_dir, run_dir) -> None:
     torch.cuda.empty_cache()
 
 
-def _first_steps(recipe, data_dir, variants) -> dict:
-    """The first PARITY_STEPS micro-steps of epoch 0's batches, one at a
-    time, from the recipe's initial state on the card, for each (name,
-    model config, train config or None for the recipe's) of ``variants``:
-    {name: (losses, final params, launches of (K5, K6, K7))}."""
-    import dataclasses
+def _epoch0_batches(recipe, data_dir, n):
+    """(the first ``n`` batches of epoch 0 on the card, the run's micro-step
+    horizon for the lr schedule)."""
     import torch
     from sert_tpu_torch.data.instances import InstanceDataset
-    from sert_tpu_torch.ops import xent
-    from sert_tpu_torch.train.step import init_state, make_train_step
     ds = InstanceDataset(data_dir, seed=recipe.train.seed)
     horizon = recipe.train.num_epochs * ds.num_batches_per_epoch(
         recipe.train.batch_size)
@@ -1429,8 +1463,20 @@ def _first_steps(recipe, data_dir, variants) -> dict:
     for batch, _ in ds.iter_batches(recipe.train.batch_size, epoch=0):
         batches.append({k: torch.from_numpy(v).cuda()
                         for k, v in batch.items()})
-        if len(batches) == PARITY_STEPS:
+        if len(batches) == n:
             break
+    return batches, horizon
+
+
+def _first_steps(recipe, data_dir, variants) -> dict:
+    """The first PARITY_STEPS micro-steps of epoch 0's batches, one at a
+    time, from the recipe's initial state on the card, for each (name,
+    model config, train config or None for the recipe's) of ``variants``:
+    {name: (losses, final params, launches of (K5, K6, K7))}."""
+    import dataclasses
+    from sert_tpu_torch.ops import xent
+    from sert_tpu_torch.train.step import init_state, make_train_step
+    batches, horizon = _epoch0_batches(recipe, data_dir, PARITY_STEPS)
     out = {}
     for name, mcfg, tcfg in variants:
         tcfg = dataclasses.replace(tcfg or recipe.train, steps_per_call=1,
@@ -1495,6 +1541,394 @@ def phase_train_lse_full(root: str) -> dict:
     return launches
 
 
+def _unigram_noise(recipe, data_dir):
+    """The unigram noise logits of a data dir's associations, on the card,
+    as pipeline.train_from_dir builds them."""
+    import numpy as np
+    from sert_tpu_torch.data.assoc import Associations
+    from sert_tpu_torch.data.prepare import ASSOC_NAME
+    from sert_tpu_torch.models import lse
+    counts = Associations.load(os.path.join(
+        data_dir, ASSOC_NAME)).entity_instance_counts(
+            recipe.model.num_entities)
+    return lse.noise_logits(np.asarray(counts, np.float64), recipe.model,
+                            "cuda")
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+    return (a.step == b.step
+            and all(torch.equal(a.params[n], b.params[n]) for n in a.params)
+            and a.opt_state.keys() == b.opt_state.keys()
+            and all(torch.equal(v, b.opt_state[n]) if torch.is_tensor(v)
+                    else v == b.opt_state[n]
+                    for n, v in a.opt_state.items())
+            and torch.equal(a.generator.get_state(),
+                            b.generator.get_state()))
+
+
+def phase_train_10m(root: str):
+    """synthetic_10m_training at its widths (bf16 params, the lazy adam
+    step, K1/K2 every micro-step) on one epoch of the training fixture,
+    through the function the `train` command runs; then its first
+    micro-step against the plain version and two lazy runs bit for bit.
+    Returns (the recipe JSON, data_dir, run_dir, topics, launches by
+    kernel)."""
+    import torch
+    from sert_tpu_torch import pipeline
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.fixture import write_training_fixture
+    from sert_tpu_torch.ops import sampled_lse as slse
+    from sert_tpu_torch.train import checkpoint as ckpt
+
+    recipe_json = train_recipe_json(root, RECIPE_10M, 1, TRAIN_10M_LOG_EVERY,
+                                    "recipe_10m.json")
+    recipe = load_recipe(recipe_json)
+    work = os.path.join(root, "10m")
+    t0 = time.perf_counter()
+    data_dir, topics, _ = write_training_fixture(
+        work, recipe, V_10M, E_10M, TRAIN_10M_INSTANCES,
+        num_queries=N_QUERIES_10M, seed=SEED)
+    t1 = time.perf_counter()
+    run_dir = os.path.join(work, "run")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    slse.fwd_launches = slse.bwd_launches = 0
+    state, resolved = pipeline.train_from_dir(recipe, data_dir, run_dir,
+                                              resume=False, device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"sampled_lse_fwd": slse.fwd_launches,
+                "sampled_lse_bwd": slse.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    _, losses, mid_sps = _train_log(run_dir)
+    warm = next((r for r in map(json.loads, open(os.path.join(
+        run_dir, "train_log.jsonl"))) if r["event"] == "warmup"), {})
+    saved = ckpt.list_checkpoints(os.path.join(run_dir, "checkpoints"))
+    written = {s: {k: v for k, v in ckpt.load_meta(p).items()
+                   if k in ("params_only", "snapshot_dtype", "epoch")}
+               for s, p in saved.items()}
+    say("train_10m", cut=f"1_epoch_of_{TRAIN_10M_INSTANCES}_fixture_windows"
+        "_not_500.5M_instances", entities=E_10M, vocab=V_10M,
+        fixture_s=t1 - t0, train_s=t2 - t1, steps=state.step,
+        first_loss=losses[0], last_loss=losses[-1],
+        mid_run_steps_per_sec=_spread(mid_sps),
+        setup_s=warm.get("setup_s"), init_s=warm.get("init_s"),
+        first_step_s=warm.get("first_step_s"), peak_mem_bytes=peak,
+        launches=json.dumps(launches).replace(" ", ""),
+        checkpoints=json.dumps(written).replace(" ", ""))
+    want = TRAIN_10M_INSTANCES // B_TRAIN
+    if state.step != want or not any(
+            k.startswith("['rows']") for k in state.opt_state):
+        raise AssertionError(f"{state.step} steps (expected {want}), or "
+                             "not the lazy step's state")
+    _check_falling(losses)
+    if launches != {"sampled_lse_fwd": want, "sampled_lse_bwd": want}:
+        raise AssertionError(f"K1/K2 launched {launches} times for {want} "
+                             "micro-steps")
+    if not saved or any(not w.get("params_only")
+                        or w.get("snapshot_dtype") != "bfloat16"
+                        for w in written.values()):
+        raise AssertionError(f"snapshots are not the recipe's: {written}")
+    del state
+    torch.cuda.empty_cache()
+    _lazy_checks_10m(resolved, data_dir)
+    return recipe_json, data_dir, run_dir, topics, launches
+
+
+def _lazy_checks_10m(recipe, data_dir) -> None:
+    """The 10M run's first micro-step through K1/K2 against the plain
+    version (fused_softmax="off") from the same state and negatives; two
+    lazy runs of LAZY_REPEAT_STEPS micro-steps bit for bit; rows that no
+    micro-step touched (drawn again from a copy of the generator) keep
+    their initial bits."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch.models import lse
+    from sert_tpu_torch.ops import sampled_lse as slse
+    from sert_tpu_torch.train.step import init_state, make_train_step
+
+    batches, horizon = _epoch0_batches(recipe, data_dir, LAZY_REPEAT_STEPS)
+    noise = _unigram_noise(recipe, data_dir)
+    mcfg = recipe.model
+    tcfg = dataclasses.replace(recipe.train, steps_per_call=1,
+                               lr_decay_steps=horizon)
+    first = {}
+    for fused in ("auto", "off"):
+        m = mcfg.replace(fused_softmax=fused)
+        state = init_state(tcfg.seed, m, tcfg, device="cuda")
+        step = make_train_step(m, tcfg, noise=noise, device="cuda")
+        slse.fwd_launches = slse.bwd_launches = 0
+        _, met = step(state, batches[0])
+        first[fused] = (met["loss"].item(), met["grad_norm"].item(),
+                        (slse.fwd_launches, slse.bwd_launches))
+        del state, step, met
+        torch.cuda.empty_cache()
+    loss_rel = abs(first["auto"][0] - first["off"][0]) / abs(first["off"][0])
+    norm_rel = abs(first["auto"][1] - first["off"][1]) / abs(first["off"][1])
+
+    runs, t_runs = [], []
+    for _ in range(2):
+        state = init_state(tcfg.seed, mcfg, tcfg, device="cuda")
+        if not runs:
+            init = {n: state.params[n].clone()
+                    for n in ("word_emb", "entity_emb")}
+            gen = torch.Generator(device="cuda")
+            gen.set_state(state.generator.get_state())
+        step = make_train_step(mcfg, tcfg, noise=noise, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            step(state, b)
+        torch.cuda.synchronize()
+        t_runs.append((time.perf_counter() - t0) * 1e3 / len(batches))
+        runs.append(state)
+    same = _states_equal(*runs)
+    negs = [lse.sample_negatives(gen, noise, 1, mcfg)[0] for _ in batches]
+    touched = {
+        "entity_emb": torch.cat([b["entities"].long() for b in batches]
+                                + negs),
+        "word_emb": torch.cat([b["windows"].long().reshape(-1)
+                               for b in batches])}
+    kept, moved = {}, {}
+    for n, ids in touched.items():
+        mask = torch.ones(init[n].shape[0], dtype=torch.bool, device="cuda")
+        mask[ids] = False                                   # untouched rows
+        kept[n] = torch.equal(runs[0].params[n][mask], init[n][mask])
+        moved[n] = int((runs[0].params[n] != init[n]).any(dim=1).sum())
+    say("train_10m", first_step_loss_k1k2=first["auto"][0],
+        first_step_loss_plain=first["off"][0], loss_rel_diff=loss_rel,
+        grad_norm_rel_diff=norm_rel,
+        launches_k1k2_plain=json.dumps([first["auto"][2], first["off"][2]]
+                                       ).replace(" ", ""),
+        repeat_steps=len(batches), two_lazy_runs_bit_equal=same,
+        repeat_ms_per_step=json.dumps(t_runs),
+        untouched_rows_unchanged=json.dumps(kept).replace(" ", ""),
+        rows_moved=json.dumps(moved).replace(" ", ""))
+    if loss_rel > XENT_SUM_RTOL or norm_rel > SLSE_TOL["bfloat16"] or \
+            first["auto"][2] != (1, 1) or first["off"][2] != (0, 0):
+        raise AssertionError(f"the first micro-step through K1/K2 and the "
+                             f"plain version differ: {first}")
+    if not same or not all(kept.values()) or not min(moved.values()):
+        raise AssertionError(f"lazy runs equal: {same}; untouched rows "
+                             f"unchanged: {kept}; rows moved: {moved}")
+    del runs, init
+    torch.cuda.empty_cache()
+
+
+def phase_serve_10m(recipe_json: str, data_dir: str, run_dir: str,
+                    topics: dict, records: dict) -> dict:
+    """The 10M run's final snapshot behind the EntitySearcher (K3 + K4 at
+    E = 10M, 64 topics, depth 1000) against the fp32 dense oracle, then K3
+    and K4 against their plain versions on its staged rows; returns the
+    launches by kernel (of the search alone)."""
+    import torch
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.serving import EntitySearcher
+    recipe = load_recipe(recipe_json)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    searcher = EntitySearcher(recipe, data_dir, run_dir, k=K, query_batch=Q)
+    say("serve_10m", load_stage_warmup_s=time.perf_counter() - t0,
+        entities=searcher.num_entities,
+        rescore_dtype=str(searcher.prep.M_binned.dtype),
+        staged_bytes=nbytes(searcher.prep.Mp, searcher.prep.M_binned))
+    if searcher.engine != "pallas":
+        raise AssertionError(f"engine {searcher.engine}, not the kernels")
+    _, launches, _ = check_searcher("serve_10m", searcher, topics)
+    _kernels_at_10m(searcher, topics, records)
+    del searcher
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _kernels_at_10m(searcher, topics: dict, records: dict) -> None:
+    """K3 and K4 against their plain versions on the searcher's own staged
+    rows at E = 10M (the bf16 prefilter copy past 2^31 bytes, the fp32
+    rescore rows past 2^32), for one batch of Q topics: K3's every bin max
+    and K4's every rescored score, not only the returned ones. Within TOL;
+    the errors join the kernels' records. Launches here are not counted."""
+    import torch
+    from sert_tpu_torch.ops import gather_rescore as k4
+    from sert_tpu_torch.ops import score_binmax as k3
+    from sert_tpu_torch.ops.exact_topk import PAD_BINS
+    from sert_tpu_torch.ops.score_binmax import pad_dim
+    from sert_tpu_torch.scoring.run import pad_queries
+    from sert_tpu_torch.scoring.scorer import _query_reps_and_terms
+
+    prep, cfg = searcher.prep, searcher.recipe.model
+    texts = [topics[q] for q in sorted(topics)][:Q]
+    _, term_ids, num_terms = pad_queries(
+        {f"{i:04d}": searcher.encode(t) for i, t in enumerate(texts)})
+    with torch.no_grad():
+        R = _query_reps_and_terms(
+            searcher.params, cfg, torch.from_numpy(term_ids).cuda(),
+            torch.from_numpy(num_terms).cuda(), "cosine")[0]
+        R = pad_dim(R.float(), prep.Mp.shape[1])
+        E, bw = prep.num_entities, prep.bin_width
+        errs = {}
+        bins = k3.score_binmax_prepared(R, prep.Mp, E, bin_width=bw)
+        want = k3.score_binmax_plain(R, prep.Mp, E, bin_width=bw)
+        torch.cuda.synchronize()
+        errs["score_binmax"] = (bins - want).abs().max().item()
+        torch.testing.assert_close(bins, want, **TOL)
+        del want
+        bin_idx = torch.topk(bins, K + PAD_BINS, dim=1).indices.int()
+        got = k4.gather_rescore(R, prep.M_binned, bin_idx)
+        want = k4.gather_rescore_plain(R, prep.M_binned, bin_idx)
+        torch.cuda.synchronize()
+        errs["gather_rescore"] = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **TOL)
+    for name, err in errs.items():
+        rec = records[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    say("serve_10m", kernels_vs_plain=json.dumps(errs).replace(" ", ""),
+        queries=R.shape[0], entities=E, bins=bins.shape[1],
+        rescored_per_query=got.shape[1], prefilter_bytes=nbytes(prep.Mp),
+        rescore_bytes=nbytes(prep.M_binned), rtol=TOL["rtol"],
+        atol=TOL["atol"])
+    del bins, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_sparse_ab_10m(recipe_json: str, data_dir: str) -> None:
+    """synthetic_10m_training's micro-step with the lazy step and with the
+    dense one (dense adam over the bf16 params), in turns (on, off, off,
+    on), each from the recipe's initial state on the same epoch-0 batches
+    stacked as the recipe calls them: a warm call, then AB_10M_STEPS timed
+    micro-steps; ms a micro-step and peak memory. Reported, not gated,
+    apart from finite losses."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch import pipeline
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.data.instances import InstanceDataset
+    from sert_tpu_torch.train.step import init_state, make_train_step
+    recipe = pipeline.resolve_model_config(load_recipe(recipe_json),
+                                           InstanceDataset(data_dir).meta)
+    n = recipe.train.steps_per_call
+    batches, horizon = _epoch0_batches(recipe, data_dir, n + AB_10M_STEPS)
+    calls = [{k: torch.stack([b[k] for b in batches[i:i + n]])
+              for k in batches[0]} for i in range(0, len(batches), n)]
+    noise = _unigram_noise(recipe, data_dir)
+    got = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        tcfg = dataclasses.replace(recipe.train, sparse_update=mode,
+                                   lr_decay_steps=horizon)
+        state = init_state(tcfg.seed, recipe.model, tcfg, device="cuda")
+        step = make_train_step(recipe.model, tcfg, noise=noise,
+                               device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, calls[0])                              # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in calls[1:]:
+            _, m = step(state, c)
+        loss = m["loss"].item()                            # syncs
+        ms = (time.perf_counter() - t0) * 1e3 / AB_10M_STEPS
+        got[mode].append((ms, torch.cuda.max_memory_allocated(), loss))
+        del state, step, m
+        torch.cuda.empty_cache()
+    on = sum(t for t, _, _ in got["on"]) / 2
+    off = sum(t for t, _, _ in got["off"]) / 2
+    say("sparse_ab_10m", E=E_10M, V=V_10M, B=recipe.train.batch_size,
+        k=recipe.model.num_negatives, steps_per_call=n,
+        timed_steps=AB_10M_STEPS,
+        lazy_ms_per_step=json.dumps([t for t, _, _ in got["on"]]),
+        dense_ms_per_step=json.dumps([t for t, _, _ in got["off"]]),
+        dense_over_lazy=off / on,
+        lazy_peak_mem_bytes=max(p for _, p, _ in got["on"]),
+        dense_peak_mem_bytes=max(p for _, p, _ in got["off"]),
+        lazy_loss=got["on"][0][2], dense_loss=got["off"][0][2])
+    if not all(math.isfinite(x[2]) for v in got.values() for x in v):
+        raise AssertionError(f"a loss is not finite: {got}")
+
+
+def phase_sparse_resume(root: str, data_dir: str) -> None:
+    """The flagship's widths (synthetic_1m_retrieval on phase 7's fixture)
+    with the lazy adam step for one epoch, a full checkpoint every
+    RESUME_CKPT_EVERY micro-steps; then the checkpoints after the first
+    are deleted (a crash right after it) and a fresh loop resumes: its
+    final state (params, the rows' moments, the generator) must be the
+    unbroken run's, bit for bit."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch import pipeline
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.train import checkpoint as ckpt
+    r = load_recipe(RECIPE)
+    recipe = dataclasses.replace(r, name="sparse_resume",
+                                 train=dataclasses.replace(
+                                     r.train, num_epochs=1,
+                                     sparse_update="on",
+                                     checkpoint_every_steps=RESUME_CKPT_EVERY))
+    run_dir = os.path.join(root, "sparse_resume")
+    cdir = os.path.join(run_dir, "checkpoints")
+    t0 = time.perf_counter()
+    whole, _ = pipeline.train_from_dir(recipe, data_dir, run_dir,
+                                       resume=False, device="cuda")
+    t1 = time.perf_counter()
+    saved = ckpt.list_checkpoints(cdir)
+    first = min(saved)
+    if not ckpt.has_sparse_opt_state(saved[first]) or \
+            not ckpt.load_meta(saved[first]).get("cursor"):
+        raise AssertionError(f"{saved[first]} is not a mid-epoch lazy "
+                             "checkpoint")
+    size = os.path.getsize(saved[first])
+    for s, path in saved.items():
+        if s > first:
+            os.remove(path)
+            os.remove(path[:-len(".npz")] + ".json")
+    resumed, _ = pipeline.train_from_dir(recipe, data_dir, run_dir,
+                                         resume=True, device="cuda")
+    t2 = time.perf_counter()
+    same = _states_equal(whole, resumed)
+    say("sparse_resume", steps=whole.step, resumed_from=first,
+        checkpoint_bytes=size, unbroken_s=t1 - t0, resumed_s=t2 - t1,
+        bit_equal=same)
+    if not same:
+        raise AssertionError("the resumed run's state differs from the "
+                             "unbroken run's")
+    del whole, resumed
+    torch.cuda.empty_cache()
+
+
+def phase_nce_tiny(root: str) -> dict:
+    """tiny_recipe("lse") as it stands (the NCE objective) end to end on the
+    card, with the dense step and with the lazy one; the loss must fall.
+    Returns the launches by kernel of both runs."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch import pipeline, recipes
+    from sert_tpu_torch.ops import gather_rescore as k4
+    from sert_tpu_torch.ops import score_binmax as k3
+    col = recipes.tiny_spec().build()
+    launches = {"score_binmax": 0, "gather_rescore": 0}
+    for mode in ("off", "on"):
+        r = recipes.tiny_recipe("lse")
+        r = dataclasses.replace(r, name=f"nce_tiny_{mode}",
+                                train=dataclasses.replace(
+                                    r.train, sparse_update=mode))
+        k3.launches = k4.launches = 0
+        t0 = time.perf_counter()
+        results = pipeline.run_end_to_end(col, r, os.path.join(root, r.name),
+                                          device="cuda")
+        _, losses, _ = _train_log(os.path.join(root, r.name, "run"))
+        say("nce_tiny", objective=r.model.objective, sparse_update=mode,
+            e2e_s=time.perf_counter() - t0, first_loss=losses[0],
+            last_loss=losses[-1], ndcg_at_100=results["all"]["ndcg@100"],
+            launches=json.dumps({"score_binmax": k3.launches,
+                                 "gather_rescore": k4.launches}
+                                ).replace(" ", ""))
+        _check_falling(losses)
+        launches["score_binmax"] += k3.launches
+        launches["gather_rescore"] += k4.launches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import sert_tpu_torch  # noqa: F401  (fails outside a checkout)
     import torch
@@ -1514,8 +1948,17 @@ def main() -> int:
         phase_serve_trained(root, data_dir, run_dir, topics, qrels)
         # Each path's launches are counted from 0 over that path alone;
         # a kernel's record sums the paths it serves.
-        for path in (phase_train_loglinear(root), phase_train_fused(root),
-                     phase_train_lse_full(root)):
+        paths = [phase_train_loglinear(root), phase_train_fused(root),
+                 phase_train_lse_full(root)]
+        recipe_10m, data_10m, run_10m, topics_10m, launches_10m = (
+            phase_train_10m(root))
+        paths += [launches_10m,
+                  phase_serve_10m(recipe_10m, data_10m, run_10m, topics_10m,
+                                  records)]
+        phase_sparse_ab_10m(recipe_10m, data_10m)
+        phase_sparse_resume(root, data_dir)
+        paths.append(phase_nce_tiny(root))
+        for path in paths:
             for name, n in path.items():
                 launches[name] = launches.get(name, 0) + n
     phase_fused_ab()

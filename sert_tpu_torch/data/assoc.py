@@ -47,8 +47,14 @@ class EntityRegistry:
         return list(self._names)
 
     def save(self, path: str) -> None:
+        self.write(path, self._names)
+
+    @staticmethod
+    def write(path: str, names: Sequence[str]) -> None:
+        """Write ``names`` in :meth:`save`'s format without building a
+        registry's name index (seconds at 10M names)."""
         with open(path, "w") as fh:
-            json.dump(self._names, fh)
+            fh.write(json.dumps(list(names)))
 
     @classmethod
     def load(cls, path: str) -> "EntityRegistry":
@@ -86,8 +92,14 @@ class Associations:
         return counts
 
     def save(self, path: str) -> None:
+        self.write(path, self._by_doc)
+
+    @staticmethod
+    def write(path: str, by_doc: Dict[str, List[int]]) -> None:
+        """Write a doc_id -> entity ids map in :meth:`save`'s format
+        without building an Associations."""
         with open(path, "w") as fh:
-            json.dump(self._by_doc, fh)
+            fh.write(json.dumps(by_doc))
 
     @classmethod
     def load(cls, path: str) -> "Associations":

@@ -59,14 +59,15 @@ def entity_name(i: int) -> str:
 
 
 def _write_names(data_dir: str, num_terms: int, num_entities: int):
-    """Write the vocabulary and the entity registry; returns (terms,
-    vocab)."""
+    """Write the vocabulary and the entity registry's file (through
+    ``EntityRegistry.write``: no name index, seconds at 10M entities);
+    returns (terms, vocab)."""
     os.makedirs(data_dir, exist_ok=True)
     terms = [term(i) for i in range(num_terms)]
     vocab = Vocabulary(terms, [1] * num_terms)
     vocab.save(os.path.join(data_dir, VOCAB_NAME))
-    EntityRegistry([entity_name(i) for i in range(num_entities)]).save(
-        os.path.join(data_dir, ENTITIES_NAME))
+    EntityRegistry.write(os.path.join(data_dir, ENTITIES_NAME),
+                         [entity_name(i) for i in range(num_entities)])
     return terms, vocab
 
 
@@ -150,14 +151,18 @@ def write_training_fixture(root: str, recipe: RecipeConfig, num_terms: int,
     writer.finalize(extra_meta={"vocab_size": V, "num_entities": E,
                                 "vocab_hash": vocab.content_hash()})
 
-    # One document per expected window (at least one): the association
-    # counts the unigram noise reads follow the entities' popularity.
+    # Each entity has one document per expected window (at least one), so
+    # the association counts the unigram noise reads follow its popularity.
+    # Document j holds every entity with more than j documents: the file
+    # then has max(docs) documents, not one an entity, which keeps writing
+    # and loading it to seconds at 10M entities.
     docs = np.maximum(1, np.rint(prob * num_instances)).astype(np.int64)
-    assoc = Associations()
-    for e in range(E):
-        for j in range(docs[e]):
-            assoc.add(f"d{e}.{j}", e)
-    assoc.save(os.path.join(data_dir, ASSOC_NAME))
+    by_docs = np.argsort(-docs, kind="stable")
+    more = E - np.searchsorted(np.sort(docs), np.arange(docs.max()),
+                               side="right")        # entities with > j docs
+    Associations.write(os.path.join(data_dir, ASSOC_NAME),
+                       {f"d{j}": by_docs[:n].tolist()
+                        for j, n in enumerate(more)})
 
     topics, qrels = {}, {}
     for q, e in enumerate(np.argsort(rank)[:num_queries]):

@@ -2,9 +2,9 @@
 ``sert_tpu/models/api.py`` :29-92).
 
 All three families are ported for training and inference: ``loglinear``
-and ``lse_full`` train with the full softmax (K5/K6), ``lse`` with
-``objective="sampled_softmax"`` (K1/K2). The NCE objective comes with
-ROADMAP Queue 1 item 7 and raises ``NotImplementedError`` until then.
+and ``lse_full`` train with the full softmax (K5/K6), ``lse`` with the
+binary NCE objective (plain PyTorch) or ``objective="sampled_softmax"``
+(K1/K2).
 """
 
 from __future__ import annotations
@@ -46,9 +46,8 @@ def loss_fn(params: Params, batch, cfg: ModelConfig,
         return lse.loss_sampled_softmax(params, batch, cfg,
                                         generator=generator, noise=noise)
     if cfg.objective == "nce":
-        raise NotImplementedError(
-            "the LSE nce objective is not ported yet (ROADMAP Queue 1 "
-            "item 7: NCE objective); use objective='sampled_softmax'")
+        return lse.loss(params, batch, cfg, generator=generator,
+                        noise=noise)
     raise ValueError(f"unknown LSE objective: {cfg.objective!r}")
 
 

@@ -1,26 +1,31 @@
 """LSE — Latent Semantic Entities (port of ``sert_tpu/models/lse.py``:
 ``init`` :33, ``noise_logits`` :45, ``window_rep`` :59,
-``sample_negatives`` :69, ``sampled_softmax_inputs`` :139,
+``sample_negatives`` :69, ``loss`` :86, ``sampled_softmax_inputs`` :139,
 ``loss_sampled_softmax`` :171, ``loss_full_softmax`` :222,
 ``query_scores`` :377).
 
 word embeddings -> masked-mean pooling -> ``tanh(x W + b)`` into entity
 space -> similarity against ``entity_emb`` [E, d_e]. Trained with the
-importance-corrected sampled softmax over batch-shared negatives, whose
-masked logsumexp runs through the K1/K2 kernels (``ops/sampled_lse``) on
-the card, or (``lse_full``) with the full softmax over every entity, whose
-cross-entropy runs through K5/K6 (``ops/xent``). The binary NCE objective
-(``loss`` :86) is not ported yet (ROADMAP Queue 1 item 7).
+binary NCE objective over per-example negatives (``loss``, plain PyTorch:
+the reference has no kernel for it), with the importance-corrected sampled
+softmax over batch-shared negatives, whose masked logsumexp runs through
+the K1/K2 kernels (``ops/sampled_lse``) on the card, or (``lse_full``)
+with the full softmax over every entity, whose cross-entropy runs through
+K5/K6 (``ops/xent``). The two sampled objectives end in
+:func:`nce_tail` / :func:`sampled_softmax_tail`, functions of the
+already-gathered rows, which the row-sparse step (``train/sparse.py``)
+calls on its own gathers.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from sert_tpu_torch.models.common import (Params, compute_dtype,
                                           masked_mean_embed, param_dtype,
@@ -67,9 +72,16 @@ def window_rep(params: Params, windows: torch.Tensor, lengths: torch.Tensor,
     of compute-dtype operands accumulated in fp32 (bf16 x bf16 products are
     exact in fp32, so an fp32 matmul of the rounded operands is that
     accumulation; TF32 must be off on the card), bias and tanh in fp32."""
-    ct = compute_dtype(cfg)
-    pooled = masked_mean_embed(params["word_emb"], windows, lengths, ct)
-    h = pooled.float() @ params["proj_w"].to(ct).float()
+    pooled = masked_mean_embed(params["word_emb"], windows, lengths,
+                               compute_dtype(cfg))
+    return project(pooled, params, cfg)
+
+
+def project(pooled: torch.Tensor, params: Params,
+            cfg: ModelConfig) -> torch.Tensor:
+    """[B, d_e] fp32 tanh(pooled @ proj_w + b) of compute-dtype pooled
+    rows (``window_rep`` after its pooling)."""
+    h = pooled.float() @ params["proj_w"].to(compute_dtype(cfg)).float()
     return torch.tanh(h + params["proj_b"].float())
 
 
@@ -105,58 +117,120 @@ def _cumsum(x: torch.Tensor) -> torch.Tensor:
     return (m + before[:, None]).reshape(-1)[:n]
 
 
+def noise_table(noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cdf, log q) of q = softmax(noise), both [E] fp32: the inclusive
+    prefix sums the inverse-CDF draws search, and the log-probabilities the
+    sampled softmax's correction reads."""
+    z = noise.float()
+    return _cumsum(torch.softmax(z, 0)), torch.log_softmax(z, 0)
+
+
+# noise tensor -> (its version, cdf, log q). A run's noise is fixed, and a
+# softmax over one 10M-long row takes milliseconds on the card (one block),
+# so each noise tensor's table is computed once, and again only if the
+# tensor changes in place. Keyed by identity: a tensor's == is elementwise.
+_TABLES = WeakIdKeyDictionary()
+
+
+def _table(noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    hit = _TABLES.get(noise)
+    if hit is None or hit[0] != noise._version:
+        hit = (noise._version, *noise_table(noise))
+        _TABLES[noise] = hit
+    return hit[1], hit[2]
+
+
 def sample_negatives(generator: torch.Generator, noise: torch.Tensor,
                      batch_size: int, cfg: ModelConfig) -> torch.Tensor:
     """[B, k] int64 entity ids drawn iid with replacement from
     softmax(noise), by inverse CDF (prefix sums + searchsorted) on noise's
     device with ``generator``; the same draws on every run. They differ
     from ``jax.random``'s."""
-    cdf = _cumsum(torch.softmax(noise.float(), dim=0))
+    cdf = _table(noise)[0]
     u = torch.rand((batch_size, cfg.num_negatives), generator=generator,
                    device=noise.device) * cdf[-1]   # guards cdf[-1] < 1
     idx = torch.searchsorted(cdf, u)
     return idx.clamp(max=cfg.num_entities - 1)
 
 
+def noise_or_uniform(noise: Optional[torch.Tensor], cfg: ModelConfig,
+                     device) -> torch.Tensor:
+    """``noise``, or the uniform distribution's zero logits on ``device``
+    where it is None."""
+    if noise is not None:
+        return noise
+    return torch.zeros((cfg.num_entities,), dtype=torch.float32,
+                       device=device)
+
+
+def nce_tail(reps: torch.Tensor, pos_rows: torch.Tensor,
+             neg_rows: torch.Tensor) -> torch.Tensor:
+    """The binary NCE loss of fp32 reps [B, d] against the gathered rows
+    of their positives [B, d] and of their negatives [B, k, d], both taken
+    in fp32: -mean(log sigma(s_pos) + sum_k log sigma(-s_neg))."""
+    s_pos = torch.sum(reps * pos_rows.float(), dim=-1)
+    s_neg = torch.einsum("bd,bkd->bk", reps, neg_rows.float())
+    ll = F.logsigmoid(s_pos) + torch.sum(F.logsigmoid(-s_neg), dim=-1)
+    return -torch.mean(ll)
+
+
+def loss(params: Params, batch, cfg: ModelConfig,
+         generator: Optional[torch.Generator] = None,
+         negatives: Optional[torch.Tensor] = None,
+         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Binary NCE (negative-sampling) objective with per-example negatives
+    [B, k]: ``negatives`` may be passed (parity tests); otherwise they are
+    drawn from ``noise`` (default uniform) with ``generator``."""
+    reps = window_rep(params, batch["windows"], batch["lengths"], cfg)
+    ent = params["entity_emb"]
+    if negatives is None:
+        negatives = sample_negatives(
+            generator, noise_or_uniform(noise, cfg, ent.device),
+            reps.shape[0], cfg)
+    ent = ent.float()
+    # F.embedding: its backward sums duplicate ids in a fixed order.
+    return nce_tail(reps, F.embedding(batch["entities"].long(), ent),
+                    F.embedding(negatives.long(), ent))
+
+
+def sampled_correction(noise: torch.Tensor,
+                       negatives: torch.Tensor) -> torch.Tensor:
+    """[k] fp32 log(k q(candidate)) of each drawn candidate under
+    softmax(noise): the sampled softmax's importance correction."""
+    return _table(noise)[1][negatives] + math.log(negatives.shape[0])
+
+
 def sampled_softmax_inputs(params: Params, batch, cfg: ModelConfig,
                            generator: Optional[torch.Generator] = None,
                            negatives: Optional[torch.Tensor] = None,
                            noise: Optional[torch.Tensor] = None):
-    """(reps [B, de], cand [k, de], corr [k], negatives [k], pos [B],
-    s_pos [B]): the window reps, the gathered candidate rows, their
-    -log(k q) correction and the positives' scores, all fp32."""
+    """(reps [B, de], pos_rows [B, de], cand [k, de], corr [k],
+    negatives [k], pos [B]): the window reps, the gathered rows of the
+    positives and the candidates, and the candidates' -log(k q)
+    correction, all fp32: the arguments of :func:`sampled_softmax_tail`."""
     reps = window_rep(params, batch["windows"], batch["lengths"], cfg)
     ent = params["entity_emb"]
-    if noise is None:
-        noise = torch.zeros((cfg.num_entities,), dtype=torch.float32,
-                            device=ent.device)
-    logq = torch.log_softmax(noise.float(), dim=0)
+    noise = noise_or_uniform(noise, cfg, ent.device)
     if negatives is None:
         negatives = sample_negatives(generator, noise, 1, cfg)[0]
     negatives = negatives.long()
-    k = negatives.shape[0]
     ent = ent.float()
     pos = batch["entities"].long()
     # F.embedding: its backward sums duplicate ids in a fixed order.
-    cand = F.embedding(negatives, ent)
-    s_pos = torch.sum(reps * F.embedding(pos, ent), dim=-1)
-    corr = logq[negatives] + math.log(k)
-    return reps, cand, corr, negatives, pos, s_pos
+    return (reps, F.embedding(pos, ent), F.embedding(negatives, ent),
+            sampled_correction(noise, negatives), negatives, pos)
 
 
-def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
-                         generator: Optional[torch.Generator] = None,
-                         negatives: Optional[torch.Tensor] = None,
-                         noise: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
-    """Importance-corrected sampled softmax with batch-shared negatives
-    (accidental hits masked): mean over the batch of
-    logsumexp([s_pos, s_neg - corr]) - s_pos. ``negatives`` [k] may be
-    passed (parity tests); otherwise they are drawn from ``noise`` with
-    ``generator``."""
-    reps, cand, corr, negatives, pos, s_pos = sampled_softmax_inputs(
-        params, batch, cfg, generator=generator, negatives=negatives,
-        noise=noise)
+def sampled_softmax_tail(reps: torch.Tensor, pos_rows: torch.Tensor,
+                         cand_rows: torch.Tensor, corr: torch.Tensor,
+                         negatives: torch.Tensor, pos: torch.Tensor,
+                         cfg: ModelConfig) -> torch.Tensor:
+    """The sampled softmax's loss from the gathered rows (taken in fp32):
+    mean over the batch of logsumexp([s_pos, s_neg - corr]) - s_pos with
+    accidental hits masked, through K1/K2 where :func:`use_fused` says so
+    (the [B, k] logits then never reach memory), else in plain PyTorch."""
+    s_pos = torch.sum(reps * pos_rows.float(), dim=-1)
+    cand = cand_rows.float()
     if use_fused(cfg, reps.device, reps.shape[0]):
         # lse([s_pos, s_neg*]) - s_pos = softplus(lse(s_neg*) - s_pos)
         lse_neg = sampled_lse(reps, cand, corr, negatives, pos,
@@ -168,6 +242,19 @@ def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
     lse_all = torch.logsumexp(torch.cat([s_pos[:, None], s_neg], dim=1),
                               dim=-1)
     return torch.mean(lse_all - s_pos)
+
+
+def loss_sampled_softmax(params: Params, batch, cfg: ModelConfig,
+                         generator: Optional[torch.Generator] = None,
+                         negatives: Optional[torch.Tensor] = None,
+                         noise: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Importance-corrected sampled softmax with batch-shared negatives
+    (accidental hits masked). ``negatives`` [k] may be passed (parity
+    tests); otherwise they are drawn from ``noise`` with ``generator``."""
+    return sampled_softmax_tail(*sampled_softmax_inputs(
+        params, batch, cfg, generator=generator, negatives=negatives,
+        noise=noise), cfg)
 
 
 def loss_full_softmax(params: Params, batch, cfg: ModelConfig,

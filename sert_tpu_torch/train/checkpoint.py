@@ -5,7 +5,9 @@ async writer, and the readers.
 Format: ``ckpt-{step:08d}.npz`` of arrays keyed by the JAX tree path of
 the reference's ``TrainState`` (``.params['word_emb']``,
 ``.opt_state[0].mu['word_emb']``, ``.opt_state[1].count``, ``.step``,
-``.rng``) and a ``ckpt-{step:08d}.json`` sidecar (step, ``params_only``,
+``.rng``; the row-sparse step's ``.opt_state['dense'][0].mu['proj_w']``,
+``.opt_state['rows']['entity_emb']['m']``, ...) and a
+``ckpt-{step:08d}.json`` sidecar (step, ``params_only``,
 ``snapshot_dtype``, epoch, cursor, vocab hash, ...). bfloat16 arrays are
 stored as their uint16 bit pattern; this module views them straight into
 ``torch.bfloat16`` (no ml_dtypes). Either package loads the other's files.
@@ -325,10 +327,9 @@ def load_checkpoint(path: str, template: Any) -> Tuple[Any, Dict]:
     """Restore a ``TrainState`` shaped like ``template`` (its params' and
     moments' shapes, dtypes and devices) plus the JSON meta. Params-only
     snapshots fill ``.params`` and ``.step`` and keep the template's other
-    fields. Leaves of the file that the template lacks are ignored."""
-    if has_sparse_opt_state(path):
-        from sert_tpu_torch.train.step import _sparse_not_ported
-        raise _sparse_not_ported()
+    fields. Leaves of the file that the template lacks are ignored; a
+    template of the other optimizer-state flavor (dense or row-sparse,
+    see :func:`has_sparse_opt_state`) misses leaves and raises KeyError."""
     meta = load_meta(path)
     sdt = meta.get("snapshot_dtype")
     if sdt not in (None, "float32", "bfloat16"):

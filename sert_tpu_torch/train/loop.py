@@ -25,6 +25,7 @@ from sert_tpu_torch.data.instances import InstanceDataset
 from sert_tpu_torch.models import lse as lse_model
 from sert_tpu_torch.pipeline import resolve_device
 from sert_tpu_torch.train import checkpoint as ckpt
+from sert_tpu_torch.train import sparse
 from sert_tpu_torch.train.step import TrainState, init_state, make_train_step
 from sert_tpu_torch.utils.config import RecipeConfig, config_to_dict
 from sert_tpu_torch.utils.logging import JsonlLogger, get_logger
@@ -65,6 +66,12 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
     os.makedirs(out_dir, exist_ok=True)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     t_enter = time.perf_counter()
+    # Resume continues with the optimizer-state flavor (dense or row-sparse)
+    # the newest full checkpoint holds, whatever "auto" resolves to now.
+    latest = (ckpt.latest_checkpoint(ckpt_dir, full_only=True)
+              if resume else None)
+    if latest is not None:
+        tcfg = _pin_sparse_update(mcfg, tcfg, latest)
 
     if tcfg.lr_schedule != "constant" and tcfg.lr_decay_steps <= 0:
         # The run's total step count; a resumed run recomputes the same.
@@ -86,8 +93,6 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
     _sync(device)
     t_init = time.perf_counter()
     start_epoch, cursor = 0, None
-    latest = (ckpt.latest_checkpoint(ckpt_dir, full_only=True)
-              if resume else None)
     if latest is None and resume and ckpt.latest_checkpoint(ckpt_dir):
         log.warning(
             "resume: %s holds only params-only epoch snapshots (no full "
@@ -245,6 +250,27 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
             except BaseException:
                 log.exception("async checkpoint save failed during teardown")
     return state
+
+
+def _pin_sparse_update(mcfg, tcfg, path: str):
+    """``tcfg`` with ``sparse_update`` pinned to the flavor of the
+    optimizer state in the checkpoint at ``path``; ValueError where that is
+    row-sparse and the config cannot run the lazy step."""
+    ckpt_sparse = ckpt.has_sparse_opt_state(path)
+    cfg_sparse = sparse.sparse_enabled(mcfg, tcfg)
+    if ckpt_sparse == cfg_sparse:
+        return tcfg
+    if ckpt_sparse and not sparse.sparse_applicable(mcfg, tcfg):
+        raise ValueError(
+            f"checkpoint {path} holds row-sparse optimizer state but the "
+            "current config cannot run the sparse step (see "
+            "train/sparse.py sparse_applicable); resume with the original "
+            "optimizer/model settings or start a fresh run dir")
+    pinned = "on" if ckpt_sparse else "off"
+    log.warning("resume: pinning sparse_update=%r to match the optimizer "
+                "state in %s (config resolved to %r)", pinned, path,
+                "on" if cfg_sparse else "off")
+    return dataclasses.replace(tcfg, sparse_update=pinned)
 
 
 def _group_batches(it, n: int, stack: Optional[bool] = None):

@@ -13,6 +13,7 @@ across packages.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 from typing import Callable, Dict, Optional, Tuple
@@ -22,9 +23,6 @@ import torch
 from sert_tpu_torch.models import api
 from sert_tpu_torch.models.common import Params
 from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
-from sert_tpu_torch.utils.logging import get_logger
-
-log = get_logger("train")
 
 OptState = Dict[str, object]
 
@@ -130,7 +128,7 @@ class Optimizer:
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, prefix: str = ""):
         if cfg.optimizer == "adafactor":
             raise NotImplementedError(
                 "optimizer='adafactor' is not ported yet (ROADMAP Queue 1 "
@@ -144,9 +142,11 @@ class Optimizer:
         self.decay = cfg.weight_decay
         self.acc0 = cfg.adagrad_init_accumulator
         self.adagrad_eps = cfg.adagrad_eps
-        # optax.chain(clip?, opt, decay?) nests opt's state one level down.
+        # optax.chain(clip?, opt, decay?) nests opt's state one level down;
+        # ``prefix`` places the whole tree below a key of an outer state.
         chained = self.clip > 0 or self.decay > 0
-        self.prefix = f"[{1 if self.clip > 0 else 0}]" if chained else ""
+        self.prefix = prefix + (f"[{1 if self.clip > 0 else 0}]" if chained
+                                else "")
 
     def _key(self, leaf: str, name: Optional[str] = None) -> str:
         return self.prefix + leaf + (f"['{name}']" if name else "")
@@ -171,7 +171,8 @@ class Optimizer:
         if self.clip > 0:
             norm = global_norm(grads)
             keep = norm < self.clip
-            grads = {n: torch.where(keep, g, g / norm * self.clip)
+            grads = {n: torch.where(keep, g, g / norm.to(g.dtype)
+                                    * scalar(self.clip, g.dtype))
                      for n, g in grads.items()}
         if self.scheduled:
             count = state[self._key("[1].count")]
@@ -186,24 +187,36 @@ class Optimizer:
             bc2 = 1.0 - self.B2 ** count
         for n, g in grads.items():
             p = params[n]
+            c = functools.partial(scalar, dtype=g.dtype)
             if self.kind == "adam":
                 mu = state[self._key("[0].mu", n)]
                 nu = state[self._key("[0].nu", n)]
-                mu.mul_(self.B1).add_(g * (1 - self.B1))
-                nu.mul_(self.B2).add_(g * g * (1 - self.B2))
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.EPS)
+                mu.mul_(c(self.B1)).add_(g * c(1 - self.B1))
+                nu.mul_(c(self.B2)).add_(g * g * c(1 - self.B2))
+                u = (mu / c(bc1)) / (torch.sqrt(nu / c(bc2)) + c(self.EPS))
             elif self.kind == "adagrad":
                 sos = state[self._key("[0].sum_of_squares", n)]
                 sos.add_(g * g)
-                inv = torch.where(sos > 0, torch.rsqrt(sos + self.adagrad_eps),
-                                  torch.zeros((), device=sos.device))
+                inv = torch.where(sos > 0, torch.rsqrt(
+                    sos + c(self.adagrad_eps)), torch.zeros(
+                        (), dtype=sos.dtype, device=sos.device))
                 u = inv * g
             else:
                 u = g
-            u = u * (-lr)
+            u = u * c(-lr)
             if self.decay > 0:
-                u = u + p * (-self.decay)
+                u = u + p * c(-self.decay)
             p.add_(u.to(p.dtype))
+
+
+@functools.lru_cache(maxsize=1024)
+def scalar(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``. JAX applies a Python scalar to an array
+    in the array's dtype (a weak type), so optax's bf16 arithmetic uses
+    bf16 constants (0.9 as 0.8984375); torch would apply them in fp32. In
+    fp32 this is the value torch uses anyway. Memoized: the optimizers ask
+    for the same few constants every micro-step."""
+    return float(torch.tensor(x, dtype=dtype))
 
 
 def make_optimizer(cfg: TrainConfig) -> Optimizer:
@@ -219,12 +232,18 @@ def global_norm(tensors: Params) -> torch.Tensor:
 
 
 def init_state(seed: int, model_cfg: ModelConfig, train_cfg: TrainConfig,
-               device=None) -> TrainState:
+               device=None, sparse_override: Optional[bool] = None
+               ) -> TrainState:
     """Fresh params (drawn with a generator seeded by ``seed`` on
     ``device``), the optimizer's zero state and step 0. The same generator
-    then draws the negatives."""
-    if has_sparse_update(train_cfg):
-        raise _sparse_not_ported()
+    then draws the negatives. The state is the row-sparse step's
+    (``train.sparse``) where ``sparse_enabled`` holds. ``sparse_override``
+    (the reference's parameter) pins the flavor whatever the config says,
+    e.g. to ``checkpoint.has_sparse_opt_state(path)`` for a template that
+    must match a file. The port's own loaders do not pass it:
+    ``load_scorer`` reads params only, and the loop's resume pins
+    ``sparse_update`` in the config (``loop._pin_sparse_update``)."""
+    from sert_tpu_torch.train import sparse   # it imports this module
     if (train_cfg.lr_schedule != "constant"
             and train_cfg.lr_decay_steps <= 0):
         # Building the state never evaluates the schedule.
@@ -232,26 +251,14 @@ def init_state(seed: int, model_cfg: ModelConfig, train_cfg: TrainConfig,
             train_cfg, lr_decay_steps=train_cfg.lr_warmup_steps + 1)
     gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     params = api.init_params(gen, model_cfg, device)
-    opt_state = make_optimizer(train_cfg).init(params)
+    use_sparse = (sparse.sparse_enabled(model_cfg, train_cfg)
+                  if sparse_override is None else bool(sparse_override))
+    if use_sparse:
+        opt_state = sparse.init_sparse_opt_state(params, train_cfg)
+    else:
+        opt_state = make_optimizer(train_cfg).init(params)
     return TrainState(params=params, opt_state=opt_state, step=0,
                       generator=gen)
-
-
-def has_sparse_update(train_cfg: TrainConfig) -> bool:
-    """``sparse_update="on"`` asks for the row-sparse lazy step, which is
-    not ported; "auto" resolves to the dense step (the lazy adagrad/sgd it
-    would pick in the reference are bit-identical to dense)."""
-    if train_cfg.sparse_update not in ("auto", "on", "off"):
-        raise ValueError(
-            f"unknown sparse_update: {train_cfg.sparse_update!r}")
-    return train_cfg.sparse_update == "on"
-
-
-def _sparse_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "the row-sparse lazy optimizer step (sparse_update='on', or a "
-        "checkpoint holding row-sparse state) is not ported yet (ROADMAP "
-        "Queue 1 item 8: row-sparse lazy optimizer + bf16 params)")
 
 
 def micro_step_calls(micro_step, n: int):
@@ -281,21 +288,23 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     ``device``: the params' device (None: the CPU, as in
     :func:`init_state`), on which ``fused_update="auto"`` decides.
 
-    Where ``train.fused.fused_enabled`` holds and no ``loss_fn`` is given,
-    the step is ``train.fused.make_fused_train_step``'s (the optimizer
-    applied inside the softmax backward, K7), with the same contract.
+    Where no ``loss_fn`` is given, the step is
+    ``train.sparse.make_sparse_train_step``'s (the row-sparse lazy
+    update) where ``train.sparse.sparse_enabled`` holds, else
+    ``train.fused.make_fused_train_step``'s (the optimizer applied inside
+    the softmax backward, K7) where ``train.fused.fused_enabled`` holds,
+    with the same contract.
 
     With ``steps_per_call > 1`` the step takes a stacked batch (leading
     micro-step axis) and runs the micro-steps in a Python loop; metrics are
     the last one's, as device tensors (reading them syncs)."""
     check_optimizer_model_fit(model_cfg, train_cfg)
-    if has_sparse_update(train_cfg):
-        raise _sparse_not_ported()
-    if train_cfg.sparse_update == "auto" and model_cfg.model == "lse":
-        log.info("sparse_update='auto' resolves to the dense step (the "
-                 "row-sparse step is ROADMAP Queue 1 item 8)")
     if loss_fn is None:
-        from sert_tpu_torch.train import fused   # it imports this module
+        # Both import this module.
+        from sert_tpu_torch.train import fused, sparse
+        if sparse.sparse_enabled(model_cfg, train_cfg):
+            return sparse.make_sparse_train_step(model_cfg, train_cfg,
+                                                 noise=noise)
         if fused.fused_enabled(model_cfg, train_cfg, device):
             return fused.make_fused_train_step(model_cfg, train_cfg)
     opt = make_optimizer(train_cfg)

@@ -370,9 +370,92 @@ def test_negative_sampling_repeats_on_the_card(cuda):
     draws = [lse.sample_negatives(torch.Generator(device=cuda).manual_seed(0),
                                   noise, 4, cfg) for _ in range(8)]
     assert all(torch.equal(draws[0], d) for d in draws[1:])
-    cdf = lse._cumsum(torch.softmax(noise, 0))
+    cdf, log_q = lse.noise_table(noise)
     for _ in range(8):
-        assert torch.equal(cdf, lse._cumsum(torch.softmax(noise, 0)))
+        again = lse.noise_table(noise)
+        assert torch.equal(cdf, again[0]) and torch.equal(log_q, again[1])
+
+
+def _heavy_ids(g, n, rows, dev):
+    """``n`` row ids over ``rows`` rows, half of them from the first 64 rows
+    (so segments run hundreds of slots long)."""
+    ids = torch.randint(0, rows, (n,), generator=g, device=dev)
+    hot = torch.randint(0, 64, (n,), generator=g, device=dev)
+    return torch.where(torch.rand(n, generator=g, device=dev) < 0.5, hot, ids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_row_dedup_and_update_match_the_cpu(cuda, optimizer):
+    """The lazy step's de-duplication and row update at E = 1M with heavy
+    duplicates: the same bits as on the CPU in fp32 (both add a segment's
+    rows one by one in slot order; the update's arithmetic is elementwise
+    and correctly rounded on both: its one square root is taken in fp64,
+    since torch's fp32 sqrt on CUDA is not correctly rounded)."""
+    from sert_tpu_torch.train import sparse
+    from sert_tpu_torch.utils.config import TrainConfig
+    rows, d, n = 1_000_000, 128, 36_864
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ids = _heavy_ids(g, n, rows, cuda)
+    grads = torch.randn(n, d, generator=g, device=cuda)
+    param = torch.randn(rows, d, generator=g, device=cuda)
+    st = {name: torch.rand(rows, d, generator=g, device=cuda) * 1e-3
+          for name in sparse._ROW_STATE[optimizer]}
+    on_card = sparse._dedup_rows(ids, grads)
+    on_cpu = sparse._dedup_rows(ids.cpu(), grads.cpu())
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    tcfg = TrainConfig(optimizer=optimizer)
+    cpu_param, cpu_st = param.cpu(), {k: v.cpu() for k, v in st.items()}
+    sparse._row_update(tcfg, param, st, *on_card, 3e-3, 5)
+    sparse._row_update(tcfg, cpu_param, cpu_st, *on_cpu, 3e-3, 5)
+    assert torch.equal(param.cpu(), cpu_param)
+    for k in st:
+        assert torch.equal(st[k].cpu(), cpu_st[k]), k
+
+
+@pytest.mark.gpu
+def test_lazy_steps_are_bit_equal_on_the_card(cuda):
+    """Two runs of two lazy micro-steps (bf16 params, adam, K1/K2) at
+    E = 1M from the same state and generator: the same bits; rows no step
+    touched keep theirs."""
+    from sert_tpu_torch.train.step import init_state, make_train_step
+    from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
+    mcfg = ModelConfig(model="lse", vocab_size=50_000, num_entities=1_000_000,
+                       word_dim=128, entity_dim=128, num_negatives=32768,
+                       objective="sampled_softmax",
+                       negative_distribution="unigram",
+                       compute_dtype="bfloat16", param_dtype="bfloat16")
+    tcfg = TrainConfig(batch_size=4096, optimizer="adam", sparse_update="on",
+                       learning_rate=3e-3)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    noise = 0.75 * torch.log(torch.randint(1, 50, (mcfg.num_entities,),
+                                           generator=g, device=cuda).float())
+    batches = [{"windows": _heavy_ids(g, 4096 * 8, mcfg.vocab_size, cuda)
+                .reshape(4096, 8).int(),
+                "lengths": torch.randint(4, 9, (4096,), generator=g,
+                                         device=cuda).int(),
+                "entities": _heavy_ids(g, 4096, mcfg.num_entities, cuda)
+                .int()} for _ in range(2)]
+    runs = []
+    for _ in range(2):
+        state = init_state(0, mcfg, tcfg, device=cuda)
+        first = state.params["entity_emb"].clone()
+        step = make_train_step(mcfg, tcfg, noise=noise, device=cuda)
+        n = sampled_lse.fwd_launches
+        for b in batches:
+            state, m = step(state, b)
+        assert sampled_lse.fwd_launches == n + 2
+        assert torch.isfinite(m["loss"])
+        runs.append(state)
+    a, b = runs
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    for k, v in a.opt_state.items():
+        assert (torch.equal(v, b.opt_state[k]) if torch.is_tensor(v)
+                else v == b.opt_state[k]), k
+    touched = a.opt_state["['rows']['entity_emb']['m']"].any(dim=1)
+    assert torch.equal(a.params["entity_emb"][~touched], first[~touched])
 
 
 # K5/K6 against their plain version, relative to max |plain|: one bf16 step

@@ -125,6 +125,17 @@ def test_fused_update_runs_with_jax_and_the_reference_blocked(tmp_path):
     assert 0.0 <= metrics["ndcg@100"] <= 1.0
 
 
+def test_lazy_nce_step_runs_with_jax_and_the_reference_blocked(tmp_path):
+    """The NCE objective (models/lse.py) through the row-sparse lazy step
+    (train/sparse.py)."""
+    from sert_tpu_torch import recipes
+    recipe = recipes.tiny_recipe("lse")
+    recipe = dataclasses.replace(recipe, train=dataclasses.replace(
+        recipe.train, sparse_update="on", batch_size=1024))
+    metrics = _cli_blocked_pipeline(tmp_path, recipe)
+    assert 0.0 <= metrics["ndcg@100"] <= 1.0
+
+
 def test_serving_path_runs_with_no_jax_module_loaded():
     proc = _run(SERVE_ON_CPU, REPO)
     assert proc.returncode == 0, proc.stderr

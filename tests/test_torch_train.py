@@ -231,6 +231,75 @@ def test_loss_sampled_softmax_matches_reference(fused, compute):
                                    err_msg=n)
 
 
+def _nce_negatives(seed, batch):
+    negs = np.random.default_rng(seed).integers(0, E, size=(B, K)
+                                                ).astype(np.int32)
+    negs[:3, 0] = batch["entities"][:3]       # a negative equal to the positive
+    return negs
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_nce_loss_matches_reference(compute):
+    cfg = _cfg(compute).replace(objective="nce")
+    p, batch = _np_params(), _batch()
+    negs = _nce_negatives(2, batch)
+
+    def ref(params):
+        return ref_lse.loss(params, {k: jnp.asarray(v)
+                                     for k, v in batch.items()}, cfg,
+                            negatives=jnp.asarray(negs))
+
+    want, gw = jax.value_and_grad(ref)({k: jnp.asarray(v)
+                                        for k, v in p.items()})
+    tp = {k: v.requires_grad_(True) for k, v in params_from_jax(p).items()}
+    got = lse.loss(tp, {k: _t(v) for k, v in batch.items()}, cfg,
+                   negatives=_t(negs))
+    names = sorted(tp)
+    gg = torch.autograd.grad(got, [tp[n] for n in names])
+    tol = (dict(rtol=1e-5, atol=1e-6) if compute == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    np.testing.assert_allclose(got.item(), float(want), **tol)
+    for n, g in zip(names, gg):
+        np.testing.assert_allclose(g.numpy(), np.asarray(gw[n]), **tol,
+                                   err_msg=n)
+
+
+def test_nce_loss_matches_the_numpy_twin():
+    from sert_tpu.models.numpy_ref import lse_nce_loss
+    cfg = _cfg().replace(objective="nce")
+    p, batch = _np_params(4), _batch(5)
+    negs = _nce_negatives(6, batch)
+    want = lse_nce_loss(p, batch["windows"], batch["lengths"],
+                        batch["entities"], negs)
+    got = lse.loss(params_from_jax(p), {k: _t(v) for k, v in batch.items()},
+                   cfg, negatives=_t(negs))
+    np.testing.assert_allclose(got.item(), want, rtol=1e-5)
+
+
+def test_api_dispatches_nce_and_draws_per_example_negatives(monkeypatch):
+    cfg = _cfg().replace(objective="nce")
+    p = params_from_jax(_np_params())
+    batch = {k: _t(v) for k, v in _batch().items()}
+    seen = []
+    draw = lse.sample_negatives
+
+    def spy(generator, noise, n, c):
+        seen.append((n, noise.shape))
+        return draw(generator, noise, n, c)
+
+    monkeypatch.setattr(lse, "sample_negatives", spy)
+    noise = lse.noise_logits(_counts(), cfg)
+    got = api.loss_fn(p, batch, cfg, generator=torch.Generator()
+                      .manual_seed(3), noise=noise)
+    assert seen == [(B, (E,))]
+    negs = draw(torch.Generator().manual_seed(3), noise, B, cfg)
+    want = lse.loss(p, batch, cfg, negatives=negs)
+    assert got.item() == want.item()
+    seen.clear()
+    api.loss_fn(p, batch, cfg, generator=torch.Generator().manual_seed(3))
+    assert seen == [(B, (E,))]                 # uniform noise by default
+
+
 def test_fused_auto_takes_the_composition_on_the_cpu():
     from sert_tpu_torch.models.common import use_fused
     assert not use_fused(_cfg(fused="auto"), torch.device("cpu"))
@@ -254,6 +323,49 @@ def test_sample_negatives_follow_the_noise():
     assert torch.equal(negs, again)
 
 
+def test_noise_table_is_computed_once_and_follows_in_place_changes():
+    cfg = _cfg().replace(num_negatives=64)
+    noise = torch.from_numpy(
+        np.random.default_rng(5).normal(size=E).astype(np.float32))
+    negs = torch.arange(E)
+    corr = lse.sampled_correction(noise, negs)
+    want = jax.nn.log_softmax(jnp.asarray(noise.numpy())) + np.log(E)
+    np.testing.assert_allclose(corr.numpy(), np.asarray(want), atol=1e-6)
+    table = lse._table(noise)
+    assert lse._table(noise)[0] is table[0]    # cached for this tensor
+    cdf, log_q = lse.noise_table(noise)
+    assert torch.equal(cdf, table[0]) and torch.equal(log_q, table[1])
+    noise.fill_(-30.0)
+    noise[7] = 0.0                             # in place: all mass on 7
+    draws = lse.sample_negatives(torch.Generator().manual_seed(0), noise,
+                                 2, cfg)
+    assert set(draws.unique().tolist()) == {7}
+    assert lse._table(noise)[0] is not table[0]
+
+
+def test_registry_and_association_writers_match_save(tmp_path):
+    from sert_tpu.data.assoc import Associations as RefAssociations
+    from sert_tpu.data.assoc import EntityRegistry as RefRegistry
+    from sert_tpu_torch.data.assoc import Associations, EntityRegistry
+    names = [f"e{i}" for i in range(5)]
+    by_doc = {"d0": [0, 3, 4], "d1": [3], "d2": [1, 2]}
+    reg, assoc = EntityRegistry(names), Associations()
+    for doc, ents in by_doc.items():
+        for e in ents:
+            assoc.add(doc, e)
+    reg.save(str(tmp_path / "reg_saved"))
+    assoc.save(str(tmp_path / "assoc_saved"))
+    EntityRegistry.write(str(tmp_path / "reg_written"), names)
+    Associations.write(str(tmp_path / "assoc_written"), by_doc)
+    for kind in ("reg", "assoc"):
+        assert ((tmp_path / f"{kind}_saved").read_text()
+                == (tmp_path / f"{kind}_written").read_text())
+    assert RefRegistry.load(str(tmp_path / "reg_written")).names == names
+    ref = RefAssociations.load(str(tmp_path / "assoc_written"))
+    assert dict(ref.items()) == by_doc
+    assert ref.entity_instance_counts(5) == [1, 1, 1, 2, 1]
+
+
 @pytest.mark.parametrize("n", [1, 5, 1024, 1025, 5000, 1024 * 1024 + 3])
 def test_prefix_sums_match_cumsum(n):
     x = torch.rand(n, generator=torch.Generator().manual_seed(n))
@@ -271,16 +383,6 @@ def test_all_entity_scores_match_reference():
     got = api.all_entity_scores(params_from_jax(p), _t(batch["windows"]),
                                 _t(batch["lengths"]), cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
-
-
-@pytest.mark.parametrize("cfg,item", [
-    (dict(objective="nce"), "item 7"),
-])
-def test_unported_objectives_raise(cfg, item):
-    c = _cfg().replace(**cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        api.loss_fn(params_from_jax(_np_params()),
-                    {k: _t(v) for k, v in _batch().items()}, c)
 
 
 # --- learning rates and the optimizer step --------------------------------
@@ -416,7 +518,6 @@ def test_steps_per_call_runs_the_micro_steps_in_order():
 
 @pytest.mark.parametrize("train_kw,item", [
     (dict(optimizer="adafactor"), "item 13"),
-    (dict(sparse_update="on"), "item 8"),
 ])
 def test_unported_optimizers_raise(train_kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -504,17 +605,6 @@ def test_async_checkpointer_snapshots_the_state_it_was_given(tmp_path):
                                    port_step.init_state(1, mcfg, tcfg))
     for k, v in before.items():
         assert torch.equal(back.params[k], v)
-
-
-def test_sparse_reference_checkpoint_raises(tmp_path):
-    mcfg = _cfg()
-    tcfg = TrainConfig(optimizer="adagrad", sparse_update="on")
-    ref_s = ref_step.init_state(jax.random.key(0), mcfg, tcfg)
-    path = ref_ckpt.save_checkpoint(str(tmp_path), 1, ref_s)
-    assert ckpt.has_sparse_opt_state(path)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ckpt.load_checkpoint(path, port_step.init_state(
-            0, mcfg, TrainConfig(optimizer="adagrad")))
 
 
 # --- the loop: resume ------------------------------------------------------
@@ -642,6 +732,16 @@ def test_feeder_yields_in_order_and_propagates_errors():
 def _tiny_recipe():
     return recipes.tiny_recipe("lse", objective="sampled_softmax",
                                negative_distribution="unigram")
+
+
+def test_nce_recipe_end_to_end(tmp_path):
+    """tiny_recipe("lse") as it stands: the NCE objective, adam (the lazy
+    step end to end: tests/test_torch_nojax.py and chip_smoke.py)."""
+    recipe = recipes.tiny_recipe("lse")
+    assert recipe.model.objective == "nce"
+    results = pipeline.run_end_to_end(recipes.tiny_spec(seed=1).build(),
+                                      recipe, str(tmp_path), device="cpu")
+    assert results["all"]["ndcg@100"] > 0.85, results["all"]
 
 
 def test_run_end_to_end_reaches_the_reference_bar(tmp_path):

@@ -2,9 +2,11 @@
 """Where a serving batch of the PyTorch port spends its time, on one card.
 
     python tools/profile_torch_serve.py [--out chiprun_out/profile]
+        [--entities 1000000]
 
 Stages the same full-width serving fixture as ``chip_smoke.py`` (its
-``full_width_searcher``: synthetic_1m_retrieval, 1M entities, batches of 64
+``full_width_searcher``: synthetic_1m_retrieval, 1M entities or
+``--entities``, e.g. 10000000 for synthetic_10m_training's, batches of 64
 at depth 1000), answers its queries once to warm up, then:
 
   * host clock: ``search_many`` of all queries, five times, each ending in
@@ -37,6 +39,7 @@ import chip_smoke  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--entities", type=int, default=chip_smoke.E)
     ap.add_argument("--out", default="chiprun_out/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -52,7 +55,8 @@ def main() -> int:
     print(smi, flush=True)
     os.makedirs(args.out, exist_ok=True)
     with tempfile.TemporaryDirectory() as root:
-        searcher, _, _, topics, _, _ = chip_smoke.full_width_searcher(root)
+        searcher, _, _, topics, _, _ = chip_smoke.full_width_searcher(
+            root, args.entities)
     texts = [topics[q] for q in sorted(topics)]
     searcher.search_many(texts)
     n_batches = -(-len(texts) // chip_smoke.Q)
@@ -93,7 +97,8 @@ def main() -> int:
 
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "queries": len(texts), "batches": n_batches,
+        "entities": searcher.num_entities, "queries": len(texts),
+        "batches": n_batches,
         "search_many_s": walls,
         "per_batch_ms": [w * 1e3 / n_batches for w in walls],
         "search_one_ms": one,

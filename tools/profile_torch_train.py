@@ -4,14 +4,20 @@ card.
 
     python tools/profile_torch_train.py [--recipe cerc_expert_finding]
         [--model lse_full] [--vocab 39885] [--entities 3500]
+        [--param-dtype bfloat16] [--objective nce|sampled_softmax]
+        [--sparse-update on|off]
         [--dim 256] [--compute-dtype bfloat16] [--fused-update on|off]
         [--steps 50] [--out chiprun_out/profile_train]
 
 Builds the recipe's model at its width with ``--vocab`` words and
 ``--entities`` entities (random seeded weights; ``--model`` swaps the
 family, e.g. ``lse_full`` on ``synthetic_1m_retrieval``; ``--dim`` and
-``--compute-dtype`` replace the recipe's, and ``--fused-update`` its
-``fused_update``: "on" takes the optimizer-in-backward step, K5 + K7),
+``--compute-dtype``, ``--param-dtype`` and ``--objective`` replace the
+recipe's, ``--fused-update`` its ``fused_update``: "on" takes the
+optimizer-in-backward step, K5 + K7, and ``--sparse-update`` its
+``sparse_update``: "on" takes the row-sparse lazy step), e.g. the 10M
+lazy step: ``--recipe synthetic_10m_training --vocab 250000 --entities
+10000000``, and its dense step with ``--sparse-update off``,
 and feeds it seeded random batches of the recipe's shape that already sit
 on the card, so the feed is left out.
 After five warm-up steps:
@@ -21,7 +27,8 @@ After five warm-up steps:
     steps/s;
   * ``torch.profiler`` over ten more: device time by kernel (K5/K6, K5/K7
     or K1/K2, the optimizer's elementwise kernels, the embedding gathers
-    and their backward), the device's busy and idle share of the window;
+    and their backward, the lazy step's sorts, segment sums and row
+    updates), the device's busy and idle share of the window;
     the Chrome trace and the key-averages table go to ``--out``.
 
 Prints one JSON object as its last line. Needs a CUDA device.
@@ -58,6 +65,14 @@ def main() -> int:
                     choices=["auto", "on", "off"],
                     help="the optimizer-in-backward step (K7), else the "
                          "recipe's setting")
+    ap.add_argument("--param-dtype", default=None,
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--objective", default=None,
+                    choices=["nce", "sampled_softmax"])
+    ap.add_argument("--sparse-update", default=None,
+                    choices=["auto", "on", "off"],
+                    help="the row-sparse lazy step, else the recipe's "
+                         "setting")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out/profile_train")
@@ -72,6 +87,7 @@ def main() -> int:
     from sert_tpu_torch.cli import load_recipe
     from sert_tpu_torch.models import lse
     from sert_tpu_torch.train.fused import fused_enabled
+    from sert_tpu_torch.train.sparse import sparse_enabled
     from sert_tpu_torch.train.step import init_state, make_train_step
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -86,11 +102,13 @@ def main() -> int:
     if args.dim:
         mcfg = mcfg.replace(**{("word_dim" if mcfg.model == "loglinear"
                                 else "entity_dim"): args.dim})
-    if args.compute_dtype:
-        mcfg = mcfg.replace(compute_dtype=args.compute_dtype)
+    for field in ("compute_dtype", "param_dtype", "objective"):
+        if getattr(args, field):
+            mcfg = mcfg.replace(**{field: getattr(args, field)})
     tcfg = dataclasses.replace(
         recipe.train, steps_per_call=1, lr_decay_steps=10_000,
-        fused_update=args.fused_update or recipe.train.fused_update)
+        fused_update=args.fused_update or recipe.train.fused_update,
+        sparse_update=args.sparse_update or recipe.train.sparse_update)
     dev = torch.device("cuda")
     state = init_state(args.seed, mcfg, tcfg, device=dev)
     noise = (lse.noise_logits(None, mcfg, dev) if mcfg.model == "lse"
@@ -148,7 +166,9 @@ def main() -> int:
         "recipe": recipe.name, "model": mcfg.model,
         "vocab": args.vocab, "entities": args.entities, "batch": B,
         "compute_dtype": mcfg.compute_dtype,
+        "param_dtype": mcfg.param_dtype, "objective": mcfg.objective,
         "optimizer": tcfg.optimizer, "fused_update": fused,
+        "sparse_update": sparse_enabled(mcfg, tcfg),
         "timed_steps": args.steps,
         "steps_per_sec": args.steps / wall_s,
         "ms_per_step": wall_s * 1e3 / args.steps, "last_loss": loss,
