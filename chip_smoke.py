@@ -42,6 +42,25 @@ Phases (each prints one line or more; any failure exits non-zero):
      to the state in memory. Then `python -m sert_tpu_torch train` on the
      finished run resumes from that checkpoint and writes nothing;
   8. serve_trained: the serve checks again, on the run phase 7 wrote;
+  8a. serve_foldin: on that searcher, add_entities of 64 entities by the
+     affine method (each one topic's own four-term text, under the window
+     of 8, so its f-image is that topic's query rep) and of 8 by the
+     gradient method (sampled softmax: the f-image at the trained median
+     norm): each call's latency, the K3/K4 launches of the affine probe,
+     peak memory; each vector against the port on the CPU from the same
+     params (1e-5); every topic through search_many against a dense fp32
+     oracle over the trained rows and the 72 extras (their scores from the
+     stored vectors and spans), recall >= 0.99 and score error <= 1e-5;
+     each affine entity in its own topic's top 10 within 1e-5 of that
+     topic's trained top score; a batch's latency with 0 and 72 extras;
+     then the NCE refit (fold_in_entity_gradient, 1000 adam steps) at full
+     width on the card against the CPU (cosine >= 1 - 1e-5, norms within
+     1e-4);
+  8b. serve_http: make_http_server on that searcher, on loopback: 16
+     concurrent POST /search clients (they must coalesce, max_batch > 1;
+     each answer search_many's, scores within 1e-6), one query's latency
+     and the clients' queries/s, a batched POST and a GET, /healthz (the
+     72 extras), POST /entities and a duplicate name (400);
   9. xent_kernels: K5 (the full-softmax forward) and K6 (its backward)
      against xent_loss_plain + autograd on the same inputs: "de" fp32 at
      cerc's B=1024, d=256, E=3500 and at w3c's d=128, E=1100 with a ragged
@@ -77,7 +96,9 @@ Phases (each prints one line or more; any failure exits non-zero):
      dense log-probs (the ids, and the scores within 1e-4 of the larger of
      the score and its un-normalized sum), and the first 8 steps must
      match the plain version on the card (fused_softmax="off") on the same
-     batches;
+     batches; then serve_http on that run: one GET and one batched POST
+     through K3 with the bias, K4 and the K5 normalizer, each answer
+     search_many's;
  12. train_fused: w3c_expert_finding as the recipe stands (W3C stand-in,
      E=1100, d=128, B=1024, fp32, adam at a constant 1e-3,
      steps_per_call=16, 5 epochs) with fused_update="on", end to end as
@@ -122,7 +143,10 @@ Phases (each prints one line or more; any failure exits non-zero):
      where the unbroken run ended (params, moments, generator);
  19. nce_tiny: tiny_recipe("lse") as it stands (the NCE objective) end to
      end on the card with the dense step and with the lazy one: the loss
-     falls, NDCG@100 printed.
+     falls, NDCG@100 printed; on the dense run a gradient fold-in (the NCE
+     refit and the moment match on the card: raw, at the trained median
+     norm) and `python -m sert_tpu_torch query --ranker lm`, its NDCG@100
+     beside the model's.
 Then one JSON line of kernel records (with each one's bound: the larger of
 its operations over the H100's peak rate for their type, K1/K2's also
 their exponentials over the special-function units' rate, and its bytes
@@ -142,6 +166,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -204,6 +229,19 @@ N_QUERIES_10M = 64
 LAZY_REPEAT_STEPS = 8     # two lazy runs of this many micro-steps, bit for bit
 AB_10M_STEPS = 16         # timed micro-steps of each mode in sparse_ab_10m
 RESUME_CKPT_EVERY = 32    # sparse_resume: the mid-epoch full checkpoint
+# serve_fold_in: 64 entities folded by the affine method (each one topic's
+# own text) and 8 by the gradient method into the trained 1M-entity
+# searcher; each vector within FOLD_VEC_TOL of the port's on the CPU from
+# the same params. The NCE refit's 1000 adam steps at full width are held
+# to the CPU with tests/test_torch_foldin.py's tolerance (cosine, norm).
+FOLD_AFFINE, FOLD_GRADIENT = 64, 8
+FOLD_VEC_TOL = 1e-5
+FOLD_COS_MIN, FOLD_NORM_RTOL = 1 - 1e-5, 1e-4
+# serve_http: concurrent POST /search clients; each answer against
+# search_many's (the merge's window reps are computed at another batch
+# shape, which moves an extra's score by fp32 rounding only).
+HTTP_CLIENTS = 16
+HTTP_SCORE_TOL = LL_HTTP_SCORE_TOL = 1e-6
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # Exponentials a second: 16 special-function-unit results a clock on each
@@ -801,9 +839,10 @@ def phase_train(root: str):
 
 
 def phase_serve_trained(root: str, data_dir: str, run_dir: str,
-                        topics: dict, qrels: dict) -> None:
+                        topics: dict, qrels: dict):
     """The searcher on the run phase_train wrote, checked like the random
-    one, and the reciprocal rank of each topic's planted entity."""
+    one, and the reciprocal rank of each topic's planted entity. Returns
+    the searcher (the fold-in and HTTP phases serve from it)."""
     import torch
     from sert_tpu_torch.cli import load_recipe
     from sert_tpu_torch.serving import EntitySearcher
@@ -813,7 +852,6 @@ def phase_serve_trained(root: str, data_dir: str, run_dir: str,
         raise AssertionError(f"engine {searcher.engine}, not the kernels")
     _, launches, many = check_searcher("serve_trained", searcher, topics)
     run = {q: hits for q, hits in zip(sorted(topics), many)}
-    del searcher
     torch.cuda.empty_cache()
     hits_at = [next((i for i, (n, _) in enumerate(run[q]) if n in qrels[q]),
                     None) for q in sorted(topics)]
@@ -821,6 +859,356 @@ def phase_serve_trained(root: str, data_dir: str, run_dir: str,
     say("serve_trained", topics=len(topics), mrr_of_planted_entity=mrr,
         found_at_1000=sum(i is not None for i in hits_at),
         launches=json.dumps(launches).replace(" ", ""))
+    return searcher
+
+
+def _kernel_counts(xent_too: bool = False) -> dict:
+    """The serving kernels' launch counters, by kernel name."""
+    from sert_tpu_torch.ops import gather_rescore as k4
+    from sert_tpu_torch.ops import score_binmax as k3
+    from sert_tpu_torch.ops import xent
+    counts = {"score_binmax": k3.launches, "gather_rescore": k4.launches}
+    if xent_too:
+        counts["xent_fwd"] = xent.fwd_launches
+    return counts
+
+
+def _zero_kernel_counts() -> None:
+    from sert_tpu_torch.ops import gather_rescore as k4
+    from sert_tpu_torch.ops import score_binmax as k3
+    from sert_tpu_torch.ops import xent
+    k3.launches = k4.launches = xent.fwd_launches = 0
+
+
+def _host_params(params: dict) -> dict:
+    """The window-rep params (not the entity rows) copied to the host, in
+    their own dtype: the port on the CPU from the card's params."""
+    return {k: params[k].cpu() for k in ("word_emb", "proj_w", "proj_b")}
+
+
+def _same_hits(got, want, tol: float) -> bool:
+    """Scores within ``tol`` rank by rank and name by name; names may trade
+    places only within a tie, and a name in one list only must tie with
+    the other list's last score."""
+    if got is None or want is None or len(got) != len(want):
+        return got is None and want is None
+    if max(abs(a[1] - b[1]) for a, b in zip(got, want)) > tol:
+        return False
+    g, w = dict(got), dict(want)
+    floor = min(w.values())
+    return (all(abs(g[n] - w[n]) <= tol for n in g.keys() & w.keys())
+            and all(abs(g.get(n, w.get(n)) - floor) <= tol
+                    for n in g.keys() ^ w.keys()))
+
+
+def _batch_ms(searcher, texts, repeats: int = 3) -> list:
+    """Host-clock milliseconds of ``repeats`` search_many calls of
+    ``texts`` (one batch), after a warm one."""
+    searcher.search_many(texts)
+    out = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        searcher.search_many(texts)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_serve_foldin(searcher, topics: dict) -> dict:
+    """Fold 64 entities (affine: each one topic's own four-term text) and 8
+    (gradient) into the trained 1M-entity searcher; each vector against
+    the port on the CPU from the same params; every topic through
+    search_many against a dense oracle over the trained rows and the 72
+    extras; each affine entity in its own topic's top 10 at that topic's
+    trained top score; then the NCE refit at full width against the CPU.
+    Returns the launches by kernel of the path."""
+    import torch
+    from sert_tpu_torch.models import lse
+    from sert_tpu_torch.scoring.run import pad_queries
+    from sert_tpu_torch.scoring.scorer import (_entity_matrix,
+                                               _query_reps_and_terms)
+    from sert_tpu_torch.utils.config import ModelConfig
+
+    if searcher.engine != "pallas":
+        raise AssertionError(f"engine {searcher.engine}, not the kernels")
+    qids = sorted(topics)
+    texts = [topics[q] for q in qids]
+    affine = [(f"fold-{q}", topics[q]) for q in qids[:FOLD_AFFINE]]
+    gradient = [(f"fold-{q}", topics[q])
+                for q in qids[FOLD_AFFINE:FOLD_AFFINE + FOLD_GRADIENT]]
+    _zero_kernel_counts()
+    batch0_ms = _batch_ms(searcher, texts[:Q])
+
+    torch.cuda.reset_peak_memory_stats()
+    before = _kernel_counts()
+    t0 = time.perf_counter()
+    searcher.add_entities(affine, method="affine")
+    t1 = time.perf_counter()
+    probe = {k: v - before[k] for k, v in _kernel_counts().items()}
+    searcher.add_entities(gradient, method="gradient")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    say("serve_foldin", affine_entities=len(affine),
+        affine_add_ms=(t1 - t0) * 1e3, gradient_entities=len(gradient),
+        gradient_add_ms=(t2 - t1) * 1e3,
+        probe_launches=json.dumps(probe).replace(" ", ""),
+        peak_mem_bytes=peak, extras=searcher.num_extra_entities)
+    if min(probe.values()) < 1:
+        raise AssertionError(f"the affine probe launched no kernel: {probe}")
+
+    # Each fold-in vector against the port on the CPU, same params.
+    cpu_params = _host_params(searcher.params)
+    cfg, w = searcher.recipe.model, searcher.recipe.data.window_size
+    norm_med = searcher._trained_stats()[0]
+    worst = 0.0
+    for j, (name, text) in enumerate(affine + gradient):
+        v = lse.fold_in_entity(cpu_params, searcher.encode(text), cfg,
+                               window_size=w).numpy()
+        scale = 1.0 if j < len(affine) else norm_med
+        v = v * scale / max(float((v * v).sum()) ** 0.5, 1e-9)
+        worst = max(worst, float(abs(v - searcher._extra_vecs[j]).max()))
+    say("serve_foldin", vectors_vs_cpu_max_abs_err=worst, tol=FOLD_VEC_TOL)
+    if worst > FOLD_VEC_TOL:
+        raise AssertionError(f"fold-in vectors differ from the CPU's by "
+                             f"{worst}")
+
+    batch72_ms = _batch_ms(searcher, texts[:Q])
+    t0 = time.perf_counter()
+    many = searcher.search_many(texts)
+    many_s = time.perf_counter() - t0
+    launches = _kernel_counts()
+    say("serve_foldin", batch_ms_0_extras=json.dumps(batch0_ms),
+        batch_ms_72_extras=json.dumps(batch72_ms), search_many_s=many_s,
+        launches=json.dumps(launches).replace(" ", ""))
+
+    # Dense fp32 oracle: the trained scores S = R M^T beside each extra's
+    # score from its stored vector and span (the calibration in plain
+    # torch), ranked together to depth K.
+    E = searcher.num_entities
+    names = searcher._extra_names
+    vecs = torch.from_numpy(searcher._extra_vecs).cuda()
+    vecs_n = vecs / vecs.norm(dim=1, keepdim=True).clamp(min=1e-9)
+    floor = torch.from_numpy(searcher._extra_spans[:, 0]).float().cuda()
+    top = torch.from_numpy(searcher._extra_spans[:, 1]).float().cuda()
+    raw = torch.from_numpy(searcher._extra_raw).cuda()
+    index = {n: E + j for j, n in enumerate(names)}
+    encoded = {f"{i:04d}": searcher.encode(t) for i, t in enumerate(texts)}
+    _, term_ids, num_terms = pad_queries(encoded)
+    M = _entity_matrix(searcher.params, cfg, "cosine")
+    recalls, err, own = [], 0.0, []
+    with torch.no_grad():
+        for lo in range(0, len(texts), Q):
+            t = torch.from_numpy(term_ids[lo:lo + Q]).cuda()
+            m = torch.from_numpy(num_terms[lo:lo + Q]).cuda()
+            R = _query_reps_and_terms(searcher.params, cfg, t, m,
+                                      "cosine")[0]
+            S = R @ M.T                                         # [64, E]
+            cos = R @ vecs_n.T                                  # [64, 72]
+            side = ((cos - floor).clamp(min=0.0)
+                    / (1.0 - floor).clamp(min=1e-9) * top)
+            S = torch.cat([S, torch.where(raw, cos, side)], dim=1)
+            best = torch.topk(S, K, dim=1).indices.cpu().numpy()
+            for i in range(R.shape[0]):
+                q = lo + i
+                hits = many[q]
+                ids = [index[n] if n in index else int(n[1:])
+                       for n, _ in hits]
+                got = torch.tensor([s for _, s in hits], device="cuda")
+                err = max(err, (got - S[i, ids]).abs().max().item())
+                recalls.append(len(set(ids) & set(best[i].tolist())) / K)
+                if q < len(affine):
+                    trained_top = S[i, :E].max().item()
+                    score = dict(hits[:10]).get(affine[q][0])
+                    own.append(None if score is None
+                               else abs(score - trained_top))
+            del S
+    recall = sum(recalls) / len(recalls)
+    missing = sum(d is None for d in own)
+    own_err = max((d for d in own if d is not None), default=float("inf"))
+    say("serve_foldin", mean_recall_vs_dense=recall, min_recall=min(recalls),
+        max_score_err=err, own_topic_top10=len(own) - missing,
+        own_topic_score_err=own_err)
+    if recall < RECALL_MIN or err > SCORE_TOL:
+        raise AssertionError(f"recall {recall} < {RECALL_MIN} or score "
+                             f"error {err} > {SCORE_TOL}")
+    if missing or own_err > SCORE_TOL:
+        raise AssertionError(f"{missing} folded entities miss their own "
+                             f"topic's top 10, or score {own_err} from "
+                             f"its trained top")
+    del M, vecs
+
+    # The NCE refit (_fold_in_opt, 1000 adam steps) at full width on the
+    # card against the port on the CPU.
+    ids = searcher.encode(texts[0])
+    neg = searcher._raw_negative_reps(ids)
+    neg_weight = float(ModelConfig.num_negatives)
+    kw = dict(window_size=w, neg_weight=neg_weight)
+    lse.fold_in_entity_gradient(searcher.params, ids, cfg,
+                                torch.from_numpy(neg), steps=2, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v_card = lse.fold_in_entity_gradient(searcher.params, ids, cfg,
+                                         torch.from_numpy(neg), **kw)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    v_cpu = lse.fold_in_entity_gradient(cpu_params, ids, cfg,
+                                        torch.from_numpy(neg), **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    v_card = v_card.cpu()
+    cos = float(v_card @ v_cpu / (v_card.norm() * v_cpu.norm()))
+    rel = abs(float(v_card.norm() / v_cpu.norm()) - 1.0)
+    say("serve_foldin", nce_refit_steps=1000, negatives=neg.shape[0],
+        neg_weight=neg_weight, card_ms=card_ms, cpu_ms=cpu_ms,
+        cos_vs_cpu=cos, norm_rel_diff=rel, cos_min=FOLD_COS_MIN,
+        norm_rtol=FOLD_NORM_RTOL)
+    if not cos >= FOLD_COS_MIN or not rel <= FOLD_NORM_RTOL:
+        raise AssertionError(f"the card's NCE refit differs from the CPU's: "
+                             f"cos {cos}, norm {rel}")
+    return launches
+
+
+class _Http:
+    """A server on loopback in a thread; ``call`` returns (status, JSON)."""
+
+    def __init__(self, searcher):
+        from sert_tpu_torch.serving import make_http_server
+        self.server = make_http_server(searcher, port=0)
+        self.base = "http://127.0.0.1:%d" % self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def call(self, path, body=None):
+        import urllib.error
+        import urllib.request
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(self.base + path, data=data)
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+
+
+def _hits_of(payload) -> list:
+    return [(r["entity"], r["score"]) for r in payload["results"]]
+
+
+def _check_http_answers(phase, http, searcher, texts, k, tol) -> None:
+    """A batched POST of ``texts`` and a GET of the first, each against
+    search_many's answers."""
+    import urllib.parse
+    want = searcher.search_many(texts, k=k)
+    code, body = http.call("/search", {"queries": texts, "k": k})
+    got = [_hits_of(b) for b in body["batched"]] if code == 200 else []
+    code_get, one = http.call("/search?q=%s&k=%d"
+                              % (urllib.parse.quote(texts[0]), k))
+    ok = (code == code_get == 200 and len(got) == len(want)
+          and all(_same_hits(g, w, tol) for g, w in zip(got, want))
+          and _same_hits(_hits_of(one), want[0], tol))
+    say(phase, batched_post=len(texts), get=1, k=k, equal_search_many=ok)
+    if not ok:
+        raise AssertionError(f"{phase}: HTTP answers differ from "
+                             f"search_many's")
+
+
+def phase_serve_http(searcher, topics: dict) -> dict:
+    """The JSON HTTP server on the fold-in phase's searcher: 16 concurrent
+    POST /search clients (coalesced, each answer search_many's), a batched
+    POST, a GET, /healthz, POST /entities and a duplicate. Returns the
+    launches by kernel of the path."""
+    texts = [topics[q] for q in sorted(topics)]
+    want = searcher.search_many(texts[:HTTP_CLIENTS])
+    extras = searcher.num_extra_entities
+    _zero_kernel_counts()
+    http = _Http(searcher)
+    try:
+        code, one = http.call("/search", {"query": texts[0]})   # warm
+        t0 = time.perf_counter()
+        code, one = http.call("/search", {"query": texts[0]})
+        one_ms = (time.perf_counter() - t0) * 1e3
+        searcher.stats.update(dispatches=0, batched_queries=0, max_batch=0)
+        got = [None] * HTTP_CLIENTS
+
+        def client(i):
+            got[i] = http.call("/search", {"query": texts[i]})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(HTTP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        wall = time.perf_counter() - t0
+        stats = dict(searcher.stats)
+        same = all(g is not None and g[0] == 200
+                   and _same_hits(_hits_of(g[1]), w, HTTP_SCORE_TOL)
+                   for g, w in zip(got, want))
+        say("serve_http", one_query_ms=one_ms, clients=HTTP_CLIENTS,
+            clients_wall_s=wall, queries_per_s=HTTP_CLIENTS / wall,
+            dispatches=stats["dispatches"], max_batch=stats["max_batch"],
+            equal_search_many=same)
+        if code != 200 or not same or stats["max_batch"] < 2:
+            raise AssertionError(f"HTTP clients: equal {same}, stats {stats}")
+        _check_http_answers("serve_http", http, searcher, texts[:Q], 100,
+                            HTTP_SCORE_TOL)
+        health = http.call("/healthz")
+        added = http.call("/entities", {"entities": [
+            {"name": "http-new", "text": texts[-1]}]})
+        dup = http.call("/entities", {"entities": [
+            {"name": "http-new", "text": texts[-2]}]})
+        say("serve_http", healthz=json.dumps(health[1]).replace(" ", ""),
+            post_entities=added[0], duplicate=dup[0])
+        if (health[0] != 200 or health[1]["extra_entities"] != extras
+                or health[1]["entities"] != searcher.num_entities
+                or added != (200, {"added": 1,
+                                   "extra_entities": extras + 1})
+                or dup[0] != 400):
+            raise AssertionError(f"healthz {health}, POST /entities "
+                                 f"{added}, duplicate {dup}")
+    finally:
+        http.close()
+    return _kernel_counts()
+
+
+def phase_serve_http_loglinear(root: str) -> dict:
+    """The HTTP server on cerc_expert_finding's run (phase 11): K3 with
+    the bias, K4 and the K5 normalizer behind one GET and one batched
+    POST, each against search_many. Returns the launches by kernel."""
+    import torch
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.eval.trec import read_topics
+    from sert_tpu_torch.serving import EntitySearcher
+    work = os.path.join(root, "cerc_expert_finding")
+    _zero_kernel_counts()
+    searcher = EntitySearcher(load_recipe("cerc_expert_finding"),
+                              os.path.join(work, "data"),
+                              os.path.join(work, "run"))
+    if searcher.engine != "pallas":
+        raise AssertionError(f"engine {searcher.engine}, not the kernels")
+    topics = read_topics(os.path.join(work, "run", "topics.tsv"))
+    http = _Http(searcher)
+    try:
+        _check_http_answers("serve_http", http, searcher,
+                            [topics[q] for q in sorted(topics)],
+                            searcher.k_max, LL_HTTP_SCORE_TOL)
+    finally:
+        http.close()
+    launches = _kernel_counts(xent_too=True)
+    say("serve_http", model="loglinear", recipe="cerc_expert_finding",
+        launches=json.dumps(launches).replace(" ", ""))
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    del searcher
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _xent_case(B, E, d, layout, seed):
@@ -1898,14 +2286,19 @@ def phase_sparse_resume(root: str, data_dir: str) -> None:
 def phase_nce_tiny(root: str) -> dict:
     """tiny_recipe("lse") as it stands (the NCE objective) end to end on the
     card, with the dense step and with the lazy one; the loss must fall.
-    Returns the launches by kernel of both runs."""
+    Then, on the dense run, a gradient fold-in (the NCE refit and the
+    moment match on the card) and `query --ranker lm` beside the model's
+    NDCG@100. Returns the launches by kernel of those paths."""
     import dataclasses
     import torch
     from sert_tpu_torch import pipeline, recipes
     from sert_tpu_torch.ops import gather_rescore as k4
     from sert_tpu_torch.ops import score_binmax as k3
+    from sert_tpu_torch.serving import EntitySearcher
+    from sert_tpu_torch.utils.config import save_config
     col = recipes.tiny_spec().build()
     launches = {"score_binmax": 0, "gather_rescore": 0}
+    ndcg = {}
     for mode in ("off", "on"):
         r = recipes.tiny_recipe("lse")
         r = dataclasses.replace(r, name=f"nce_tiny_{mode}",
@@ -1916,16 +2309,63 @@ def phase_nce_tiny(root: str) -> dict:
         results = pipeline.run_end_to_end(col, r, os.path.join(root, r.name),
                                           device="cuda")
         _, losses, _ = _train_log(os.path.join(root, r.name, "run"))
+        ndcg[mode] = results["all"]["ndcg@100"]
         say("nce_tiny", objective=r.model.objective, sparse_update=mode,
             e2e_s=time.perf_counter() - t0, first_loss=losses[0],
-            last_loss=losses[-1], ndcg_at_100=results["all"]["ndcg@100"],
+            last_loss=losses[-1], ndcg_at_100=ndcg[mode],
             launches=json.dumps({"score_binmax": k3.launches,
                                  "gather_rescore": k4.launches}
                                 ).replace(" ", ""))
         _check_falling(losses)
         launches["score_binmax"] += k3.launches
         launches["gather_rescore"] += k4.launches
+        if mode == "off":
+            dense = r
+
+    # A twin of entity 6 folded by the gradient method into the dense run.
+    work = os.path.join(root, dense.name)
+    data_dir, run_dir = os.path.join(work, "data"), os.path.join(work, "run")
+    k3.launches = k4.launches = 0
+    searcher = EntitySearcher(dense, data_dir, run_dir)
+    target = col.entities[6]
+    text = " ".join(t for d, es in col.doc_entities.items()
+                    for t in col.docs[d].split() if target in es)
+    t0 = time.perf_counter()
+    searcher.add_entities([("nce-twin", text)], method="gradient")
+    fold_ms = (time.perf_counter() - t0) * 1e3
+    norm_med = searcher._trained_stats()[0]
+    norm = float((searcher._extra_vecs[0] ** 2).sum()) ** 0.5
+    tid = next(t for t in sorted(col.topics) if target in col.qrels[t])
+    names = [n for n, _ in searcher.search(col.topics[tid],
+                                           k=searcher.k_max)]
+    say("nce_tiny", gradient_fold_in_ms=fold_ms, norm=norm,
+        trained_median_norm=norm_med, raw=bool(searcher._extra_raw[0]),
+        twin_rank=names.index("nce-twin"), original_rank=names.index(target),
+        launches=json.dumps({"score_binmax": k3.launches,
+                             "gather_rescore": k4.launches}).replace(" ", ""))
+    if not searcher._extra_raw[0] or abs(norm / norm_med - 1) > 1e-5:
+        raise AssertionError(f"the NCE fold-in is not raw at the trained "
+                             f"median norm: {norm} against {norm_med}")
+    launches["score_binmax"] += k3.launches
+    launches["gather_rescore"] += k4.launches
+    del searcher
     torch.cuda.empty_cache()
+
+    # The lm ranker through the CLI on the same data and topics.
+    recipe_json = os.path.join(work, "recipe.json")
+    save_config(dense, recipe_json)
+    lm_run = os.path.join(work, "lm.trec")
+    t0 = time.perf_counter()
+    sert_cli("query", "--recipe", recipe_json, "--data", data_dir,
+             "--topics", os.path.join(run_dir, "topics.tsv"), "--out",
+             lm_run, "--ranker", "lm")
+    lm_s = time.perf_counter() - t0
+    metrics = json.loads(sert_cli("evaluate", "--run", lm_run, "--qrels",
+                                  os.path.join(run_dir, "qrels.trec")))
+    say("nce_tiny", ranker="lm", query_s=lm_s,
+        lm_ndcg_at_100=metrics["ndcg@100"], model_ndcg_at_100=ndcg["off"])
+    if not 0.0 < metrics["ndcg@100"] <= 1.0:
+        raise AssertionError(f"the lm ranker's run: {metrics}")
     return launches
 
 
@@ -1945,11 +2385,17 @@ def main() -> int:
         phase_cli(root, data_dir, run_dir, topics, oracle_top)
         data_dir, run_dir, topics, qrels, train_launches = phase_train(root)
         launches.update(train_launches)
-        phase_serve_trained(root, data_dir, run_dir, topics, qrels)
+        searcher = phase_serve_trained(root, data_dir, run_dir, topics,
+                                       qrels)
         # Each path's launches are counted from 0 over that path alone;
         # a kernel's record sums the paths it serves.
-        paths = [phase_train_loglinear(root), phase_train_fused(root),
-                 phase_train_lse_full(root)]
+        paths = [phase_serve_foldin(searcher, topics),
+                 phase_serve_http(searcher, topics)]
+        del searcher
+        torch.cuda.empty_cache()
+        paths += [phase_train_loglinear(root),
+                  phase_serve_http_loglinear(root), phase_train_fused(root),
+                  phase_train_lse_full(root)]
         recipe_10m, data_10m, run_10m, topics_10m, launches_10m = (
             phase_train_10m(root))
         paths += [launches_10m,

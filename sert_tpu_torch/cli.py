@@ -6,14 +6,15 @@
   python -m sert_tpu_torch train     — instances -> per-epoch checkpoints
   python -m sert_tpu_torch query     — checkpoint + topics -> TREC run file
   python -m sert_tpu_torch evaluate  — run + qrels -> metrics
-  python -m sert_tpu_torch serve     — stdin queries -> ranked entities
+  python -m sert_tpu_torch serve     — stdin queries (or, with --http, a
+                                       JSON HTTP API) -> ranked entities
   python -m sert_tpu_torch e2e       — synthetic recipe end to end
 
 ``train``, ``query``, ``serve`` and ``e2e`` run on the CUDA card; they take
 ``--device cpu`` to run on the CPU, and without a card and without it they
-stop with that advice. ``prepare`` is host code. The lm ranker, ``fuse``,
-``report``, ``sweep``, ``dump``, ``neighbors`` and ``serve --http`` are not
-ported yet.
+stop with that advice. ``prepare``, ``evaluate`` and ``query --ranker lm``
+are host code. ``fuse``, ``report``, ``sweep``, ``dump`` and ``neighbors``
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -129,9 +130,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--out", required=True)
     p.add_argument("--step", type=int, default=None,
                    help="checkpoint step (default: latest)")
-    p.add_argument("--ranker", choices=("model",), default="model",
-                   help="'model' = the trained semantic model (the lm "
-                        "ranker is not ported yet)")
+    p.add_argument("--ranker", choices=("model", "lm"), default="model",
+                   help="'model' = the trained semantic model; 'lm' = the "
+                        "smoothed query-likelihood entity language model "
+                        "over prepare-time term statistics (the papers' "
+                        "lexical baseline; no checkpoint needed)")
+    p.add_argument("--smoothing", choices=("dirichlet", "jm"),
+                   default="dirichlet", help="LM smoothing (--ranker lm)")
+    p.add_argument("--mu", type=float, default=2000.0,
+                   help="Dirichlet prior mass (--ranker lm)")
+    p.add_argument("--lam", type=float, default=0.5,
+                   help="Jelinek-Mercer background weight (--ranker lm)")
     _add_device_arg(p)
 
     p = sub.add_parser("evaluate", help="trec_eval-style metrics")
@@ -147,10 +156,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "(randomization + t-test) of run vs RUN_B per "
                         "measure instead of plain metrics")
 
-    p = sub.add_parser("serve", help="stdin query serving: one query per "
-                                     "line (optionally 'qid<TAB>text'), "
-                                     "ranked entities out; the entity "
-                                     "matrix stays staged on the device")
+    p = sub.add_parser("serve", help="query serving: from stdin (one query "
+                                     "per line, optionally 'qid<TAB>text') "
+                                     "or over HTTP, ranked entities out; "
+                                     "the entity matrix stays staged on "
+                                     "the device")
     _add_recipe_arg(p)
     p.add_argument("--data", required=True)
     p.add_argument("--run-dir", required=True)
@@ -158,6 +168,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--step", type=int, default=None)
     p.add_argument("--batch", type=int, default=16,
                    help="queries scored per device dispatch")
+    p.add_argument("--http", type=int, default=None, metavar="PORT",
+                   help="serve a JSON HTTP API (GET /healthz, GET|POST "
+                        "/search, POST /entities) instead of the stdin "
+                        "loop")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address for --http (default loopback)")
     _add_device_arg(p)
 
     p = sub.add_parser("e2e", help="synthetic recipe end to end")
@@ -212,11 +228,27 @@ def main(argv: Optional[List[str]] = None) -> int:
         from sert_tpu_torch.data.prepare import encode_queries
         from sert_tpu_torch.eval.trec import read_topics, write_run
         from sert_tpu_torch.scoring.run import score_topics
+        ds = InstanceDataset(args.data)
+        resolved = pipeline.resolve_model_config(recipe, ds.meta)
+        if args.ranker == "lm":
+            from sert_tpu_torch.models.lm import load_lm
+            try:
+                lm, vocab, registry = load_lm(args.data,
+                                              smoothing=args.smoothing,
+                                              mu=args.mu, lam=args.lam)
+            except (FileNotFoundError, ValueError) as e:
+                raise SystemExit(str(e))
+            topics = read_topics(args.topics)
+            encoded = encode_queries(topics, vocab, resolved.data)
+            run = lm.rank_topics(encoded, registry.names,
+                                 k=resolved.score.top_k)
+            write_run(run, args.out)
+            print(f"wrote {sum(len(v) for v in run.values())} entries "
+                  f"for {len(run)} topics to {args.out} (lm ranker)")
+            return 0
         if not args.run_dir:
             raise SystemExit("--run-dir is required with --ranker model")
         device = pipeline.resolve_device(args.device)
-        ds = InstanceDataset(args.data)
-        resolved = pipeline.resolve_model_config(recipe, ds.meta)
         try:
             params, vocab, registry = pipeline.load_scorer(
                 args.run_dir, args.data, resolved, step=args.step,
@@ -257,10 +289,26 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.cmd == "serve":
         recipe = load_recipe(args.recipe)
-        from sert_tpu_torch.serving import EntitySearcher, serve_stdin
+        from sert_tpu_torch.serving import (EntitySearcher, make_http_server,
+                                            serve_stdin)
         searcher = EntitySearcher(recipe, args.data, args.run_dir,
                                   step=args.step, k=args.k,
                                   query_batch=args.batch, device=args.device)
+        if args.http is not None:
+            server = make_http_server(searcher, host=args.host,
+                                      port=args.http)
+            host, port = server.server_address[:2]
+            print(f"ready: http://{host}:{port} — GET /healthz, "
+                  f"GET /search?q=...&k=N, POST /search "
+                  f'{{"query": "...", "k": N}}, POST /entities',
+                  file=sys.stderr, flush=True)
+            try:
+                server.serve_forever()
+            except KeyboardInterrupt:
+                pass
+            finally:
+                server.server_close()
+            return 0
         print("ready: one query per line ('qid<TAB>text' or bare text); "
               "EOF/empty line exits", file=sys.stderr, flush=True)
         serve_stdin(searcher, sys.stdin, sys.stdout)

@@ -1,7 +1,9 @@
 """LSE — Latent Semantic Entities (port of ``sert_tpu/models/lse.py``:
 ``init`` :33, ``noise_logits`` :45, ``window_rep`` :59,
 ``sample_negatives`` :69, ``loss`` :86, ``sampled_softmax_inputs`` :139,
-``loss_sampled_softmax`` :171, ``loss_full_softmax`` :222,
+``loss_sampled_softmax`` :171, ``loss_full_softmax`` :222, the serve-time
+fold-in ``fold_in_entity`` :245, ``_entity_windows`` :272,
+``_fold_in_opt`` :290 and ``fold_in_entity_gradient`` :324,
 ``query_scores`` :377).
 
 word embeddings -> masked-mean pooling -> ``tanh(x W + b)`` into entity
@@ -15,6 +17,12 @@ K5/K6 (``ops/xent``). The two sampled objectives end in
 :func:`nce_tail` / :func:`sampled_softmax_tail`, functions of the
 already-gathered rows, which the row-sparse step (``train/sparse.py``)
 calls on its own gathers.
+
+The fold-in maps an unseen entity's text into the trained entity space
+without retraining (``serving.EntitySearcher.add_entities``): the mean f
+over its windows, or that f-image refitted on the entity's slice of the
+NCE objective against frozen reps. Its arithmetic is plain PyTorch, as in
+the reference (no kernel there either).
 """
 
 from __future__ import annotations
@@ -274,3 +282,127 @@ def loss_full_softmax(params: Params, batch, cfg: ModelConfig,
     total = fn(reps, ent, zeros_b, batch["entities"].long(), "ed",
                dtype=cfg.compute_dtype)
     return total / batch["windows"].shape[0]
+
+
+# Windows a fold-in projects per dispatch: the gather materializes
+# [W, window, d_w], and an unbounded text (reachable from the HTTP
+# server's POST /entities) must not become one multi-GB allocation.
+FOLD_IN_CHUNK = 8192
+
+
+def _entity_windows(token_ids, window_size: int):
+    """Sliding stride-1 windows + lengths over an entity's encoded text
+    (the f-input distribution training used), as int32 numpy arrays;
+    shared by both fold-in paths."""
+    ids = np.asarray(token_ids, np.int32)
+    if ids.size == 0:
+        raise ValueError("fold_in_entity needs at least one in-vocab token")
+    n = int(ids.size)
+    if n <= window_size:
+        return ids[None, :], np.asarray([n], np.int32)
+    windows = np.ascontiguousarray(
+        np.lib.stride_tricks.sliding_window_view(ids, window_size))
+    return windows, np.full(windows.shape[0], window_size, np.int32)
+
+
+def host_window_rep(params: Params, windows: np.ndarray,
+                    lengths: np.ndarray, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`window_rep` of numpy windows and lengths, on the params'
+    device."""
+    device = params["word_emb"].device
+    return window_rep(params, torch.from_numpy(windows).to(device),
+                      torch.from_numpy(lengths).to(device), cfg)
+
+
+@torch.no_grad()
+def fold_in_entity(params: Params, token_ids, cfg: ModelConfig,
+                   window_size: int = 16) -> torch.Tensor:
+    """[d_e] fp32 embedding of an unseen entity from its encoded text: the
+    mean of f (:func:`window_rep`) over its stride-1 windows, summed in
+    chunks of :data:`FOLD_IN_CHUNK` windows, on the params' device.
+    Log-linear has no analogue: its candidates are trained columns."""
+    windows, lengths = _entity_windows(token_ids, window_size)
+    W = windows.shape[0]
+    acc = None
+    for lo in range(0, W, FOLD_IN_CHUNK):
+        reps = host_window_rep(params, windows[lo:lo + FOLD_IN_CHUNK],
+                               lengths[lo:lo + FOLD_IN_CHUNK], cfg)
+        s = torch.sum(reps, dim=0)
+        acc = s if acc is None else acc + s
+    return acc / W
+
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8   # optax.adam's defaults
+
+
+@torch.no_grad()
+def _fold_in_opt(pos_reps: torch.Tensor, pos_w: torch.Tensor,
+                 neg_reps: torch.Tensor, v0: torch.Tensor,
+                 neg_weight: float, lr: float, steps: int) -> torch.Tensor:
+    """Optimize one entity embedding v against FROZEN window reps with
+    full-batch fp32 adam (optax's defaults, bias correction by step
+    count) for ``steps`` steps on
+
+        L(v) = -sum_p w_p log sigma(pos_p . v)
+               - neg_weight * mean_n log sigma(-neg_n . v),
+
+    entity e's slice of the NCE objective (``pos_w`` masks padding rows).
+    Its gradient in closed form: -pos^T (w sigma(-s_pos)) + neg_weight
+    / N neg^T sigma(s_neg). A loop on the reps' device that reads nothing
+    back to the host."""
+    f32 = dict(dtype=torch.float32, device=v0.device)
+    b1, b2 = torch.tensor(ADAM_B1, **f32), torch.tensor(ADAM_B2, **f32)
+    scale_neg = torch.tensor(neg_weight, **f32) / neg_reps.shape[0]
+    v, mu, nu = v0.clone(), torch.zeros_like(v0), torch.zeros_like(v0)
+    for count in range(1, steps + 1):
+        g = (neg_reps.T @ torch.sigmoid(neg_reps @ v) * scale_neg
+             - pos_reps.T @ (pos_w * torch.sigmoid(-(pos_reps @ v))))
+        mu.mul_(ADAM_B1).add_(g * (1 - ADAM_B1))
+        nu.mul_(ADAM_B2).add_(g * g * (1 - ADAM_B2))
+        mu_hat = mu / (1 - b1 ** count)
+        nu_hat = nu / (1 - b2 ** count)
+        v.add_(mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS) * -lr)
+    return v
+
+
+@torch.no_grad()
+def fold_in_entity_gradient(params: Params, token_ids, cfg: ModelConfig,
+                            neg_reps: torch.Tensor, window_size: int = 16,
+                            neg_weight: Optional[float] = None,
+                            steps: int = 1000, lr: float = 0.05,
+                            max_windows: int = 4096,
+                            seed: int = 0) -> torch.Tensor:
+    """[d_e] fp32 embedding of an unseen entity, optimized into the
+    trained geometry: from its f-image, :func:`_fold_in_opt` fits the
+    entity's slice of the NCE objective against frozen params, with its
+    own text windows as positives and ``neg_reps`` (background window
+    reps, ``serving.EntitySearcher._raw_negative_reps``) as negatives. The
+    result scores on the trained index's own scale, with no calibration.
+
+    ``neg_weight`` defaults to ``cfg.num_negatives`` (training drew k
+    negatives per positive window). Texts past ``max_windows`` windows are
+    subsampled with numpy's ``default_rng(seed)``, as the reference does;
+    the positives pad to a power-of-two bucket of zero-weight rows (at
+    least 8), and the f-image is their weighted sum over the padded rows."""
+    windows, lengths = _entity_windows(token_ids, window_size)
+    W = windows.shape[0]
+    if W > max_windows:
+        sel = np.random.default_rng(seed).choice(W, size=max_windows,
+                                                 replace=False)
+        windows, lengths = windows[np.sort(sel)], lengths[np.sort(sel)]
+        W = max_windows
+    P = max(8, 1 << (W - 1).bit_length())
+    pos_w = np.zeros((P,), np.float32)
+    pos_w[:W] = 1.0 / W
+    pad = np.zeros((P - W, windows.shape[1]), np.int32)
+    windows = np.concatenate([windows, pad])
+    lengths = np.concatenate([lengths, np.ones((P - W,), np.int32)])
+    pos_reps = host_window_rep(params, windows, lengths, cfg)
+    w = torch.from_numpy(pos_w).to(pos_reps.device)
+    v0 = torch.sum(pos_reps * w[:, None], dim=0)                # f-image
+    if neg_weight is None:
+        neg_weight = float(cfg.num_negatives)
+    return _fold_in_opt(pos_reps, w,
+                        torch.as_tensor(neg_reps, dtype=torch.float32,
+                                        device=pos_reps.device),
+                        v0, neg_weight, lr, steps)

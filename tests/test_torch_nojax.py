@@ -57,6 +57,42 @@ print("FOREIGN_MODULES", loaded)
 """
 
 
+# Fold-in (both methods) and the HTTP server on the serving fixture, with
+# no jax module loaded: the fixture has no instance shards, so the
+# gradient fold-in's pool is the synthesized one.
+FOLD_IN_AND_HTTP_ON_CPU = """
+import json, sys, tempfile, threading, urllib.request
+from sert_tpu_torch import cli
+from sert_tpu_torch.fixture import write_serving_fixture
+from sert_tpu_torch.serving import EntitySearcher, make_http_server
+recipe = cli.load_recipe("synthetic_1m_retrieval")
+with tempfile.TemporaryDirectory() as root:
+    data, run, topics = write_serving_fixture(root, recipe, 600, 400, 5,
+                                              seed=1)
+    s = EntitySearcher(recipe, data, run, k=50, device="cpu")
+    texts = list(topics.values())
+    assert s.add_entities([("new-a", texts[0]), ("new-b", texts[1])]) == 2
+    assert s.add_entities([("new-g", texts[2])], method="gradient") == 1
+    server = make_http_server(s, port=0)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+        assert json.loads(r.read())["extra_entities"] == 3
+    req = urllib.request.Request(
+        base + "/search", data=json.dumps({"queries": texts[:3]}).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        batched = json.loads(r.read())["batched"]
+    server.shutdown()
+    server.server_close()
+    names = [[h["entity"] for h in b["results"]] for b in batched]
+    assert all("new-" + c in n for c, n in zip("abg", names)), names
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "sert_tpu"))
+print("FOREIGN_MODULES", loaded)
+"""
+
+
 def _run(code_or_path, cwd, *args, env=None):
     env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
            **(env or {})}
@@ -140,6 +176,30 @@ def test_serving_path_runs_with_no_jax_module_loaded():
     proc = _run(SERVE_ON_CPU, REPO)
     assert proc.returncode == 0, proc.stderr
     assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
+
+
+def test_fold_in_and_http_run_with_no_jax_module_loaded():
+    proc = _run(FOLD_IN_AND_HTTP_ON_CPU, REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
+
+
+def test_lm_ranker_runs_with_jax_and_the_reference_blocked(tmp_path):
+    """``query --ranker lm`` (models/lm.py over the prepared lm_stats)
+    through the CLI with jax and the reference unimportable."""
+    from sert_tpu_torch import recipes
+    from sert_tpu_torch.utils.config import save_config
+    r, data = str(tmp_path / "r.json"), str(tmp_path / "data")
+    save_config(recipes.tiny_recipe("lse"), r)
+    trec = str(tmp_path / "lm.trec")
+    for args in (["prepare", "--recipe", r, "--out", data],
+                 ["query", "--recipe", r, "--data", data, "--topics",
+                  data + "/topics.tsv", "--out", trec, "--ranker", "lm"],
+                 ["evaluate", "--run", trec, "--qrels",
+                  data + "/qrels.trec"]):
+        proc = _run(CLI_BLOCKED, REPO, *args)
+        assert proc.returncode == 0, (args[0], proc.stderr[-3000:])
+    assert 0.5 <= json.loads(proc.stdout)["ndcg@100"] <= 1.0
 
 
 def _imports(path: Path):
