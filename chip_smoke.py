@@ -9,9 +9,11 @@ Phases (each prints one line or more; any failure exits non-zero):
      (gather-rescore, fp32 and bf16 rows) against their plain PyTorch
      versions at the serving shapes (Q=64, E=1M, d=128, bw=128, NB=1012),
      with CUDA-event times for both; K3 also at bw=64 and at a partial
-     tail (E=1M-1), with and without the bias; K4 also on shared bins
-     (every query the same 1012, each row in its own order), with a bin
-     twice in a row, with out-of-range ids (NaN scores), and two calls
+     tail (E=1M-1), with and without the bias; K3's fp32 mode (M staged
+     in fp32, 3xTF32) the same way, and both modes' bin maxima against
+     fp64 (the error relative to the largest score); K4 also on shared
+     bins (every query the same 1012, each row in its own order), with a
+     bin twice in a row, with out-of-range ids (NaN scores), and two calls
      bit for bit;
   4. train_kernels: K1 (the masked-LSE forward) and K2 (its backward)
      against sampled_lse_plain + autograd on the same inputs, at the
@@ -42,7 +44,27 @@ Phases (each prints one line or more; any failure exits non-zero):
      to the state in memory. Then `python -m sert_tpu_torch train` on the
      finished run resumes from that checkpoint and writes nothing;
   8. serve_trained: the serve checks again, on the run phase 7 wrote;
-  8a. serve_foldin: on that searcher, add_entities of 64 entities by the
+  8a. serve_engines: that run behind a searcher of each other engine and
+     staging option, every topic against the fp32 dense oracle, each
+     batch's latency (median of 3) beside the natural kernel engine's:
+     streaming (chunks of 32,768) and approx (recall 1.0 up to exact
+     ties), the clustered layout (ids the natural layout's but for ties)
+     and with it the adaptive rescore of 128 bins (K4's launches a call
+     give the share that fell back); the k-means at 1M (7,812 clusters)
+     timed alone and the same permutation as both stagings';
+     exact_topk_prepared with the fp32 prefilter (K3's fp32 mode) and
+     with bins of 64 (recall >= 0.99, score error <= 1e-5); then the first
+     50,000 trained rows at depth 100: mean winner-bins under each layout
+     and the share of single-query calls whose rescore of 64 bins fell
+     back;
+  8b. cli_scoring: `sweep` over the run's epoch snapshots (in this
+     process, its K3/K4 launches counted), `dump --format npz` at full
+     width (its arrays the served params), `neighbors --entity` and
+     `--term` (the first neighbour the host numpy argmax), `train
+     --init-word-emb` from that dump on a 4-step fixture of the same
+     vocabulary (step 0's rows the dump's, through the command's function
+     with no epoch; the command's loss finite, every row seeded);
+  8c. serve_foldin: on that searcher, add_entities of 64 entities by the
      affine method (each one topic's own four-term text, under the window
      of 8, so its f-image is that topic's query rep) and of 8 by the
      gradient method (sampled softmax: the f-image at the trained median
@@ -56,7 +78,7 @@ Phases (each prints one line or more; any failure exits non-zero):
      then the NCE refit (fold_in_entity_gradient, 1000 adam steps) at full
      width on the card against the CPU (cosine >= 1 - 1e-5, norms within
      1e-4);
-  8b. serve_http: make_http_server on that searcher, on loopback: 16
+  8d. serve_http: make_http_server on that searcher, on loopback: 16
      concurrent POST /search clients (they must coalesce, max_batch > 1;
      each answer search_many's, scores within 1e-6), one query's latency
      and the clients' queries/s, a batched POST and a GET, /healthz (the
@@ -242,6 +264,14 @@ FOLD_COS_MIN, FOLD_NORM_RTOL = 1 - 1e-5, 1e-4
 # shape, which moves an extra's score by fp32 rounding only).
 HTTP_CLIENTS = 16
 HTTP_SCORE_TOL = LL_HTTP_SCORE_TOL = 1e-6
+# serve_engines: the streaming engine's chunk, the adaptive rescore's
+# phase-1 bins at depth 1000, and the layout's own regime (the first 50,000
+# trained rows at depth 100, phase 1 of 64 bins). Streaming and approx are
+# exact: a returned id outside the oracle's top k must tie its k-th score
+# within ENGINE_TIE (the same fp32 products, taken in other chunks).
+ENGINE_CHUNK, ADAPTIVE_BINS = 32_768, 128
+LAYOUT_E, LAYOUT_K, LAYOUT_NA = 50_000, 100, 64
+ENGINE_TIE = 1e-6
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 # Exponentials a second: 16 special-function-unit results a clock on each
@@ -378,6 +408,49 @@ def phase_kernels() -> dict:
                   f"E={e},bw={bw},{'bias' if ba else 'nobias'}",
                   k3.score_binmax_prepared(R, Mp, e, *ba, bin_width=bw),
                   k3.score_binmax_plain(R, Mp, e, *ba, bin_width=bw))
+    # K3's fp32 mode: M staged in fp32, 3xTF32 products, against the plain
+    # version (fp32 products, TF32 off) and against fp64.
+    Mp32 = k3.prepare_binmax_matrix(M, torch.float32)
+    n16, n32 = k3.launches, k3.f32_launches
+    bins32 = compare(
+        "score_binmax_f32", "nobias",
+        lambda: k3.score_binmax_prepared(R, Mp32, E, bin_width=BW),
+        lambda: k3.score_binmax_plain(R, Mp32, E, bin_width=BW),
+        src3, "sert_tpu/ops/score_binmax.py:57")
+    compare(
+        "score_binmax_f32", "bias",
+        lambda: k3.score_binmax_prepared(R, Mp32, E, bias, alpha, BW),
+        lambda: k3.score_binmax_plain(R, Mp32, E, bias, alpha, BW),
+        src3, "sert_tpu/ops/score_binmax.py:51")
+    if k3.launches != n16 or k3.f32_launches == n32:
+        raise AssertionError("an fp32 Mp did not launch K3's fp32 mode")
+    # It reads the fp32 copy once; 3xTF32 runs three products.
+    records["score_binmax_f32"].update(bound(
+        2 * Q * E * Mp32.shape[1], nbytes(Mp32, R, bins32), "tf32x3"))
+    for e, bw in ((E, 64), (E - 1, BW)):
+        for ba in ((), (bias, alpha)):
+            check("score_binmax_f32",
+                  f"E={e},bw={bw},{'bias' if ba else 'nobias'}",
+                  k3.score_binmax_prepared(R, Mp32, e, *ba, bin_width=bw),
+                  k3.score_binmax_plain(R, Mp32, e, *ba, bin_width=bw))
+    for ba in ((), (bias, alpha)):
+        for mode, mp in (("float32", Mp32), ("bfloat16", Mp)):
+            _binmax_vs_fp64("kernels", f"d={D},{mode}", R, M, mp, *ba)
+    del Mp32
+    torch.cuda.empty_cache()
+    # The fp32 mode at its widest d, where the sums are longest and the
+    # scores of unit rows smallest.
+    g672 = torch.Generator(device=dev).manual_seed(SEED + 2)
+    R672 = torch.randn(Q, k3.MAX_DIM_F32, generator=g672, device=dev)
+    M672 = torch.randn(E, k3.MAX_DIM_F32, generator=g672, device=dev)
+    R672 = R672 / R672.norm(dim=1, keepdim=True)
+    M672 = M672 / M672.norm(dim=1, keepdim=True)
+    Mp672 = k3.prepare_binmax_matrix(M672, torch.float32)
+    for ba in ((), (bias, alpha)):
+        _binmax_vs_fp64("kernels", f"d={k3.MAX_DIM_F32},float32", R672, M672,
+                        Mp672, *ba)
+    del M672, Mp672
+    torch.cuda.empty_cache()
     # K3 at wide rows, where every block walks its ring many times over with
     # more sub-tiles a tile (8 and 5) than a warpgroup's share of the ring.
     gw = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -631,10 +704,14 @@ def phase_serve(root: str):
     return data_dir, run_dir, topics, oracle_top, launches
 
 
-def check_searcher(phase: str, searcher, topics: dict):
+def check_searcher(phase: str, searcher, topics: dict,
+                   recall_min: float = RECALL_MIN, kernels: bool = True,
+                   tie: float = 0.0):
     """One search, then every topic through ``search_many``; recall and
-    score error against an fp32 dense oracle on the card. Returns (oracle
-    top-10 ids, launches by kernel, the results)."""
+    score error against an fp32 dense oracle on the card (``kernels``:
+    K3 and K4 must each have launched; ``tie``: a returned id outside the
+    oracle's top k also counts when its score ties the k-th within it).
+    Returns (oracle top-10 ids, launches by kernel, the results)."""
     import torch
     from sert_tpu_torch.ops import gather_rescore as k4
     from sert_tpu_torch.ops import score_binmax as k3
@@ -656,7 +733,7 @@ def check_searcher(phase: str, searcher, topics: dict):
         per_batch_ms=(t2 - t1) * 1e3 / n_batches,
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
         launches=json.dumps(launches).replace(" ", ""))
-    if min(launches.values()) < 1:
+    if kernels and min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     a, b = dict(one), dict(many[0])
     if a.keys() != b.keys() or max(abs(a[n] - b[n]) for n in a) > SCORE_TOL:
@@ -668,14 +745,16 @@ def check_searcher(phase: str, searcher, topics: dict):
     encoded = {f"{i:04d}": searcher.encode(t) for i, t in enumerate(texts)}
     _, term_ids, num_terms = pad_queries(encoded)
     M = _entity_matrix(params, cfg, "cosine")
-    recalls, worst, oracle_top = [], 0.0, []
+    recalls, tied, worst, oracle_top = [], [], 0.0, []
     with torch.no_grad():
         for lo in range(0, len(texts), Q):
             t = torch.from_numpy(term_ids[lo:lo + Q]).cuda()
             m = torch.from_numpy(num_terms[lo:lo + Q]).cuda()
             R = _query_reps_and_terms(params, cfg, t, m, "cosine")[0]
             S = R @ M.T                                         # [64, E]
-            top = torch.topk(S, K, dim=1).indices.cpu().numpy()
+            top_s, top = torch.topk(S, K, dim=1)
+            kth = top_s[:, -1].cpu().numpy()
+            top = top.cpu().numpy()
             for i in range(R.shape[0]):
                 hits = many[lo + i]
                 if len(hits) != K:
@@ -684,27 +763,33 @@ def check_searcher(phase: str, searcher, topics: dict):
                 got = torch.tensor([s for _, s in hits], device="cuda")
                 want = S[i, torch.tensor(ids, device="cuda")]
                 worst = max(worst, (got - want).abs().max().item())
-                recalls.append(len(set(ids) & set(top[i].tolist())) / K)
+                found = set(ids) & set(top[i].tolist())
+                recalls.append(len(found) / K)
+                tied.append((len(found) + int(
+                    (want.cpu().numpy()[[j not in found for j in ids]]
+                     >= kth[i] - tie).sum())) / K)
                 oracle_top.append(top[i, :10].tolist())
             del S
     recall = sum(recalls) / len(recalls)
+    with_ties = sum(tied) / len(tied)
     say(phase, mean_recall_vs_dense=recall, min_recall=min(recalls),
-        max_score_err=worst)
-    if recall < RECALL_MIN or worst > SCORE_TOL:
-        raise AssertionError(f"recall {recall} < {RECALL_MIN} or score "
+        mean_recall_with_ties=with_ties, tie=tie, max_score_err=worst)
+    if with_ties < recall_min or worst > SCORE_TOL:
+        raise AssertionError(f"recall {with_ties} < {recall_min} or score "
                              f"error {worst} > {SCORE_TOL}")
     del params, M
     return oracle_top, launches, many
 
 
-def sert_cli(*args) -> str:
-    """``python -m sert_tpu_torch ARGS`` in a subprocess; its stdout."""
+def sert_cli(*args, stderr: bool = False):
+    """``python -m sert_tpu_torch ARGS`` in a subprocess; its stdout (and,
+    with ``stderr``, its standard error beside it)."""
     proc = subprocess.run([sys.executable, "-m", "sert_tpu_torch", *args],
                           capture_output=True, text=True, cwd=HERE)
     if proc.returncode != 0:
         raise RuntimeError(f"sert_tpu_torch {args[0]} failed:\n"
                            f"{proc.stdout}{proc.stderr}")
-    return proc.stdout
+    return (proc.stdout, proc.stderr) if stderr else proc.stdout
 
 
 def phase_cli(root: str, data_dir: str, run_dir: str, topics: dict,
@@ -862,12 +947,390 @@ def phase_serve_trained(root: str, data_dir: str, run_dir: str,
     return searcher
 
 
+def _median(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def _engine_searcher(root: str, data_dir: str, run_dir: str, **score_kw):
+    """An EntitySearcher on the trained run with the recipe's ScoreConfig
+    changed by ``score_kw``, and its load + stage + warm-up seconds."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.serving import EntitySearcher
+    recipe = load_recipe(os.path.join(root, "recipe.json"))
+    recipe = dataclasses.replace(recipe, score=dataclasses.replace(
+        recipe.score, **score_kw))
+    t0 = time.perf_counter()
+    searcher = EntitySearcher(recipe, data_dir, run_dir, k=K, query_batch=Q)
+    torch.cuda.synchronize()
+    return searcher, time.perf_counter() - t0
+
+
+def _topk_check(phase: str, name: str, fn, Rs, M) -> dict:
+    """``fn(R)`` -> (scores, ids) on each batch of query reps against the
+    fp32 dense oracle on the card: recall at K and score error, each
+    kernel's launches over the batches, and one batch's latency."""
+    import torch
+    _zero_kernel_counts()
+    outs = [fn(R) for R in Rs]
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    recalls, worst = [], 0.0
+    for R, (top_s, top_i) in zip(Rs, outs):
+        S = R @ M.T
+        want = torch.topk(S, K, dim=1).indices
+        worst = max(worst, (top_s - torch.gather(S, 1, top_i)).abs()
+                    .max().item())
+        for g, w in zip(top_i.tolist(), want.tolist()):
+            recalls.append(len(set(g) & set(w)) / K)
+        del S
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn(Rs[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    recall = sum(recalls) / len(recalls)
+    say(phase, engine=name, mean_recall_vs_dense=recall,
+        min_recall=min(recalls), max_score_err=worst,
+        batch_ms_median=_median(ms), batch_ms=json.dumps(ms),
+        launches=json.dumps(launches).replace(" ", ""))
+    if recall < RECALL_MIN or worst > SCORE_TOL:
+        raise AssertionError(f"{name}: recall {recall} < {RECALL_MIN} or "
+                             f"score error {worst} > {SCORE_TOL}")
+    return launches
+
+
+def _binmax_vs_fp64(phase: str, variant: str, R, M, Mp, bias=None,
+                    alpha=None) -> float:
+    """K3 on the staged ``Mp`` against the fp64 bin maxima of R M^T
+    (+ alpha * bias), as the two-phase rescore's acceptance cut reads it:
+    each query's largest error over its largest bin max, the worst query.
+    An fp32 ``Mp`` must stay within a quarter of the fp32 slack
+    (``exact_topk.ADAPTIVE_EPS``). Its launches are not the path's."""
+    import torch
+    from sert_tpu_torch.ops import score_binmax as k3
+    from sert_tpu_torch.ops.exact_topk import ADAPTIVE_EPS
+    E, q = M.shape[0], R.shape[0]
+    n_bins = -(-E // BW)
+    s64 = R.double() @ M.double().T
+    if bias is not None:
+        s64 += alpha.double()[:, None] * bias.double()[None, :]
+    s64 = torch.nn.functional.pad(s64, (0, n_bins * BW - E),
+                                  value=float("-inf"))
+    want = s64.view(q, n_bins, BW).amax(dim=-1)
+    del s64
+    got = k3.score_binmax_prepared(R, Mp, E, bias, alpha,
+                                   bin_width=BW).double()
+    rel = ((got - want).abs().amax(1) / want.amax(1).abs()).max().item()
+    slack = ADAPTIVE_EPS[Mp.dtype]
+    say(phase, name="score_binmax", variant=variant,
+        bias=bias is not None, max_err_vs_fp64_rel_to_query_max=rel,
+        adaptive_slack=slack)
+    if Mp.dtype == torch.float32 and 4 * rel > slack:
+        raise AssertionError(f"K3 fp32 {variant}: {rel} of the query's max "
+                             f"from fp64, past a quarter of the slack "
+                             f"{slack}")
+    return rel
+
+
+def _layout_regime(M, R) -> dict:
+    """The clustered layout where it was built to help: the first
+    LAYOUT_E trained rows at depth LAYOUT_K. Mean winner-bins (distinct
+    bins holding a query's true top k) under each layout, and the share
+    of queries (one a call) whose two-phase rescore of LAYOUT_NA bins fell
+    back to the full one; every answer against the oracle. Returns the
+    launches by kernel."""
+    import torch
+    from sert_tpu_torch.ops import exact_topk
+    M = M[:LAYOUT_E].contiguous()
+    S = R @ M.T
+    want_s, want = torch.topk(S, LAYOUT_K, dim=1)
+    stats, total = {}, {}
+    for layout in ("natural", "clustered"):
+        t0 = time.perf_counter()
+        prep = exact_topk.prepare_entities(M, layout=layout)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        pos = (want if prep.perm is None
+               else torch.argsort(prep.perm)[want])
+        bins = [torch.unique(p // prep.bin_width).numel()
+                for p in pos]
+        _zero_kernel_counts()
+        worst, recalls = 0.0, []
+        for i in range(R.shape[0]):
+            top_s, top_i = exact_topk.exact_topk_prepared(
+                R[i:i + 1], prep, k=LAYOUT_K, adaptive_bins=LAYOUT_NA)
+            worst = max(worst, (top_s[0] - S[i, top_i[0]]).abs()
+                        .max().item())
+            recalls.append(len(set(top_i[0].tolist())
+                               & set(want[i].tolist())) / LAYOUT_K)
+        calls = R.shape[0]
+        launches = _kernel_counts()
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        stats[layout] = dict(
+            stage_s=stage_s, mean_winner_bins=sum(bins) / len(bins),
+            fallback_share=(launches["gather_rescore"] - calls) / calls,
+            mean_recall_vs_dense=sum(recalls) / len(recalls),
+            max_score_err=worst)
+        if stats[layout]["mean_recall_vs_dense"] < RECALL_MIN \
+                or worst > SCORE_TOL:
+            raise AssertionError(f"{layout} at {LAYOUT_E}: {stats}")
+    say("serve_engines", regime=f"E={LAYOUT_E},k={LAYOUT_K},"
+        f"adaptive_bins={LAYOUT_NA},one_query_a_call",
+        stats=json.dumps(stats).replace(" ", ""))
+    return total
+
+
+def phase_serve_engines(root: str, data_dir: str, run_dir: str,
+                        topics: dict, natural) -> dict:
+    """Every single-device engine and staging option on the trained 1M
+    run, against the fp32 dense oracle, beside the natural kernel engine
+    (``natural``, phase 8's searcher): the streaming scan and approx
+    (exact: recall 1.0 up to exact ties), the clustered layout (its ids
+    the natural layout's but for ties; its k-means timed; two stagings
+    the same permutation) and with it the two-phase rescore (K4's
+    launches a call give the share that fell back), then
+    ``exact_topk_prepared`` with the fp32 prefilter (K3's fp32 mode) and
+    with bins of 64; and the layout at 50,000 rows. Each searcher's batch
+    latency is the median of three on the host clock. Returns the
+    launches by kernel of the path."""
+    import torch
+    from sert_tpu_torch.ops import exact_topk
+    from sert_tpu_torch.scoring.run import pad_queries
+    from sert_tpu_torch.scoring.scorer import (_entity_matrix,
+                                               _query_reps_and_terms)
+    texts = [topics[q] for q in sorted(topics)]
+    batch = texts[:Q]
+    natural_ms = _batch_ms(natural, batch)
+    natural_hits = natural.search_many(batch)
+    say("serve_engines", engine="pallas", layout="natural",
+        batch_ms_median=_median(natural_ms),
+        batch_ms=json.dumps(natural_ms))
+    total: dict = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    cases = [("streaming", dict(engine="streaming",
+                                entity_chunk=ENGINE_CHUNK), 1.0, False),
+             ("approx", dict(engine="approx"), 1.0, False),
+             ("clustered", dict(engine="pallas", layout="clustered"),
+              RECALL_MIN, True),
+             ("clustered_adaptive", dict(engine="pallas", layout="clustered",
+                                         adaptive_bins=ADAPTIVE_BINS),
+              RECALL_MIN, True)]
+    perms = []
+    for name, kw, recall_min, kernels in cases:
+        searcher, load_s = _engine_searcher(root, data_dir, run_dir, **kw)
+        if searcher.engine != kw["engine"]:
+            raise AssertionError(f"{name}: engine {searcher.engine}")
+        _zero_kernel_counts()
+        _, launches, _ = check_searcher(
+            f"serve_engines:{name}", searcher, topics, recall_min=recall_min,
+            kernels=kernels, tie=0.0 if kernels else ENGINE_TIE)
+        add(launches)
+        ms = _batch_ms(searcher, batch)
+        extra = {}
+        if kernels:
+            perms.append(searcher.prep.perm)
+            hits = searcher.search_many(batch)
+            same = all(_same_hits(g, w, ENGINE_TIE)
+                       for g, w in zip(hits, natural_hits))
+            extra["ids_equal_natural_but_ties"] = same
+            if not same:
+                raise AssertionError(f"{name}: ids differ from the natural "
+                                     "layout's beyond ties")
+            calls = launches["score_binmax"]
+            extra["k4_launches_per_call"] = (launches["gather_rescore"]
+                                             / calls)
+            extra["fallback_share"] = (launches["gather_rescore"]
+                                       - calls) / calls
+        elif launches["score_binmax"] or launches["gather_rescore"]:
+            raise AssertionError(f"{name} launched K3/K4: {launches}")
+        say("serve_engines", engine=name, load_stage_warmup_s=load_s,
+            batch_ms_median=_median(ms), batch_ms=json.dumps(ms),
+            natural_batch_ms_median=_median(natural_ms), **extra)
+        del searcher
+        torch.cuda.empty_cache()
+
+    # The layout's k-means at 1M, timed alone; each staging gave the same
+    # permutation.
+    params, cfg = natural.params, natural.recipe.model
+    M = _entity_matrix(params, cfg, "cosine")
+    t0 = time.perf_counter()
+    perm = exact_topk._cluster_order(M)
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+    same = all(torch.equal(p, perm) for p in perms)
+    say("serve_engines", clustered_kmeans_s=kmeans_s,
+        clusters=min(8192, max(256, E // BW)), entities=E,
+        stagings_same_permutation=same)
+    if not same:
+        raise AssertionError("two clustered stagings differ")
+
+    encoded = {f"{i:04d}": natural.encode(t) for i, t in enumerate(texts)}
+    _, term_ids, num_terms = pad_queries(encoded)
+    Rs = []
+    with torch.no_grad():
+        for lo in range(0, len(texts), Q):
+            Rs.append(_query_reps_and_terms(
+                params, cfg, torch.from_numpy(term_ids[lo:lo + Q]).cuda(),
+                torch.from_numpy(num_terms[lo:lo + Q]).cuda(), "cosine")[0])
+        for name, kw, mode in (("prefilter_float32",
+                                dict(prefilter_dtype="float32"),
+                                "score_binmax_f32"),
+                               ("bin_width_64", dict(bin_width=64),
+                                "score_binmax")):
+            t0 = time.perf_counter()
+            prep = exact_topk.prepare_entities(M, **kw)
+            torch.cuda.synchronize()
+            say("serve_engines", engine=name,
+                stage_s=time.perf_counter() - t0,
+                prefilter=str(prep.Mp.dtype), bin_width=prep.bin_width)
+            launches = _topk_check(
+                "serve_engines", name,
+                lambda R: exact_topk.exact_topk_prepared(R, prep, k=K),
+                Rs, M)
+            if launches[mode] != len(Rs) or launches["gather_rescore"] < 1:
+                raise AssertionError(f"{name} did not run {mode} and K4 "
+                                     f"a batch: {launches}")
+            add(launches)
+            if prep.Mp.dtype == torch.float32:    # the trained rows
+                for R in Rs:
+                    _binmax_vs_fp64("serve_engines", "trained,float32", R,
+                                    M, prep.Mp)
+            del prep
+        add(_layout_regime(M, torch.cat(Rs)))
+    del M, Rs
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_cli_scoring(root: str, data_dir: str, run_dir: str, topics: dict,
+                      qrels: dict, searcher) -> dict:
+    """The workflows that read the trained run, through the CLI: `sweep`
+    over its epoch snapshots (in this process, so that its K3/K4 launches
+    count), `dump --format npz` at full width (the arrays equal the
+    served params), `neighbors --entity` and `--term` (the first neighbour
+    the host numpy argmax), and `train --init-word-emb` from that dump on
+    a 4-step fixture of the same vocabulary (the rows at step 0 equal the
+    dump's; the command's loss finite). Returns the sweep's launches."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from sert_tpu_torch import cli, pipeline
+    from sert_tpu_torch.eval.trec import write_qrels, write_topics
+    from sert_tpu_torch.fixture import write_training_fixture
+    recipe_json = os.path.join(root, "recipe.json")
+    run_args = ["--recipe", recipe_json, "--data", data_dir, "--run-dir",
+                run_dir]
+    topics_path = os.path.join(root, "sweep_topics.tsv")
+    qrels_path = os.path.join(root, "sweep_qrels.trec")
+    write_topics(topics, topics_path)
+    write_qrels(qrels, qrels_path)
+
+    _zero_kernel_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["sweep", *run_args, "--topics", topics_path,
+                       "--qrels", qrels_path])
+    sweep_s = time.perf_counter() - t0
+    launches = _kernel_counts()
+    sweep = json.loads(out.getvalue())
+    say("cli_scoring", command="sweep", seconds=sweep_s,
+        per_step=json.dumps(sweep["per_step"]).replace(" ", ""),
+        best_step=sweep["best_step"], best=sweep["best"],
+        launches=json.dumps(launches).replace(" ", ""))
+    if (rc != 0 or len(sweep["per_step"]) != TRAIN_EPOCHS
+            or str(sweep["best_step"]) not in sweep["per_step"]
+            or launches["score_binmax"] < TRAIN_EPOCHS
+            or launches["gather_rescore"] < TRAIN_EPOCHS):
+        raise AssertionError(f"sweep: {sweep}, launches {launches}")
+
+    npz = os.path.join(root, "dump.npz")
+    t0 = time.perf_counter()
+    sert_cli("dump", *run_args, "--out", npz)
+    dump_s = time.perf_counter() - t0
+    with np.load(npz, allow_pickle=True) as z:
+        dump = {k: z[k] for k in z.files}
+    same = (np.array_equal(dump["word_emb"],
+                           searcher.params["word_emb"].float().cpu().numpy())
+            and np.array_equal(dump["entity_matrix"],
+                               searcher.params["entity_emb"].float().cpu()
+                               .numpy()))
+    say("cli_scoring", command="dump", seconds=dump_s,
+        bytes=os.path.getsize(npz), arrays=",".join(sorted(dump)),
+        word_emb=dump["word_emb"].shape, entity_matrix=
+        dump["entity_matrix"].shape, equal_to_served_params=same)
+    if not same or dump["terms"].shape != (V,) \
+            or dump["entities"].shape != (E,):
+        raise AssertionError("the dump is not the served run")
+
+    for flag, names, mat, i in (("--entity", dump["entities"],
+                                 dump["entity_matrix"], 12345),
+                                ("--term", dump["terms"], dump["word_emb"],
+                                 777)):
+        t0 = time.perf_counter()
+        lines = sert_cli("neighbors", *run_args, flag, str(names[i]),
+                         "-k", "5").splitlines()
+        Mn = mat / np.maximum(np.linalg.norm(mat, axis=1, keepdims=True),
+                              1e-9)
+        sims = Mn @ Mn[i]
+        sims[i] = -np.inf
+        want = str(names[int(np.argmax(sims))])
+        got = lines[0].split("\t")[1]
+        say("cli_scoring", command="neighbors", query=flag,
+            seconds=time.perf_counter() - t0, first=got, oracle=want)
+        if len(lines) != 5 or got != want:
+            raise AssertionError(f"neighbors {flag}: {lines} vs {want}")
+
+    # --init-word-emb: a fresh 4-step fixture of the same vocabulary; step
+    # 0 through the command's own function with no epoch to train.
+    from sert_tpu_torch.cli import load_recipe
+    seed_data, _, _ = write_training_fixture(
+        os.path.join(root, "seeded"), load_recipe(recipe_json), V, E,
+        4 * B_TRAIN, seed=SEED + 1)
+    state, _ = pipeline.train_from_dir(
+        load_recipe(train_recipe_json(root, epochs=0,
+                                      filename="seed0.json")),
+        seed_data, os.path.join(root, "seeded", "run0"), init_word_emb=npz,
+        device="cuda")
+    step0 = state.params["word_emb"].float().cpu().numpy()
+    rows_equal = state.step == 0 and np.array_equal(step0, dump["word_emb"])
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, err = sert_cli("train", "--recipe",
+                      train_recipe_json(root, epochs=1, log_every=1,
+                                        filename="seed1.json"),
+                      "--data", seed_data, "--out",
+                      os.path.join(root, "seeded", "run"),
+                      "--init-word-emb", npz, stderr=True)
+    _, losses, _ = _train_log(os.path.join(root, "seeded", "run"))
+    seeded = f"init: seeded {V}/{V} word embeddings" in err
+    say("cli_scoring", command="train --init-word-emb",
+        seconds=time.perf_counter() - t0, step0_rows_equal_dump=rows_equal,
+        logged_all_rows_seeded=seeded, losses=json.dumps(losses))
+    if not rows_equal or not seeded or not losses \
+            or not all(map(math.isfinite, losses)):
+        raise AssertionError("train --init-word-emb did not seed the run")
+    return launches
+
+
 def _kernel_counts(xent_too: bool = False) -> dict:
-    """The serving kernels' launch counters, by kernel name."""
+    """The serving kernels' launch counters, by kernel name (K3's fp32
+    mode as ``score_binmax_f32``)."""
     from sert_tpu_torch.ops import gather_rescore as k4
     from sert_tpu_torch.ops import score_binmax as k3
     from sert_tpu_torch.ops import xent
-    counts = {"score_binmax": k3.launches, "gather_rescore": k4.launches}
+    counts = {"score_binmax": k3.launches, "gather_rescore": k4.launches,
+              "score_binmax_f32": k3.f32_launches}
     if xent_too:
         counts["xent_fwd"] = xent.fwd_launches
     return counts
@@ -877,7 +1340,7 @@ def _zero_kernel_counts() -> None:
     from sert_tpu_torch.ops import gather_rescore as k4
     from sert_tpu_torch.ops import score_binmax as k3
     from sert_tpu_torch.ops import xent
-    k3.launches = k4.launches = xent.fwd_launches = 0
+    k3.launches = k3.f32_launches = k4.launches = xent.fwd_launches = 0
 
 
 def _host_params(params: dict) -> dict:
@@ -953,7 +1416,7 @@ def phase_serve_foldin(searcher, topics: dict) -> dict:
         gradient_add_ms=(t2 - t1) * 1e3,
         probe_launches=json.dumps(probe).replace(" ", ""),
         peak_mem_bytes=peak, extras=searcher.num_extra_entities)
-    if min(probe.values()) < 1:
+    if min(probe["score_binmax"], probe["gather_rescore"]) < 1:
         raise AssertionError(f"the affine probe launched no kernel: {probe}")
 
     # Each fold-in vector against the port on the CPU, same params.
@@ -1204,7 +1667,8 @@ def phase_serve_http_loglinear(root: str) -> dict:
     launches = _kernel_counts(xent_too=True)
     say("serve_http", model="loglinear", recipe="cerc_expert_finding",
         launches=json.dumps(launches).replace(" ", ""))
-    if min(launches.values()) < 1:
+    if min(launches["score_binmax"], launches["gather_rescore"],
+           launches["xent_fwd"]) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     del searcher
     torch.cuda.empty_cache()
@@ -2389,7 +2853,11 @@ def main() -> int:
                                        qrels)
         # Each path's launches are counted from 0 over that path alone;
         # a kernel's record sums the paths it serves.
-        paths = [phase_serve_foldin(searcher, topics),
+        paths = [phase_serve_engines(root, data_dir, run_dir, topics,
+                                     searcher),
+                 phase_cli_scoring(root, data_dir, run_dir, topics, qrels,
+                                   searcher),
+                 phase_serve_foldin(searcher, topics),
                  phase_serve_http(searcher, topics)]
         del searcher
         torch.cuda.empty_cache()

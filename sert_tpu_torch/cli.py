@@ -6,15 +6,19 @@
   python -m sert_tpu_torch train     — instances -> per-epoch checkpoints
   python -m sert_tpu_torch query     — checkpoint + topics -> TREC run file
   python -m sert_tpu_torch evaluate  — run + qrels -> metrics
+  python -m sert_tpu_torch sweep     — every epoch snapshot -> metric, best
+  python -m sert_tpu_torch dump      — learned vectors -> npz or word2vec
   python -m sert_tpu_torch serve     — stdin queries (or, with --http, a
                                        JSON HTTP API) -> ranked entities
+  python -m sert_tpu_torch neighbors — nearest terms or entities
   python -m sert_tpu_torch e2e       — synthetic recipe end to end
 
-``train``, ``query``, ``serve`` and ``e2e`` run on the CUDA card; they take
-``--device cpu`` to run on the CPU, and without a card and without it they
-stop with that advice. ``prepare``, ``evaluate`` and ``query --ranker lm``
-are host code. ``fuse``, ``report``, ``sweep``, ``dump`` and ``neighbors``
-are not ported yet.
+``train``, ``query``, ``sweep``, ``dump``, ``serve``, ``neighbors`` and
+``e2e`` load params onto the CUDA card; they take ``--device cpu`` to run
+on the CPU, and without a card and without it they stop with that advice.
+``prepare``, ``evaluate`` and ``query --ranker lm`` are host code, as are
+``dump``'s and ``neighbors``' arithmetic. ``fuse`` and ``report`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -89,6 +93,101 @@ def _prepare(recipe, args) -> None:
         prepare(docs, assoc, registry, args.out, recipe.data)
 
 
+def _load_run(args):
+    """(resolved recipe, host params, vocab, registry) of ``--run-dir`` at
+    ``--step``, read through the device the command was given."""
+    from sert_tpu_torch import pipeline
+    from sert_tpu_torch.data.instances import InstanceDataset
+    recipe = load_recipe(args.recipe)
+    resolved = pipeline.resolve_model_config(
+        recipe, InstanceDataset(args.data).meta)
+    params, vocab, registry = pipeline.load_scorer(
+        args.run_dir, args.data, resolved, step=args.step,
+        device=pipeline.resolve_device(args.device))
+    return resolved, params, vocab, registry
+
+
+def _host(t):
+    """An fp32 numpy copy of a tensor (numpy has no bf16). Strides are
+    kept: the log-linear entity matrix stays the transposed view of
+    ``proj_w`` that the reference writes (a Fortran-ordered array)."""
+    return t.float().cpu().numpy()
+
+
+def _dump(args) -> int:
+    """The reference's dump: ``word_emb``, ``entity_matrix``, ``terms``
+    and ``entities`` (object arrays) and, where the model has one,
+    ``entity_bias``, as an npz (what ``train --init-word-emb`` reads), or
+    the word2vec text format. Arrays are written in fp32."""
+    import numpy as np
+    from sert_tpu_torch.models import api as model_api
+    resolved, params, vocab, registry = _load_run(args)
+    out = {
+        "word_emb": _host(params["word_emb"]),
+        "entity_matrix": _host(model_api.entity_matrix(params,
+                                                       resolved.model)),
+        "terms": np.asarray(list(vocab.iter_terms()), dtype=object),
+        "entities": np.asarray(registry.names, dtype=object),
+    }
+    if args.format == "word2vec":
+        # The classic text format (a header line "N d", then "token v1 ..
+        # vd"), loadable by gensim's KeyedVectors.load_word2vec_format(
+        # binary=False). Tokens must be space-free.
+        base = args.out[:-4] if args.out.endswith(".npz") else args.out
+
+        def _w2v(path, names, mat):
+            with open(path, "w") as fh:
+                fh.write(f"{mat.shape[0]} {mat.shape[1]}\n")
+                for name, row in zip(names, mat):
+                    tok = str(name).replace(" ", "_")
+                    fh.write(tok + " "
+                             + " ".join(f"{x:.6f}" for x in
+                                        row.astype(np.float64)) + "\n")
+
+        wpath, epath = base + ".words.vec", base + ".entities.vec"
+        _w2v(wpath, out["terms"], out["word_emb"])
+        _w2v(epath, out["entities"], out["entity_matrix"])
+        print(f"wrote {wpath} ({out['word_emb'].shape}) and "
+              f"{epath} ({out['entity_matrix'].shape})")
+        return 0
+    bias = model_api.entity_bias(params, resolved.model)
+    if bias is not None:
+        out["entity_bias"] = _host(bias)
+    np.savez(args.out, **out)
+    print(f"wrote {', '.join(out)} to {args.out}")
+    return 0
+
+
+def _neighbors(args) -> int:
+    """The reference's neighbors: cosine nearest neighbours of one term
+    (word space) or entity (entity space), host numpy."""
+    import numpy as np
+    from sert_tpu_torch.models import api as model_api
+    if bool(args.term) == bool(args.entity):
+        raise SystemExit("pass exactly one of --term / --entity")
+    resolved, params, vocab, registry = _load_run(args)
+    if args.term:
+        names = list(vocab.iter_terms())
+        term = args.term.lower() if resolved.data.lowercase else args.term
+        if term not in vocab:
+            raise SystemExit(f"term {args.term!r} not in the vocabulary")
+        M = _host(params["word_emb"])
+        qi = vocab.id(term)
+    else:
+        names = list(registry.names)
+        if args.entity not in names:
+            raise SystemExit(f"entity {args.entity!r} unknown")
+        M = _host(model_api.entity_matrix(params, resolved.model))
+        qi = names.index(args.entity)
+    M = M / np.maximum(np.linalg.norm(M, axis=1, keepdims=True), 1e-9)
+    sims = M @ M[qi]
+    sims[qi] = -np.inf  # the query itself is not its own neighbor
+    order = np.argsort(-sims)[:args.k]
+    for rank, i in enumerate(order, 1):
+        print(f"{rank}\t{names[i]}\t{sims[i]:.4f}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="sert_tpu_torch")
     from sert_tpu_torch import __version__
@@ -117,8 +216,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--out", required=True)
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--init-word-emb", default=None, metavar="DUMP_NPZ",
-                   help="seed word embeddings from a dump npz (not ported "
-                        "yet: ROADMAP Queue 1 item 13)")
+                   help="seed word embeddings from a dump npz (terms matched "
+                        "by string; fresh init for terms not in the dump)")
     _add_device_arg(p)
 
     p = sub.add_parser("query", help="score topics into a TREC run file")
@@ -156,6 +255,31 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "(randomization + t-test) of run vs RUN_B per "
                         "measure instead of plain metrics")
 
+    p = sub.add_parser("sweep", help="evaluate EVERY epoch checkpoint and "
+                                     "report the best (reference workflow: "
+                                     "choose the epoch snapshot by metric)")
+    _add_recipe_arg(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--run-dir", required=True)
+    p.add_argument("--topics", required=True)
+    p.add_argument("--qrels", required=True)
+    p.add_argument("--measure", default="ndcg@100")
+    _add_device_arg(p)
+
+    p = sub.add_parser("dump", help="export learned representations")
+    _add_recipe_arg(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--run-dir", required=True)
+    p.add_argument("--out", required=True, help="output .npz path (or the "
+                   "basename for --format word2vec)")
+    p.add_argument("--step", type=int, default=None)
+    p.add_argument("--format", choices=("npz", "word2vec"), default="npz",
+                   help="word2vec = gensim-loadable TEXT vectors, two "
+                        "files <out>.words.vec and <out>.entities.vec "
+                        "(spaces in entity names become underscores); "
+                        "npz keeps the full typed export incl. bias")
+    _add_device_arg(p)
+
     p = sub.add_parser("serve", help="query serving: from stdin (one query "
                                      "per line, optionally 'qid<TAB>text') "
                                      "or over HTTP, ranked entities out; "
@@ -174,6 +298,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "loop")
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address for --http (default loopback)")
+    _add_device_arg(p)
+
+    p = sub.add_parser("neighbors", help="nearest neighbors of a term or "
+                                         "entity in the learned space "
+                                         "(qualitative inspection, the "
+                                         "companion papers' table workflow)")
+    _add_recipe_arg(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--run-dir", required=True)
+    p.add_argument("--term", default=None, help="query term (word space)")
+    p.add_argument("--entity", default=None,
+                   help="query entity name (entity space)")
+    p.add_argument("-k", type=int, default=10)
+    p.add_argument("--step", type=int, default=None)
     _add_device_arg(p)
 
     p = sub.add_parser("e2e", help="synthetic recipe end to end")
@@ -286,6 +424,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         out = results if args.per_topic else results["all"]
         print(json.dumps(out, indent=2, sort_keys=True))
         return 0
+
+    if args.cmd == "sweep":
+        recipe = load_recipe(args.recipe)
+        from sert_tpu_torch import pipeline
+        results = pipeline.sweep_checkpoints(
+            recipe, args.data, args.run_dir, args.topics, args.qrels,
+            measure=args.measure, device=args.device)
+        print(json.dumps(results, indent=2, sort_keys=True))
+        return 0
+
+    if args.cmd == "dump":
+        return _dump(args)
+
+    if args.cmd == "neighbors":
+        return _neighbors(args)
 
     if args.cmd == "serve":
         recipe = load_recipe(args.recipe)

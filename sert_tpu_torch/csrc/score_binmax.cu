@@ -39,6 +39,21 @@
 //     Mosaic's (8, 128) block rule needed;
 //   * any bw dividing 128 is a register max: bw >= 8 a quad reduction, a
 //     smaller bw within a thread's column pair (and one shuffle at 4).
+//
+// The fp32 mode (score_binmax_f32_kernel, below) takes R and M in fp32, as
+// the reference's kernels do when prepare_binmax_matrix staged M in fp32
+// (sert_tpu/ops/score_binmax.py:72-81, :111), for a prefilter whose bin
+// maxima carry fp32-class rounding. It is a kernel of its own, simple
+// first: its products run as 3xTF32 on mma.sync (mma_sync.cuh, as K1/K2 and
+// K5-K7 take fp32), fed by cp.async. What bounds it at the serving shape:
+// bytes again, 512 MB of fp32 M (0.153 ms at 3.35 TB/s) against 3 x 16.4
+// GFLOP at the dense TF32 rate (0.099 ms). Each block keeps its 64 query
+// rows resident in shared memory and walks entity tiles of 128 rows x, x +
+// gridDim.x, ..., streaming each tile's 32-column chunks through a ring of
+// three stages, so the copies of the next chunks overlap the products of
+// this one. Its epilogue is the bf16 sweep's: + alpha bias, -inf past E,
+// the bin max (over a thread's pair, the quad, then, for bw >= 8, each
+// row's 8-column group maxima through shared memory).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -48,6 +63,7 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -282,5 +298,199 @@ extern "C" int sert_score_binmax(const void* R, const void* M,
       tr, tm, static_cast<const float*>(bias),
       static_cast<const float*>(alpha), static_cast<float*>(out), Q, E, nsub,
       bw, n_bins);
+  return int(cudaGetLastError());
+}
+
+namespace {
+
+// The fp32 mode: 3xTF32 on mma.sync, cp.async-fed.
+constexpr int F_TQ = 64;             // query rows a block holds
+constexpr int F_TE = 128;            // entity rows a tile
+constexpr int F_KC = 32;             // columns a ring stage holds
+constexpr int F_LDM = F_KC + 4;      // a stage row's floats (no bank conflicts)
+constexpr int F_NST = 3;             // ring stages
+constexpr int F_THREADS = 256;       // 8 warps: 2 (query) x 4 (entity)
+constexpr int F_GROUPS = F_TE / 8;   // 8-column groups a tile
+
+// Shared memory of the fp32 mode at a depth of dk columns (d rounded up to
+// F_KC): the resident R rows, the ring, each row's group maxima.
+inline size_t smem_bytes_f32(int dk) {
+  return sizeof(float) * (size_t(F_TQ) * (dk + 4) + F_NST * F_TE * F_LDM +
+                          F_TQ * F_GROUPS);
+}
+
+__global__ void __launch_bounds__(F_THREADS)
+score_binmax_f32_kernel(const float* __restrict__ R,
+                        const float* __restrict__ M,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ alpha,
+                        float* __restrict__ out, int Q, int E, int d, int dk,
+                        int bw, int n_bins) {
+  extern __shared__ __align__(16) float fsm[];
+  const int ldr = dk + 4;
+  float* Rs = fsm;                                  // [F_TQ][ldr]
+  float* ring = Rs + F_TQ * ldr;                    // [F_NST][F_TE][F_LDM]
+  float* red = ring + F_NST * F_TE * F_LDM;         // [F_TQ][F_GROUPS]
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int wq = warp / 4, we = warp % 4;           // rows 32 wq, cols 32 we
+  const int g = lane_g(), t = lane_t();
+  const int q0 = blockIdx.y * F_TQ;
+  const int n_et = (E + F_TE - 1) / F_TE;
+  const int n_tiles = int(blockIdx.x) < n_et
+                          ? (n_et - 1 - int(blockIdx.x)) / int(gridDim.x) + 1
+                          : 0;
+  const int n_chunks = dk / F_KC;
+  const int total = n_tiles * n_chunks;
+
+  // This block's query rows, zero past Q and past d: resident throughout.
+  for (int i = tid; i < F_TQ * dk; i += F_THREADS) {
+    const int r = i / dk, c = i % dk;
+    Rs[r * ldr + c] = q0 + r < Q && c < d ? R[size_t(q0 + r) * d + c] : 0.0f;
+  }
+
+  // Stream position s is chunk s % n_chunks of this block's tile
+  // s / n_chunks; its copy goes to stage s % F_NST. Every call commits a
+  // group (empty past the end), so that the waits count uniformly.
+  auto load_stage = [&](int s) {
+    if (s < total) {
+      const int e0 = (blockIdx.x + (s / n_chunks) * gridDim.x) * F_TE;
+      const int c0 = (s % n_chunks) * F_KC;
+      float* dst = ring + (s % F_NST) * F_TE * F_LDM;
+      for (int p = tid; p < F_TE * F_KC / 4; p += F_THREADS) {
+        const int r = p / (F_KC / 4), c = c0 + 4 * (p % (F_KC / 4));
+        const bool ok = e0 + r < E && c < d;
+        cp_async16(dst + r * F_LDM + c - c0,
+                   ok ? M + size_t(e0 + r) * d + c : M, ok);
+      }
+    }
+    cp_commit();
+  };
+  for (int s = 0; s < F_NST - 1; ++s) load_stage(s);
+
+  // Thread (g, t) of warp (wq, we) holds rows 32 wq + 16 mi + g (+ 8) and
+  // columns 32 we + 8 ni + 2 t (+ 1): acc[mi][ni].c[2 h + i].
+  Acc8 acc[2][4];
+  for (int s = 0; s < total; ++s) {
+    cp_wait<F_NST - 2>();
+    __syncthreads();             // stage s landed; stage s - 1 is free
+    load_stage(s + F_NST - 1);
+    const int chunk = s % n_chunks;
+    if (chunk == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mi][ni].c[j] = 0.0f;
+    }
+    const float* Ms = ring + (s % F_NST) * F_TE * F_LDM;
+#pragma unroll
+    for (int kk = 0; kk < F_KC; kk += 8) {
+      FragA<float> a[2];
+      FragB<float> b[4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        load_a(a[mi], Rs + (32 * wq + 16 * mi) * ldr + chunk * F_KC + kk,
+               ldr);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        load_b_nk(b[ni], Ms + (32 * we + 8 * ni) * F_LDM + kk, F_LDM);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) tc_mma(acc[mi][ni], a[mi], b[ni]);
+    }
+    if (chunk != n_chunks - 1) continue;
+
+    // The epilogue of tile s / n_chunks: + alpha bias (a product, then a
+    // sum, as the plain version rounds it), -inf past E, the bin maxima.
+    const int e0 = (blockIdx.x + (s / n_chunks) * gridDim.x) * F_TE;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 32 * wq + 16 * mi + g + 8 * h, q = q0 + row;
+        const float al = alpha != nullptr && q < Q ? alpha[q] : 1.0f;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int col = 32 * we + 8 * ni + 2 * t, e = e0 + col;
+          float v[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            v[i] = acc[mi][ni].c[2 * h + i];
+            if (bias != nullptr && e + i < E)
+              v[i] = __fadd_rn(v[i], __fmul_rn(al, __ldg(bias + e + i)));
+            if (e + i >= E) v[i] = -CUDART_INF_F;
+          }
+          float* o = out + size_t(q) * n_bins;
+          if (bw == 1) {
+            if (q < Q && e < n_bins) o[e] = v[0];
+            if (q < Q && e + 1 < n_bins) o[e + 1] = v[1];
+            continue;
+          }
+          float m = fmaxf(v[0], v[1]);
+          if (bw == 2) {
+            if (q < Q && e / 2 < n_bins) o[e / 2] = m;
+            continue;
+          }
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+          if (bw == 4) {
+            if ((t & 1) == 0 && q < Q && e / 4 < n_bins) o[e / 4] = m;
+            continue;
+          }
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+          if (t == 0) red[row * F_GROUPS + 4 * we + ni] = m;
+        }
+      }
+    if (bw >= 8) {               // uniform: bw is the whole grid's
+      __syncthreads();
+      const int per = F_TE / bw, span = bw / 8;
+      for (int i = tid; i < F_TQ * per; i += F_THREADS) {
+        const int row = i / per, b = i % per, q = q0 + row;
+        const int bin = e0 / bw + b;
+        float m = red[row * F_GROUPS + b * span];
+        for (int j = 1; j < span; ++j)
+          m = fmaxf(m, red[row * F_GROUPS + b * span + j]);
+        if (q < Q && bin < n_bins) out[size_t(q) * n_bins + bin] = m;
+      }
+    }
+  }
+  cp_wait<0>();
+}
+
+}  // namespace
+
+// The fp32 mode: R [Q, d] fp32, M [>=E, d] fp32, both contiguous, the rest
+// as sert_score_binmax. d % 16 == 0 and 128 % bw == 0; d is bounded by the
+// shared memory the resident R rows take (ops/score_binmax.py's
+// kernel_limits, MAX_DIM_F32). Returns the cudaError_t of the launch.
+extern "C" int sert_score_binmax_f32(const void* R, const void* M,
+                                     const void* bias, const void* alpha,
+                                     void* out, int Q, int E, int d, int bw,
+                                     int n_bins, void* stream) {
+  if (d % 16 != 0 || F_TE % bw != 0) return int(cudaErrorInvalidValue);
+  const int dk = (d + F_KC - 1) / F_KC * F_KC;
+  const size_t smem = smem_bytes_f32(dk);
+  cudaError_t err = cudaFuncSetAttribute(
+      score_binmax_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return int(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, score_binmax_f32_kernel, F_THREADS, smem);
+  if (err != cudaSuccess) return int(err);
+  if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
+  const int n_qt = (Q + F_TQ - 1) / F_TQ, n_et = (E + F_TE - 1) / F_TE;
+  const int per_qt = sms * per_sm / n_qt;   // blocks a query tile
+  const int gx = per_qt < 1 ? 1 : per_qt < n_et ? per_qt : n_et;
+  score_binmax_f32_kernel<<<dim3(gx, n_qt), F_THREADS, smem,
+                            cudaStream_t(stream)>>>(
+      static_cast<const float*>(R), static_cast<const float*>(M),
+      static_cast<const float*>(bias), static_cast<const float*>(alpha),
+      static_cast<float*>(out), Q, E, d, dk, bw, n_bins);
   return int(cudaGetLastError());
 }

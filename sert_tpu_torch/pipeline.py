@@ -1,10 +1,9 @@
 """End-to-end pipeline driver: collection -> trained model -> run ->
 metrics (port of ``sert_tpu/pipeline.py``: ``prepare_collection`` :34,
-``resolve_model_config`` :46, ``train_from_dir`` :80, ``load_scorer``
-:106, ``run_end_to_end`` :195), for every model family. Preparing is the
-port's copy of the reference's host code (``data/prepare.py``).
-Pretrained word embeddings (``load_pretrained_word_emb`` :54) and
-``sweep_checkpoints`` are ROADMAP Queue 1 item 13.
+``resolve_model_config`` :46, ``load_pretrained_word_emb`` :54,
+``train_from_dir`` :80, ``load_scorer`` :106, ``sweep_checkpoints`` :137,
+``run_end_to_end`` :195), for every model family. Preparing is the port's
+copy of the reference's host code (``data/prepare.py``).
 
 Every entry point runs on the CUDA card unless its caller asks for the CPU
 (``device="cpu"``, ``--device cpu``): without a card, ``device=None``
@@ -53,17 +52,57 @@ def resolve_model_config(recipe: RecipeConfig, meta: Mapping) -> RecipeConfig:
                         train=recipe.train, score=recipe.score)
 
 
+def load_pretrained_word_emb(npz_path: str, vocab: Vocabulary,
+                             base_emb: np.ndarray):
+    """Overwrite rows of ``base_emb`` with vectors from a dump-format npz
+    (``word_emb`` + ``terms`` arrays, as the dump command writes them).
+    Terms are matched by string; vocabulary terms absent from the dump keep
+    their fresh initialization. Returns (fp32 embeddings, matched count)."""
+    with np.load(npz_path, allow_pickle=True) as z:
+        if "word_emb" not in z or "terms" not in z:
+            raise ValueError(
+                f"{npz_path} is not a dump npz (needs word_emb + terms)")
+        emb = np.asarray(z["word_emb"], np.float32)
+        terms = z["terms"]
+    if emb.shape[1] != base_emb.shape[1]:
+        raise ValueError(
+            f"pretrained word_dim {emb.shape[1]} != model word_dim "
+            f"{base_emb.shape[1]}")
+    out = np.asarray(base_emb, np.float32).copy()
+    hits = 0
+    for i, t in enumerate(terms):
+        t = str(t)
+        if t in vocab:
+            out[vocab.id(t)] = emb[i]
+            hits += 1
+    return out, hits
+
+
+def word_emb_hook(npz_path: str, vocab: Vocabulary):
+    """The train loop's ``init_params_hook`` for ``--init-word-emb``: seeds
+    the fresh params' ``word_emb`` from a dump npz
+    (:func:`load_pretrained_word_emb`), in place, in the params' dtype on
+    their device."""
+    def hook(params):
+        we = params["word_emb"]
+        new, hits = load_pretrained_word_emb(npz_path, vocab,
+                                             we.float().cpu().numpy())
+        log.info("init: seeded %d/%d word embeddings from %s",
+                 hits, new.shape[0], npz_path)
+        we.copy_(torch.from_numpy(new))
+        return params
+    return hook
+
+
 def train_from_dir(recipe: RecipeConfig, data_dir: str, out_dir: str,
                    resume: bool = True, init_word_emb: Optional[str] = None,
                    device=None, **loop_kwargs):
     """Train on a prepared data dir on ``device`` (default: the card);
     returns (TrainState, resolved recipe). The unigram noise comes from the
-    data dir's entity associations."""
+    data dir's entity associations. ``init_word_emb``: a dump npz whose
+    vectors seed the word embeddings of a fresh run (not of a resumed
+    one)."""
     device = resolve_device(device)
-    if init_word_emb:
-        raise NotImplementedError(
-            "--init-word-emb (pretrained word embeddings) is not ported yet "
-            "(ROADMAP Queue 1 item 13: remaining surfaces)")
     from sert_tpu_torch.train.loop import train as train_loop
     dataset = InstanceDataset(data_dir, seed=recipe.train.seed)
     recipe = resolve_model_config(recipe, dataset.meta)
@@ -72,6 +111,11 @@ def train_from_dir(recipe: RecipeConfig, data_dir: str, out_dir: str,
         assoc.entity_instance_counts(recipe.model.num_entities), np.float64)
     os.makedirs(out_dir, exist_ok=True)
     save_config(recipe, os.path.join(out_dir, "recipe.json"))
+    if init_word_emb:
+        vocab = Vocabulary.load(os.path.join(data_dir, VOCAB_NAME))
+        loop_kwargs = {**loop_kwargs,
+                       "init_params_hook": word_emb_hook(init_word_emb,
+                                                         vocab)}
     state = train_loop(recipe, dataset, out_dir, entity_counts=counts,
                        resume=resume, device=device, **loop_kwargs)
     return state, recipe
@@ -126,6 +170,59 @@ def load_scorer(run_dir: str, data_dir: str, recipe: RecipeConfig,
     # crosses the host link at half the fp32 bytes).
     params = {k: v.to(device).to(pd) for k, v in params.items()}
     return params, vocab, registry
+
+
+def sweep_checkpoints(recipe: RecipeConfig, data_dir: str, run_dir: str,
+                      topics_path: str, qrels_path: str,
+                      measure: str = "ndcg@100", device=None) -> Dict:
+    """Evaluate every epoch snapshot of the run on ``device`` (default: the
+    card): the reference's workflow for choosing the snapshot by metric.
+    Returns {"per_step": {step: metric}, "best_step", "best", "measure"}.
+
+    Each file's meta sidecar is read first: a vocabulary hash that differs
+    from the data dir's raises, and a mid-epoch checkpoint is skipped
+    before its params are read. Each snapshot's params are read as the file
+    holds them (params-only or full, sparse or dense optimizer state: only
+    the params are read), then scored through ``score_topics``."""
+    from sert_tpu_torch.eval.trec import read_qrels, read_topics
+    from sert_tpu_torch.scoring.run import score_topics
+    device = resolve_device(device)
+    ds = InstanceDataset(data_dir)
+    resolved = resolve_model_config(recipe, ds.meta)
+    vocab = Vocabulary.load(os.path.join(data_dir, VOCAB_NAME))
+    registry = EntityRegistry.load(os.path.join(data_dir, ENTITIES_NAME))
+    encoded = encode_queries(read_topics(topics_path), vocab, resolved.data)
+    qrels = read_qrels(qrels_path)
+
+    per_step: Dict[str, float] = {}
+    ckpts = ckpt.list_checkpoints(os.path.join(run_dir, "checkpoints"))
+    if not ckpts:
+        raise FileNotFoundError(f"no checkpoints in {run_dir}")
+    vocab_hash = vocab.content_hash()
+    pd = param_dtype(resolved.model)
+    for step, path in ckpts.items():
+        meta = ckpt.load_meta(path)
+        trained_hash = meta.get("vocab_hash")
+        if trained_hash and trained_hash != vocab_hash:
+            raise ValueError(
+                f"checkpoint {path} was trained against a different "
+                f"vocabulary than {data_dir}")
+        if meta.get("cursor") is not None:
+            continue  # mid-epoch step checkpoint; sweep epoch snapshots only
+        params = ckpt.load_params(path)
+        _check_shapes(params, resolved, path)
+        params = {k: v.to(device).to(pd) for k, v in params.items()}
+        run = score_topics(params, resolved.model, encoded, registry.names,
+                           resolved.score)
+        del params
+        res = evaluate_run(run, qrels, measures=(measure,))
+        per_step[str(step)] = res["all"][measure]
+        log.info("sweep: step %d %s=%.4f", step, measure, per_step[str(step)])
+    if not per_step:
+        raise FileNotFoundError(f"no epoch snapshots in {run_dir}")
+    best_step = max(per_step, key=per_step.get)
+    return {"per_step": per_step, "best_step": int(best_step),
+            "best": per_step[best_step], "measure": measure}
 
 
 class NoCudaDevice(RuntimeError):

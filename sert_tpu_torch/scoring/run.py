@@ -17,10 +17,8 @@ from sert_tpu_torch.ops.exact_topk import (prepare_entities,
                                            resolve_rescore_dtype)
 from sert_tpu_torch.ops.score_binmax import kernel_limits as binmax_limits
 from sert_tpu_torch.scoring.scorer import (_entity_matrix, dense_scores,
-                                           pallas_topk)
+                                           pallas_topk, streaming_topk)
 from sert_tpu_torch.utils.config import ModelConfig, ScoreConfig
-
-_NOT_PORTED = ("streaming", "approx", "distributed")
 
 
 def resolve_engine(sc: ScoreConfig, num_entities: int,
@@ -28,23 +26,23 @@ def resolve_engine(sc: ScoreConfig, num_entities: int,
     """The scoring engine for params on ``device`` whose entity matrix is
     ``dim`` wide. "pallas" is the K3 + K4 kernel engine (the recipes' name
     for it). "auto": that engine on a CUDA device where K3 takes the padded
-    width (``ops.score_binmax.kernel_limits``), else dense scoring; on the
-    CPU dense scoring up to ``entity_chunk`` entities, else the engine's
-    plain versions (the reference's streaming scan is not ported yet).
+    width (``ops.score_binmax.kernel_limits``); otherwise, on either
+    device, dense scoring up to ``entity_chunk`` entities and the exact
+    streaming scan above (the reference's rule off the TPU).
     ``use_pallas`` is the legacy alias."""
     if sc.use_pallas:
         return "pallas"
-    if sc.engine in _NOT_PORTED:
+    if sc.engine == "distributed":
         raise NotImplementedError(
             f"scoring engine {sc.engine!r} is not ported yet (ROADMAP "
-            "Queue 1 items 4, 11 and 12)")
+            "Queue 1 item 12: multi-GPU)")
     if sc.engine != "auto":
-        if sc.engine not in ("dense", "pallas"):
+        if sc.engine not in ("dense", "streaming", "pallas", "approx"):
             raise ValueError(f"unknown scoring engine {sc.engine!r}")
         return sc.engine
-    if device.type == "cuda":
-        return "pallas" if binmax_limits(dim) is None else "dense"
-    return "pallas" if num_entities > sc.entity_chunk else "dense"
+    if device.type == "cuda" and binmax_limits(dim) is None:
+        return "pallas"
+    return "dense" if num_entities <= sc.entity_chunk else "streaming"
 
 
 def stage_entities(params, cfg: ModelConfig, sc: ScoreConfig):
@@ -100,6 +98,9 @@ def score_topics(
                             entity_matrix(params, cfg).shape[1])
     if engine == "pallas" and prep is None:
         prep = stage_entities(params, cfg, sc)
+    if engine == "approx" and not 0.0 < sc.recall_target <= 1.0:
+        raise ValueError(f"recall_target must be in (0, 1], got "
+                         f"{sc.recall_target}")
 
     B = sc.query_batch
     k = min(sc.top_k, E)
@@ -114,6 +115,12 @@ def score_topics(
                                similarity=sc.similarity, prep=prep,
                                normalize=sc.normalize_scores,
                                adaptive_bins=sc.adaptive_bins)
+        if engine == "streaming":
+            return streaming_topk(params, cfg, t, m, k=k,
+                                  chunk=sc.entity_chunk,
+                                  similarity=sc.similarity)
+        # "approx": the dense scores' exact top k, which is what
+        # lax.approx_max_k returns off the TPU at any recall_target.
         scores = dense_scores(params, cfg, t, m, similarity=sc.similarity)
         return torch.topk(scores, k, dim=1)
 

@@ -10,15 +10,17 @@ reps and M [E, d] the entity matrix:
     the reported scores are exact log-probs;
   * LSE: the query rep against ``entity_emb`` (unit rows under cosine).
 
-``dense_scores`` is the exact [Q, E] oracle; ``pallas_topk`` is the kernel
-engine (K3 + K4 via ``ops.exact_topk``, then the log-linear normalizer
-through K5; the name is the reference's, shared by the recipes). The
-streaming engine comes later (ROADMAP Queue 1 item 4).
+``dense_scores`` is the exact [Q, E] oracle; ``streaming_topk`` the exact
+scan over entity chunks at O(Q * chunk) memory (``chunked_topk_core``, its
+sweep, is also the per-shard base of a distributed engine);
+``pallas_topk`` is the kernel engine (K3 + K4 via ``ops.exact_topk``, then
+the log-linear normalizer through K5; the name is the reference's, shared
+by the recipes).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -90,6 +92,55 @@ def lse_chunk_update(run_max: torch.Tensor, run_sum: torch.Tensor,
     run_sum = (run_sum * torch.exp(run_max - m_new)
                + torch.sum(torch.exp(z - m_new[..., None]), dim=-1))
     return m_new, run_sum
+
+
+def _stable_topk(s: torch.Tensor, i: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k of ``s`` along dim 1 with ``i`` alongside; equal values
+    keep their order (lax.top_k's tie rule), so padding ties resolve as
+    in the reference."""
+    vals, sel = torch.sort(s, dim=1, descending=True, stable=True)
+    return vals[:, :k], torch.gather(i, 1, sel[:, :k])
+
+
+def chunked_topk_core(R: torch.Tensor, term_emb: Optional[torch.Tensor],
+                      mask: torch.Tensor, M: torch.Tensor,
+                      bias: Optional[torch.Tensor], k: int, chunk: int,
+                      is_ll: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor, torch.Tensor]:
+    """The streaming sweep over an entity-matrix block ``M`` [E_rows, d].
+
+    Returns un-normalized (top_s [Q, k], top_i [Q, k] local row ids,
+    run_max [Q, T], run_sum [Q, T]); the caller applies the log-linear
+    normalizer (:func:`apply_ll_normalizer`). ``k`` entries always come
+    back: with fewer than k rows the tail is NEG_INF (it loses any later
+    merge). Each chunk is one fp32 product (TF32 must be off on the card)
+    and a merge of the running top k with it."""
+    E_rows = M.shape[0]
+    Q, T = mask.shape
+    dev = M.device
+    top_s = torch.full((Q, k), NEG_INF, device=dev)
+    top_i = torch.zeros((Q, k), dtype=torch.int64, device=dev)
+    run_max = torch.full((Q, T), NEG_INF, device=dev)
+    run_sum = torch.zeros((Q, T), device=dev)
+    if is_ll:
+        te = term_emb.float()
+        tm32 = mask.float()
+        b = bias.float()
+    for lo in range(0, E_rows, chunk):
+        Mc = M[lo:lo + chunk]
+        if is_ll:
+            # term-level logits for the online normalizer
+            z = torch.einsum("qtd,cd->qtc", te, Mc) + b[lo:lo + chunk]
+            run_max, run_sum = lse_chunk_update(run_max, run_sum, z)
+            sc = torch.sum(z * tm32[:, :, None], dim=1)             # [Q, C]
+        else:
+            sc = R.float() @ Mc.T                                   # [Q, C]
+        ids = torch.arange(lo, lo + Mc.shape[0], device=dev)
+        top_s, top_i = _stable_topk(
+            torch.cat([top_s, sc], dim=1),
+            torch.cat([top_i, ids.expand(Q, -1)], dim=1), k)
+    return top_s, top_i, run_max, run_sum
 
 
 def apply_ll_normalizer(top_s: torch.Tensor, run_max: torch.Tensor,
@@ -179,4 +230,27 @@ def pallas_topk(params, cfg: ModelConfig, term_ids: torch.Tensor,
         const = ll_log_normalizer(params, cfg, term_ids, num_terms,
                                   similarity=similarity)
         top_s = top_s - const[:, None]
+    return top_s, top_i
+
+
+def streaming_topk(params, cfg: ModelConfig, term_ids: torch.Tensor,
+                   num_terms: torch.Tensor, k: int = 100, chunk: int = 32768,
+                   similarity: str = "dot"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k entities (scores [Q, k], ids [Q, k]) at O(Q * chunk) memory:
+    the entity matrix in ``chunk``-row blocks, each one product and a
+    merge of the running best. The log-linear normalizer accumulates
+    online and is applied after the scan, so the scores are
+    :func:`dense_scores`'."""
+    E = api.entity_matrix(params, cfg).shape[0]
+    k = min(k, E)
+    R, term_emb, mask = _query_reps_and_terms(params, cfg, term_ids,
+                                              num_terms, similarity)
+    M = _entity_matrix(params, cfg, similarity)
+    is_ll = cfg.model == "loglinear"
+    bias = params["proj_b"] if is_ll else None
+    top_s, top_i, run_max, run_sum = chunked_topk_core(
+        R, term_emb, mask, M, bias, k, chunk, is_ll)
+    if is_ll:
+        top_s = apply_ll_normalizer(top_s, run_max, run_sum, mask)
     return top_s, top_i

@@ -3,7 +3,9 @@ of ``sert_tpu/serving.py``: ``EntitySearcher`` :65-609, ``serve_stdin``
 :612 and the HTTP server :635-764).
 
   * :class:`EntitySearcher` loads a trained run onto a device, resolves
-    the engine, stages the entity matrix once (kernel engine), fires one
+    the engine (any single-device engine the recipe's ScoreConfig names:
+    the kernels, streaming, approx or dense), stages the entity matrix
+    once for the kernel engine (in the recipe's layout), fires one
     warm-up dispatch (which also builds the kernels), and answers
     free-text queries with a thread-safe ``search`` / ``search_many``; for
     LSE models ``add_entities`` folds NEW entities into the live index

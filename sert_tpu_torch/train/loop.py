@@ -15,7 +15,7 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -57,9 +57,14 @@ def _sync(device: torch.device) -> None:
 
 def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
           entity_counts: Optional[np.ndarray] = None, resume: bool = True,
-          device=None) -> TrainState:
+          device=None, init_params_hook: Optional[Callable] = None
+          ) -> TrainState:
     """Run (or resume) training on ``device`` (default: the CUDA card; the
-    CPU only when asked for); returns the final TrainState."""
+    CPU only when asked for); returns the final TrainState.
+
+    ``init_params_hook(params) -> params`` transforms the fresh
+    initialization (e.g. seeding word embeddings from a dump,
+    ``pipeline.word_emb_hook``); a resumed run skips it."""
     _check_supported(recipe)
     mcfg, tcfg = recipe.model, recipe.train
     device = resolve_device(device)
@@ -93,6 +98,9 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
     _sync(device)
     t_init = time.perf_counter()
     start_epoch, cursor = 0, None
+    if init_params_hook is not None and latest is None:
+        state = dataclasses.replace(state,
+                                    params=init_params_hook(state.params))
     if latest is None and resume and ckpt.latest_checkpoint(ckpt_dir):
         log.warning(
             "resume: %s holds only params-only epoch snapshots (no full "

@@ -80,7 +80,9 @@ def test_scoring_auto_follows_k3s_limit(dim, want):
     sc = ScoreConfig(entity_chunk=100)
     assert resolve_engine(sc, 50, CUDA, dim) == want
     assert resolve_engine(sc, 50, CPU, dim) == "dense"
-    assert resolve_engine(sc, 500, CPU, dim) == "pallas"
+    assert resolve_engine(sc, 500, CPU, dim) == "streaming"
+    assert resolve_engine(sc, 500, CUDA, dim) == (
+        "streaming" if want == "dense" else "pallas")
     assert resolve_engine(ScoreConfig(engine="pallas"), 50, CUDA,
                           640) == "pallas"
 

@@ -226,12 +226,130 @@ class TestOnCard:
         Mp = torch.randn(100, 24, device=cuda).bfloat16()
         with pytest.raises(ValueError, match="d % 16"):
             score_binmax.score_binmax_prepared(R, Mp, 100)
-        with pytest.raises(ValueError, match="bf16 Mp"):
-            score_binmax.score_binmax_prepared(R, Mp.float(), 100)
+        with pytest.raises(ValueError, match="bf16 or fp32 Mp"):
+            score_binmax.score_binmax_prepared(R, Mp.half(), 100)
+        wide = torch.randn(4, 688, device=cuda)          # past the fp32 limit
+        with pytest.raises(ValueError, match="d <= 672"):
+            score_binmax.score_binmax_prepared(wide, wide.clone(), 4)
         Mb = torch.randn(3, 128, 24, device=cuda)
         idx = torch.zeros(4, 2, dtype=torch.int64, device=cuda)
         with pytest.raises(ValueError, match="int32"):
             gather_rescore.gather_rescore(R, Mb, idx)
+
+    @pytest.mark.parametrize("with_bias", [False, True])
+    @pytest.mark.parametrize("E", [1024, 1025, 777])  # a tile edge, one past
+    @pytest.mark.parametrize("d", [16, 48, 128, 320, 512, 672])
+    @pytest.mark.parametrize("bw", [128, 64])
+    def test_score_binmax_f32_matches_plain(self, cuda, bw, d, E, with_bias):
+        """K3's fp32 mode (3xTF32) against the plain version's fp32
+        products: d from 16 to its limit, E at and past a tile edge."""
+        R, M, bias, alpha = (torch.from_numpy(x).to(cuda)
+                             for x in _data(d + E, Q=70, E=E, d=d))
+        Mp = score_binmax.prepare_binmax_matrix(M, torch.float32)
+        b, a = (bias, alpha) if with_bias else (None, None)
+        n, n16 = score_binmax.f32_launches, score_binmax.launches
+        got = score_binmax.score_binmax_prepared(R, Mp, E, b, a, bw)
+        assert (score_binmax.f32_launches, score_binmax.launches) == \
+            (n + 1, n16)
+        want = score_binmax.score_binmax_plain(R, Mp, E, b, a, bw)
+        assert got.shape == (70, -(-E // bw))
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("bw", [1, 2, 4, 8, 16, 32])
+    def test_score_binmax_f32_every_bin_width(self, cuda, bw):
+        R, M, bias, alpha = (torch.from_numpy(x).to(cuda)
+                             for x in _data(bw, Q=9, E=1000, d=64))
+        Mp = score_binmax.prepare_binmax_matrix(M, torch.float32)
+        got = score_binmax.score_binmax_prepared(R, Mp, 1000, bias, alpha, bw)
+        want = score_binmax.score_binmax_plain(R, Mp, 1000, bias, alpha, bw)
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("Q", [1, 64, 130])
+    def test_score_binmax_f32_walks_many_tiles(self, cuda, Q):
+        """E past 100k: each block takes many tiles, each of 4 chunks
+        through the 3-stage ring; close to fp64 (3xTF32)."""
+        E, d = 100_003, 128
+        g = torch.Generator(device=cuda).manual_seed(Q)
+        R = torch.nn.functional.normalize(
+            torch.randn(Q, d, generator=g, device=cuda), dim=1)
+        M = torch.nn.functional.normalize(
+            torch.randn(E, d, generator=g, device=cuda), dim=1)
+        Mp = score_binmax.prepare_binmax_matrix(M, torch.float32)
+        got = score_binmax.score_binmax_prepared(R, Mp, E)
+        torch.testing.assert_close(
+            got, score_binmax.score_binmax_plain(R, Mp, E), **TOL)
+        s64 = (R.double() @ M.double().T)
+        s64 = torch.nn.functional.pad(s64, (0, -E % 128),
+                                      value=float("-inf"))
+        want64 = s64.view(Q, -1, 128).amax(-1)
+        assert (got.double() - want64).abs().max().item() < 2e-6
+
+    @pytest.mark.parametrize("with_bias", [False, True])
+    @pytest.mark.parametrize("d", [128, 320, 512, 672])
+    def test_score_binmax_f32_error_within_adaptive_slack(self, cuda, d,
+                                                          with_bias):
+        """K3's fp32 mode against fp64 bin maxima, as the two-phase
+        rescore's acceptance cut reads it (each query's worst error over
+        its largest bin max): the fp32 slack covers it four times, from
+        d 128 up to the mode's widest d."""
+        E, Q = 100_003, 64
+        g = torch.Generator(device=cuda).manual_seed(d)
+        R = torch.nn.functional.normalize(
+            torch.randn(Q, d, generator=g, device=cuda), dim=1)
+        M = torch.nn.functional.normalize(
+            torch.randn(E, d, generator=g, device=cuda), dim=1)
+        b, a = ((0.1 * torch.randn(E, generator=g, device=cuda),
+                 torch.randint(1, 9, (Q,), generator=g, device=cuda).float())
+                if with_bias else (None, None))
+        Mp = score_binmax.prepare_binmax_matrix(M, torch.float32)
+        got = score_binmax.score_binmax_prepared(R, Mp, E, b, a).double()
+        s64 = R.double() @ M.double().T
+        if with_bias:
+            s64 += a.double()[:, None] * b.double()[None, :]
+        s64 = torch.nn.functional.pad(s64, (0, -E % 128),
+                                      value=float("-inf"))
+        want = s64.view(Q, -1, 128).amax(-1)
+        rel = ((got - want).abs().amax(1) / want.amax(1).abs()).max().item()
+        assert 4 * rel <= exact_topk.ADAPTIVE_EPS[torch.float32], rel
+
+    def test_exact_topk_f32_prefilter_on_card_matches_cpu(self, cuda):
+        R, M, _, _ = _data(5, Q=64, E=20000, d=128)
+        cpu = exact_topk.prepare_entities(torch.from_numpy(M),
+                                          prefilter_dtype="float32")
+        cpu_s, cpu_i = exact_topk.exact_topk_prepared(torch.from_numpy(R),
+                                                      cpu, k=100)
+        gpu = exact_topk.prepare_entities(torch.from_numpy(M).to(cuda),
+                                          prefilter_dtype="float32")
+        n = score_binmax.f32_launches
+        gpu_s, gpu_i = exact_topk.exact_topk_prepared(
+            torch.from_numpy(R).to(cuda), gpu, k=100)
+        assert score_binmax.f32_launches == n + 1
+        torch.testing.assert_close(gpu_s.cpu(), cpu_s, **TOL)
+        assert torch.equal(gpu_i.cpu(), cpu_i)
+
+    def test_cluster_order_on_card_is_repeatable(self, cuda):
+        """Ordered segment sums (no float atomics): two stagings on the
+        card give the same permutation."""
+        M = torch.from_numpy(_data(6, Q=1, E=50_000, d=64)[1]).to(cuda)
+        perm = exact_topk._cluster_order(M)
+        assert torch.equal(perm, exact_topk._cluster_order(M))
+        assert torch.equal(torch.sort(perm).values,
+                           torch.arange(50_000, device=cuda))
+
+    @pytest.mark.parametrize("na", [0, 2, 64])
+    def test_clustered_adaptive_on_card_matches_cpu(self, cuda, na):
+        R, M, bias, alpha = _data(7, Q=64, E=20000, d=128)
+        prep = exact_topk.prepare_entities(torch.from_numpy(M).to(cuda),
+                                           layout="clustered")
+        got_s, got_i = exact_topk.exact_topk_prepared(
+            torch.from_numpy(R).to(cuda), prep,
+            torch.from_numpy(bias).to(cuda),
+            torch.from_numpy(alpha).to(cuda), k=100, adaptive_bins=na)
+        want_s, want_i = exact_topk.exact_topk(
+            torch.from_numpy(R), torch.from_numpy(M),
+            torch.from_numpy(bias), torch.from_numpy(alpha), k=100)
+        torch.testing.assert_close(got_s.cpu(), want_s, **TOL)
+        assert torch.equal(got_i.cpu(), want_i)
 
     def test_exact_topk_on_card_matches_cpu(self, cuda):
         R, M, _, _ = _data(4, Q=64, E=20000, d=128)

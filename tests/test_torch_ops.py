@@ -213,14 +213,22 @@ class TestExactTopk:
         assert s.shape == (8, 200)
         assert (np.sort(i.numpy(), axis=1) == np.arange(200)).all()
 
-    def test_unported_options_raise(self):
-        M = torch.randn(300, 16)
-        with pytest.raises(NotImplementedError, match="clustered"):
-            exact_topk.prepare_entities(M, layout="clustered")
-        prep = exact_topk.prepare_entities(M)
-        with pytest.raises(NotImplementedError, match="adaptive_bins"):
-            exact_topk.exact_topk_prepared(torch.randn(2, 16), prep, k=5,
-                                           adaptive_bins=2)
+    @pytest.mark.parametrize("na", [0, 2, 64])
+    def test_clustered_adaptive_matches_reference(self, na):
+        """The clustered layout with the two-phase rescore (na 2: phase 1
+        then the fallback; 64: one pass) against the reference's."""
+        R, M, bias, alpha = _data(40 + na, E=2048)
+        prep = exact_topk.prepare_entities(torch.from_numpy(M),
+                                           layout="clustered")
+        got_s, got_i = exact_topk.exact_topk_prepared(
+            torch.from_numpy(R), prep, torch.from_numpy(bias),
+            torch.from_numpy(alpha), k=30, adaptive_bins=na)
+        ref = ref_topk.prepare_entities(jnp.asarray(M), layout="clustered")
+        want_s, want_i = ref_topk.exact_topk_prepared(
+            jnp.asarray(R), ref, jnp.asarray(bias), jnp.asarray(alpha), k=30,
+            adaptive_bins=na)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), **TOL)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
 
     @pytest.mark.parametrize("E,d,want", [
         (1_000_000, 128, "float32"), (32 << 20, 128, "float32"),

@@ -700,11 +700,32 @@ def test_unported_loop_options_raise(tmp_path, train_kw, item):
                                 str(tmp_path / "run"), device="cpu")
 
 
-def test_init_word_emb_raises(tmp_path):
+def test_init_word_emb_seeds_the_fresh_run_as_the_reference(tmp_path):
+    """A dump-format npz (terms in another order, one unknown, one vocab
+    term missing) seeds the fresh run's word_emb as the reference's
+    load_pretrained_word_emb seeds the same initialization; with no epoch
+    to train the state returned is step 0's."""
+    from sert_tpu.data.vocab import Vocabulary
     recipe, data = _prepared(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pipeline.train_from_dir(recipe, data, str(tmp_path / "run"),
-                                init_word_emb="dump.npz", device="cpu")
+    state, resolved = pipeline.train_from_dir(
+        _with_train(recipe, num_epochs=0), data, str(tmp_path / "fresh"),
+        device="cpu")
+    base = state.params["word_emb"].numpy().copy()
+    vocab = Vocabulary.load(os.path.join(data, "vocab.json"))
+    terms = list(vocab.iter_terms())[1:][::-1] + ["not-a-term"]
+    emb = np.random.default_rng(0).normal(
+        size=(len(terms), base.shape[1])).astype(np.float32)
+    npz = str(tmp_path / "dump.npz")
+    np.savez(npz, word_emb=emb, terms=np.asarray(terms, dtype=object))
+    want, hits = ref_pipeline.load_pretrained_word_emb(npz, vocab, base)
+    assert hits == len(terms) - 1
+    seeded, _ = pipeline.train_from_dir(
+        _with_train(recipe, num_epochs=0), data, str(tmp_path / "seeded"),
+        init_word_emb=npz, device="cpu")
+    assert seeded.step == 0
+    np.testing.assert_array_equal(seeded.params["word_emb"].numpy(), want)
+    for key in ("proj_w", "proj_b", "entity_emb"):
+        assert torch.equal(seeded.params[key], state.params[key])
 
 
 # --- the feeder -------------------------------------------------------------

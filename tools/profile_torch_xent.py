@@ -32,7 +32,9 @@ included, as chip_smoke.py times them.
 - ``binmax``: K3 (``score_binmax_prepared``) against
   ``score_binmax_plain`` at the serving shape (Q 64, E 1M, d 128, bw 128,
   chip_smoke's seeded unit rows), without and with the bias, at a partial
-  tail (E = 1M - 1) and at bw = 64 with the bias;
+  tail (E = 1M - 1) and at bw = 64 with the bias; and its fp32 mode (M
+  staged in fp32, 3xTF32 products) without and with the bias and at
+  bw = 64 with the bias (``f32``, ``f32_bias``, ``f32_bw64_bias``);
 - ``rescore``: K4 (``gather_rescore``: its index build, count, scan and
   scatter, then its sweep) against ``gather_rescore_plain``, fp32 and bf16
   rows, on the smoke's ``bin_idx`` (each query's top 1012 bins by K3's
@@ -80,11 +82,14 @@ SLSE_CASES = {   # name: (B, k, d, dtype), as chip_smoke's train_kernels
     "amazon_musical_instruments": (1024, 256, 128, "float32"),
 }
 SERVE_Q, SERVE_E, SERVE_D, SERVE_NB = 64, 1_000_000, 128, 1012
-BINMAX_CASES = {   # name: (E, bw, with bias)
-    "serving": (SERVE_E, 128, False),
-    "serving_bias": (SERVE_E, 128, True),
-    "tail": (SERVE_E - 1, 128, False),
-    "bw64_bias": (SERVE_E, 64, True),
+BINMAX_CASES = {   # name: (E, bw, with bias, staged dtype)
+    "serving": (SERVE_E, 128, False, "bfloat16"),
+    "serving_bias": (SERVE_E, 128, True, "bfloat16"),
+    "tail": (SERVE_E - 1, 128, False, "bfloat16"),
+    "bw64_bias": (SERVE_E, 64, True, "bfloat16"),
+    "f32": (SERVE_E, 128, False, "float32"),
+    "f32_bias": (SERVE_E, 128, True, "float32"),
+    "f32_bw64_bias": (SERVE_E, 64, True, "float32"),
 }
 RESCORE_CASES = {   # name: (bins, row dtype)
     "serving_fp32": ("chosen", "float32"),
@@ -128,7 +133,7 @@ def serving_inputs() -> dict:
     """chip_smoke's serving inputs (phase 3), made once: unit rows R [64,
     128] and M [1M, 128], bias, alpha, the bf16 sweep copy, each query's top
     1012 bins by the plain bin maxima, a shared-bins index and the
-    bin-major rows in both dtypes."""
+    bin-major rows in both dtypes (and K3's fp32 sweep copy)."""
     if not _serving:
         from sert_tpu_torch.ops import score_binmax as k3
         dev = torch.device("cuda")
@@ -150,6 +155,7 @@ def serving_inputs() -> dict:
         Mb = torch.nn.functional.pad(M, (0, 0, 0, n_bins * 128 - SERVE_E))
         Mb = Mb.view(n_bins, 128, SERVE_D)
         _serving.update(R=R, Rb=R.bfloat16(), bias=bias, alpha=alpha, Mp=Mp,
+                        Mp32=k3.prepare_binmax_matrix(M, torch.float32),
                         chosen=chosen, shared=shared, float32=Mb,
                         bfloat16=Mb.bfloat16())
     return _serving
@@ -162,9 +168,10 @@ def serving_calls(kernel: str, name: str, with_plain: bool):
     from sert_tpu_torch.ops import score_binmax as k3
     x = serving_inputs()
     if kernel == "binmax":
-        E, bw, with_bias = BINMAX_CASES[name]
+        E, bw, with_bias, dtype = BINMAX_CASES[name]
         ba = (x["bias"], x["alpha"]) if with_bias else (None, None)
-        return [(label, lambda fn=fn: fn(x["R"], x["Mp"], E, *ba, bw))
+        Mp = x["Mp32" if dtype == "float32" else "Mp"]
+        return [(label, lambda fn=fn: fn(x["R"], Mp, E, *ba, bw))
                 for label, fn in [("kernel", k3.score_binmax_prepared),
                                   ("plain", k3.score_binmax_plain)]
                 [:1 + with_plain]]
