@@ -121,6 +121,13 @@ Phases (each prints one line or more; any failure exits non-zero):
      batches; then serve_http on that run: one GET and one batched POST
      through K3 with the bias, K4 and the K5 normalizer, each answer
      search_many's;
+ 11a. report: on that run, `query` (the model ranker, and --ranker lm),
+     `fuse --method interp --weights 0.5 0.5 -k 100` of the two run files
+     and `report --json` through the CLI in this process: the report's
+     model ranker through K3 with the bias, K4 and the K5 normalizer (its
+     launches counted), its model and lm runs byte-equal to `query`'s run
+     files, the fused file's metrics the report's interp row; the markdown
+     table and the report's wall time;
  12. train_fused: w3c_expert_finding as the recipe stands (W3C stand-in,
      E=1100, d=128, B=1024, fp32, adam at a constant 1e-3,
      steps_per_call=16, 5 epochs) with fused_update="on", end to end as
@@ -128,14 +135,22 @@ Phases (each prints one line or more; any failure exits non-zero):
      falling, the served top 100 against the dense oracle; its first 8
      steps against the dense step (K5/K6 + the dense adam) on the same
      batches, and two fused runs of 8 steps bit for bit;
+ 12a. train_adafactor: w3c_expert_finding as phase 12 with
+     optimizer="adafactor" at lr 1e-2 (fused_update "auto" resolves to the
+     dense step): K5/K6 every micro-step and K7 never, the loss finite and
+     falling, the served top 100 against the dense oracle, NDCG@100 beside
+     phase 12's adam run; its first 8 steps through K5/K6 against the
+     plain version (within 1e-3 relative);
  13. train_lse_full: the flagship's width with model="lse_full" (V=250k,
      E=1M, d=128, B=4096, bf16, adam) for 16 steps of the training
      fixture, through K5/K6 every step;
- 14. fused_ab: the reference's fused-step A/B at its width (log-linear,
-     E=500k, V=60k, d=256, B=1024, bf16 compute, fp32 params,
+ 14. fused_ab (run last): the reference's fused-step A/B at its width
+     (log-linear, E=500k, V=60k, d=256, B=1024, bf16 compute, fp32 params,
      steps_per_call=8) for adam, adagrad and sgd, fused_update off and on
      in turns: ms per micro-step, peak memory, and the two modes' losses
-     within 1e-4 of each other;
+     within 1e-4 of each other; then adafactor_ab: adafactor with
+     fused_update off, twice, K5/K6 every micro-step and K7 never, ms per
+     micro-step and peak memory beside them;
  15. train_10m: synthetic_10m_training at its widths (V=250k, E=10M,
      d=128, B=4096, k=32768 unigram negatives, bf16 compute and params,
      the row-sparse lazy adam step, cosine, steps_per_call=4, bf16
@@ -163,6 +178,15 @@ Phases (each prints one line or more; any failure exits non-zero):
      lazy adam step, a full checkpoint every 32 micro-steps; after a crash
      right after the first, a fresh loop resumes and must end bit for bit
      where the unbroken run ended (params, moments, generator);
+ 18a. packed_feed: the flagship at full width on phase 7's fixture, its
+     first 32 micro-steps trained twice through the loop from the same
+     fresh state, packed_feed "on" and "off": losses and final params bit
+     for bit, K1/K2 once a micro-step in each, 22 feed bytes an instance
+     against 40, mid-run steps/s of both;
+ 18b. debug: utils.debug.checked over the log-linear loss and gradients
+     through K5/K6 at cerc's widths (NaN params name an op, clean ones
+     none), and utils.profiling.trace around one annotated flagship
+     micro-step (the chrome trace names K1/K2's kernel and the region);
  19. nce_tiny: tiny_recipe("lse") as it stands (the NCE objective) end to
      end on the card with the dense step and with the lazy one: the loss
      falls, NDCG@100 printed; on the dense run a gradient fold-in (the NCE
@@ -237,6 +261,15 @@ FUSED_PARITY_RTOL = 1e-4
 # lr 1e-2): timed calls of AB_STEPS_PER_CALL micro-steps after a warm one.
 AB_V, AB_E, AB_D, AB_LR = 60_000, 500_000, 256, 1e-2
 AB_STEPS_PER_CALL, AB_CALLS = 8, 3
+# train_adafactor: w3c_expert_finding with adafactor at the reference's
+# quality setting (benchmarks/NOTES.md:280-282).
+ADAFACTOR_LR = 1e-2
+# packed_feed: the flagship's first micro-steps on phase 7's fixture, a
+# log every PACKED_LOG_EVERY of them (so mid-run rates exist).
+PACKED_STEPS, PACKED_LOG_EVERY = 32, 8
+# debug: checked over the log-linear loss at cerc's widths (E 3500, d 256)
+# over a vocabulary of this size.
+DEBUG_V, DEBUG_E = 20_000, 3500
 # The H100 SXM's published dense peaks (bf16 on tensor cores, fp32 on the
 # CUDA cores, and fp32 products as three TF32 passes on the tensor cores,
 # as K5-K7 run them) and its memory rate, for each kernel's bound.
@@ -2178,14 +2211,17 @@ def phase_train_fused(root: str) -> dict:
     return launches
 
 
-def phase_fused_ab() -> None:
+def phase_fused_ab() -> dict:
     """The reference's fused-step A/B at its width (benchmarks/
     fused_step_bench.py: log-linear, E=500k, V=60k, d=256, B=1024, bf16
     compute, fp32 params, lr 1e-2, steps_per_call=8): for adam, adagrad and
     sgd, fused_update off and on in turns (off, on, on, off), each from the
     same seeded state on the same seeded batches, a warm call then AB_CALLS
     timed calls; ms per micro-step, peak memory, and the last losses of
-    the two modes against each other."""
+    the two modes against each other. Then adafactor (the reference's gate
+    keeps it off K7) the same way with fused_update off, twice: K5 and K6
+    every micro-step, K7 never, ms per micro-step and peak memory beside
+    the other rows. Returns adafactor's launches by kernel."""
     import dataclasses
     import torch
     from sert_tpu_torch.cli import load_recipe
@@ -2249,6 +2285,42 @@ def phase_fused_ab() -> None:
         if rel > FUSED_PARITY_RTOL:
             raise AssertionError(f"{opt}: fused and dense losses differ by "
                                  f"{rel}")
+
+    got, launches = [], {"xent_fwd": 0, "xent_bwd": 0, "xent_bwd_apply": 0}
+    for _ in range(2):
+        tcfg = dataclasses.replace(r.train, optimizer="adafactor",
+                                   learning_rate=AB_LR, fused_update="off",
+                                   steps_per_call=n)
+        state = init_state(SEED, mcfg, tcfg, device="cuda")
+        step = make_train_step(mcfg, tcfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        xent.fwd_launches = xent.apply_launches = xent.bwd_launches = 0
+        step(state, batch)                                  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AB_CALLS):
+            _, m = step(state, batch)
+        loss = m["loss"].item()                             # syncs
+        ms = (time.perf_counter() - t0) * 1e3 / (AB_CALLS * n)
+        want = (AB_CALLS + 1) * n
+        used = (xent.fwd_launches, xent.bwd_launches, xent.apply_launches)
+        if used != (want, want, 0):
+            raise AssertionError(f"adafactor: K5/K6/K7 launched {used} "
+                                 f"times, not {(want, want, 0)}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"adafactor: loss {loss}")
+        for name, k in zip(("xent_fwd", "xent_bwd", "xent_bwd_apply"), used):
+            launches[name] += k
+        got.append((ms, torch.cuda.max_memory_allocated(), loss))
+        del state, step, m
+        torch.cuda.empty_cache()
+    say("adafactor_ab", opt="adafactor", E=AB_E, V=AB_V, d=AB_D, B=B,
+        steps_per_call=n, timed_steps=AB_CALLS * n, fused_update="off",
+        ms_per_step=json.dumps([t for t, _, _ in got]),
+        peak_mem_bytes=max(p for _, p, _ in got), loss=got[0][2],
+        launches=json.dumps(launches).replace(" ", ""))
+    return launches
 
 
 def _check_served_loglinear(phase, recipe, col, data_dir, run_dir) -> None:
@@ -2833,6 +2905,309 @@ def phase_nce_tiny(root: str) -> dict:
     return launches
 
 
+def phase_train_adafactor(root: str) -> dict:
+    """w3c_expert_finding end to end with optimizer="adafactor" at lr 1e-2
+    (the reference's quality setting, benchmarks/NOTES.md:280-282): K5/K6
+    every micro-step, K7 never, the loss finite and falling, the served
+    top 100 against the dense oracle, NDCG@100 beside phase 12's adam run
+    on the same collection; then its first 8 steps through K5/K6 against
+    the plain version. Returns the launches by kernel of the end-to-end
+    run."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch import recipes
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.eval.metrics import evaluate_run
+    from sert_tpu_torch.eval.trec import read_qrels, read_run
+
+    r = load_recipe("w3c_expert_finding")
+    recipe = dataclasses.replace(
+        r, name="w3c_expert_finding_adafactor",
+        train=dataclasses.replace(r.train, optimizer="adafactor",
+                                  learning_rate=ADAFACTOR_LR))
+    col = recipes.W3C_SYNTH.build()
+    launches, n_steps, n_batches, cfg = _run_loglinear_e2e(
+        "train_adafactor", recipe, col, root)
+    if launches["xent_bwd"] != n_steps or launches["xent_bwd_apply"] or \
+            launches["xent_fwd"] != n_steps + n_batches or \
+            min(launches["score_binmax"], launches["gather_rescore"]) < 1:
+        raise AssertionError(f"launches {launches} for {n_steps} steps and "
+                             f"{n_batches} query batches")
+    ndcg = {}
+    for name in (recipe.name, r.name):
+        run_dir = os.path.join(root, name, "run")
+        ndcg[name] = evaluate_run(
+            read_run(os.path.join(run_dir, "run.trec")),
+            read_qrels(os.path.join(run_dir, "qrels.trec")))["all"][
+                "ndcg@100"]
+    runs = _first_steps(recipe, os.path.join(root, recipe.name, "data"), [
+        (fused, dataclasses.replace(cfg, fused_softmax=fused), None)
+        for fused in ("auto", "off")])
+    losses = {k: v[0] for k, v in runs.items()}
+    counts = {k: v[2] for k, v in runs.items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["auto"],
+                                                  losses["off"]))
+    say("train_adafactor", ndcg_at_100_adafactor=ndcg[recipe.name],
+        ndcg_at_100_adam_fused=ndcg[r.name], parity_steps=PARITY_STEPS,
+        kernel_losses=json.dumps(losses["auto"]),
+        plain_losses=json.dumps(losses["off"]), max_rel_diff=rel,
+        rtol=PARITY_RTOL, launches=json.dumps(counts).replace(" ", ""))
+    if rel > PARITY_RTOL or counts != {"auto": (PARITY_STEPS,) * 2 + (0,),
+                                       "off": (0, 0, 0)}:
+        raise AssertionError(f"kernel and plain steps differ by {rel}, or "
+                             f"took the wrong paths: {counts}")
+    del runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_report(root: str) -> dict:
+    """`report` and `fuse` through the CLI (in this process) on phase 11's
+    cerc_expert_finding run: the report's model ranker runs through K3 with
+    the bias, K4 and the K5 normalizer (its launches counted from 0); its
+    model and lm runs must equal `query`'s run files, and `fuse --method
+    interp --weights 0.5 0.5` of those files must score the report's
+    interp row. Returns the report's launches by kernel."""
+    import contextlib
+    import io
+    import torch
+    from sert_tpu_torch import cli
+    from sert_tpu_torch.eval import build_ranker_runs, format_markdown
+    from sert_tpu_torch.eval.metrics import evaluate_run
+    from sert_tpu_torch.eval.trec import (read_qrels, read_run, read_topics,
+                                          write_run)
+
+    work = os.path.join(root, "cerc_expert_finding")
+    data, run = os.path.join(work, "data"), os.path.join(work, "run")
+    topics, qrels = (os.path.join(run, n) for n in ("topics.tsv",
+                                                    "qrels.trec"))
+    args = ["--recipe", "cerc_expert_finding", "--data", data]
+    paths = {n: os.path.join(work, f"report_{n}.trec")
+             for n in ("model", "lm", "interp")}
+
+    def main(*argv) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(list(argv))
+        if rc != 0:
+            raise AssertionError(f"{argv[0]} exited {rc}")
+        return out.getvalue()
+
+    main("query", *args, "--run-dir", run, "--topics", topics, "--out",
+         paths["model"])
+    main("query", *args, "--topics", topics, "--out", paths["lm"],
+         "--ranker", "lm")
+    recipe = cli.load_recipe("cerc_expert_finding")
+    # The report's interp keeps each topic's top_k, as the fuse -k does.
+    main("fuse", "--runs", paths["model"], paths["lm"], "--out",
+         paths["interp"], "--method", "interp", "--weights", "0.5", "0.5",
+         "-k", str(recipe.score.top_k))
+
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    report = json.loads(main("report", *args, "--run-dir", run, "--topics",
+                             topics, "--qrels", qrels, "--json"))
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    launches = _kernel_counts(xent_too=True)
+
+    runs = build_ranker_runs(recipe, data, run, read_topics(topics))
+    same = {}
+    for name in ("model", "lm"):
+        mine = os.path.join(work, f"report_{name}_again.trec")
+        write_run(runs[name], mine)
+        same[name] = open(mine, "rb").read() == open(paths[name],
+                                                     "rb").read()
+    fused = evaluate_run(read_run(paths["interp"]), read_qrels(qrels))["all"]
+    interp = report["rankers"]["interp"]["all"]
+    print(format_markdown(report, title="cerc_expert_finding"), flush=True)
+    say("report", seconds=report_s, rankers=",".join(report["rankers"]),
+        ndcg_at_100=json.dumps({k: v["all"]["ndcg@100"] for k, v in
+                                report["rankers"].items()}).replace(" ", ""),
+        model_run_equals_query=same["model"],
+        lm_run_equals_query=same["lm"],
+        fuse_interp_equals_report=fused == interp,
+        launches=json.dumps(launches).replace(" ", ""))
+    if not all(same.values()) or fused != interp:
+        raise AssertionError(f"report runs equal query's: {same}; fuse "
+                             f"{fused} vs the report's interp {interp}")
+    if min(launches["score_binmax"], launches["gather_rescore"],
+           launches["xent_fwd"]) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    del runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _first_batches(data_dir: str, seed: int, n: int):
+    """An InstanceDataset of ``data_dir`` cut to its first ``n`` batches
+    an epoch (the loop's input, as the train command builds it)."""
+    import itertools
+    from sert_tpu_torch.data.instances import InstanceDataset
+
+    class FirstBatches(InstanceDataset):
+        def num_batches_per_epoch(self, batch_size, readers=None):
+            return min(n, super().num_batches_per_epoch(batch_size,
+                                                        readers))
+
+        def iter_batches(self, batch_size, epoch, start_cursor=None,
+                         readers=None):
+            return itertools.islice(super().iter_batches(
+                batch_size, epoch, start_cursor, readers), n)
+
+    return FirstBatches(data_dir, seed=seed)
+
+
+def phase_packed_feed(root: str, data_dir: str) -> dict:
+    """The flagship at full width (V=250k, E=1M, w=8, B=4096, k=32768,
+    bf16, adam + cosine) on phase 7's fixture cut to PACKED_STEPS
+    micro-steps, trained twice from the same fresh state through the
+    loop, packed_feed "on" and "off": the losses and the final params bit
+    for bit, K1/K2 once a micro-step in each, 22 feed bytes an instance
+    against 40, mid-run steps/s of both. Returns the launches by kernel of
+    the packed run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from sert_tpu_torch import pipeline
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.data import wirepack
+    from sert_tpu_torch.data.assoc import Associations
+    from sert_tpu_torch.data.prepare import ASSOC_NAME
+    from sert_tpu_torch.ops import sampled_lse as slse
+    from sert_tpu_torch.train import loop
+
+    base = pipeline.resolve_model_config(
+        dataclasses.replace(load_recipe(os.path.join(root, "recipe.json")),
+                            name="packed_feed"),
+        _first_batches(data_dir, 0, PACKED_STEPS).meta)
+    counts = np.asarray(Associations.load(os.path.join(
+        data_dir, ASSOC_NAME)).entity_instance_counts(E), np.float64)
+    first, _ = next(_first_batches(data_dir, base.train.seed, 1)
+                    .iter_batches(B_TRAIN, epoch=0))
+    raw_b = wirepack.packed_nbytes(first)
+    wire_b = wirepack.packed_nbytes(wirepack.pack_batch(first, V, E))
+    out, launches = {}, {}
+    for mode in ("on", "off"):
+        recipe = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, packed_feed=mode, num_epochs=1,
+            log_every_steps=PACKED_LOG_EVERY, final_snapshot="params"))
+        run_dir = os.path.join(root, f"packed_{mode}")
+        torch.cuda.empty_cache()
+        slse.fwd_launches = slse.bwd_launches = 0
+        state = loop.train(recipe, _first_batches(data_dir,
+                                                  recipe.train.seed,
+                                                  PACKED_STEPS),
+                           run_dir, entity_counts=counts, resume=False,
+                           device="cuda")
+        torch.cuda.synchronize()
+        launches[mode] = {"sampled_lse_fwd": slse.fwd_launches,
+                          "sampled_lse_bwd": slse.bwd_launches}
+        _, losses, mid_sps = _train_log(run_dir)
+        out[mode] = (state, losses, mid_sps)
+    (s_on, l_on, sps_on), (s_off, l_off, sps_off) = out["on"], out["off"]
+    same = l_on == l_off and all(torch.equal(s_on.params[k], s_off.params[k])
+                                 for k in s_off.params)
+    say("packed_feed", steps=s_on.step, feed_bytes_packed=wire_b,
+        feed_bytes_raw=raw_b, bytes_per_instance=f"{wire_b / B_TRAIN:g}/"
+        f"{raw_b / B_TRAIN:g}", losses=json.dumps(l_on),
+        bit_equal=same, mid_run_steps_per_sec_on=_spread(sps_on),
+        mid_run_steps_per_sec_off=_spread(sps_off),
+        launches=json.dumps(launches).replace(" ", ""))
+    want = {"sampled_lse_fwd": PACKED_STEPS, "sampled_lse_bwd": PACKED_STEPS}
+    if s_on.step != s_off.step or s_on.step != PACKED_STEPS:
+        raise AssertionError(f"{s_on.step}/{s_off.step} steps, not "
+                             f"{PACKED_STEPS}")
+    if not same or launches["on"] != want or launches["off"] != want:
+        raise AssertionError(f"packed and raw runs bit-equal: {same}; "
+                             f"K1/K2 launches {launches}")
+    if (wire_b, raw_b) != (22 * B_TRAIN, 40 * B_TRAIN):
+        raise AssertionError(f"feed bytes {wire_b} packed, {raw_b} raw")
+    del out, s_on, s_off, state
+    torch.cuda.empty_cache()
+    return launches["on"]
+
+
+def phase_debug(root: str, data_dir: str) -> None:
+    """utils.debug.checked over the log-linear loss and its gradients
+    through K5/K6 on the card (cerc's widths): NaN params must name an op,
+    clean ones none; utils.profiling.trace around one flagship micro-step
+    (annotated) must write a chrome trace naming K1/K2's kernel and the
+    annotated region."""
+    import dataclasses
+    import glob
+    import torch
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.models import api
+    from sert_tpu_torch.ops import xent
+    from sert_tpu_torch.train.step import init_state, make_train_step
+    from sert_tpu_torch.utils import debug, profiling
+
+    r = load_recipe("cerc_expert_finding")
+    cfg = r.model.replace(vocab_size=DEBUG_V, num_entities=DEBUG_E)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params = api.init_params(g, cfg, "cuda")
+    B, w = r.train.batch_size, r.data.window_size
+    batch = {"windows": torch.randint(0, DEBUG_V, (B, w), generator=g,
+                                      device="cuda").int(),
+             "lengths": torch.full((B,), w, dtype=torch.int32,
+                                   device="cuda"),
+             "entities": torch.randint(0, DEBUG_E, (B,), generator=g,
+                                       device="cuda").int()}
+
+    def loss_and_grads(p):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        loss = api.loss_fn(leaves, batch, cfg)
+        return loss, torch.autograd.grad(loss, list(leaves.values()))
+
+    checked = debug.checked(loss_and_grads)
+    xent.fwd_launches = xent.bwd_launches = 0
+    clean, (loss, _) = checked(params)
+    nan_params = dict(params, proj_w=params["proj_w"] * float("nan"))
+    dirty, _ = checked(nan_params)
+    found = dirty.get()
+    say("debug", check="checked", clean=clean.get(), nan_params=found,
+        loss=loss.item(), launches=json.dumps(
+            {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches}))
+    if clean.get() is not None or not math.isfinite(loss.item()) or \
+            not (found or "").startswith("nan generated by"):
+        raise AssertionError(f"checked: clean {clean.get()}, NaN {found}")
+    if (xent.fwd_launches, xent.bwd_launches) != (2, 2):
+        raise AssertionError("checked did not run the loss through K5/K6")
+    del params, nan_params
+
+    recipe = load_recipe(os.path.join(root, "recipe.json"))
+    tcfg = dataclasses.replace(recipe.train, steps_per_call=1,
+                               lr_decay_steps=TRAIN_INSTANCES // B_TRAIN)
+    mcfg = recipe.model.replace(vocab_size=V, num_entities=E)
+    state = init_state(SEED, mcfg, tcfg, device="cuda")
+    step = make_train_step(mcfg, tcfg, noise=_unigram_noise(
+        dataclasses.replace(recipe, model=mcfg), data_dir), device="cuda")
+    first, _ = next(_first_batches(data_dir, 0, 1).iter_batches(
+        B_TRAIN, epoch=0))
+    tb = {k: torch.from_numpy(v).cuda() for k, v in first.items()}
+    step(state, tb)                                         # warm
+    torch.cuda.synchronize()
+    logdir = os.path.join(root, "trace")
+    with profiling.trace(logdir):
+        with profiling.annotate("flagship_step"):
+            step(state, tb)
+            torch.cuda.synchronize()
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    events = json.load(open(files[0]))["traceEvents"] if files else []
+    kernels = sorted({e["name"].split("<")[0] for e in events
+                      if e.get("cat") == "kernel"})
+    annotated = any(e.get("name") == "flagship_step" for e in events)
+    ported = [k for k in kernels if "slse_sweep_kernel" in k]
+    say("debug", check="trace", files=len(files), events=len(events),
+        annotated=annotated, kernels=len(kernels), ported=",".join(ported))
+    if len(files) != 1 or not annotated or not ported:
+        raise AssertionError(f"trace: {files}, annotated {annotated}, "
+                             f"kernels {kernels}")
+    del state, step
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import sert_tpu_torch  # noqa: F401  (fails outside a checkout)
     import torch
@@ -2862,7 +3237,8 @@ def main() -> int:
         del searcher
         torch.cuda.empty_cache()
         paths += [phase_train_loglinear(root),
-                  phase_serve_http_loglinear(root), phase_train_fused(root),
+                  phase_serve_http_loglinear(root), phase_report(root),
+                  phase_train_fused(root), phase_train_adafactor(root),
                   phase_train_lse_full(root)]
         recipe_10m, data_10m, run_10m, topics_10m, launches_10m = (
             phase_train_10m(root))
@@ -2871,11 +3247,13 @@ def main() -> int:
                                   records)]
         phase_sparse_ab_10m(recipe_10m, data_10m)
         phase_sparse_resume(root, data_dir)
+        paths.append(phase_packed_feed(root, data_dir))
+        phase_debug(root, data_dir)
         paths.append(phase_nce_tiny(root))
+        paths.append(phase_fused_ab())
         for path in paths:
             for name, n in path.items():
                 launches[name] = launches.get(name, 0) + n
-    phase_fused_ab()
     for name, rec in records.items():
         rec["launches"] = launches[name]
     say("smoke", seconds=time.perf_counter() - t0)

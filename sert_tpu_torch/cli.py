@@ -5,6 +5,9 @@
   python -m sert_tpu_torch prepare   — collection -> vocab + instance shards
   python -m sert_tpu_torch train     — instances -> per-epoch checkpoints
   python -m sert_tpu_torch query     — checkpoint + topics -> TREC run file
+  python -m sert_tpu_torch fuse      — run files -> one fused run file
+  python -m sert_tpu_torch report    — model vs lm baseline vs their
+                                       fusion: the papers' headline table
   python -m sert_tpu_torch evaluate  — run + qrels -> metrics
   python -m sert_tpu_torch sweep     — every epoch snapshot -> metric, best
   python -m sert_tpu_torch dump      — learned vectors -> npz or word2vec
@@ -13,12 +16,12 @@
   python -m sert_tpu_torch neighbors — nearest terms or entities
   python -m sert_tpu_torch e2e       — synthetic recipe end to end
 
-``train``, ``query``, ``sweep``, ``dump``, ``serve``, ``neighbors`` and
-``e2e`` load params onto the CUDA card; they take ``--device cpu`` to run
-on the CPU, and without a card and without it they stop with that advice.
-``prepare``, ``evaluate`` and ``query --ranker lm`` are host code, as are
-``dump``'s and ``neighbors``' arithmetic. ``fuse`` and ``report`` are not
-ported yet.
+``train``, ``query``, ``report``, ``sweep``, ``dump``, ``serve``,
+``neighbors`` and ``e2e`` load params onto the CUDA card; they take
+``--device cpu`` to run on the CPU, and without a card and without it they
+stop with that advice. ``prepare``, ``evaluate``, ``fuse``, ``query
+--ranker lm`` and a ``report`` without ``--run-dir`` are host code, as
+are ``dump``'s and ``neighbors``' arithmetic.
 """
 
 from __future__ import annotations
@@ -242,6 +245,48 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="Jelinek-Mercer background weight (--ranker lm)")
     _add_device_arg(p)
 
+    p = sub.add_parser("fuse", help="fuse run files (linear interpolation "
+                                    "of normalized scores, or reciprocal "
+                                    "rank fusion) — the papers' "
+                                    "semantic+lexical ensemble step")
+    p.add_argument("--runs", nargs="+", required=True,
+                   help="two or more TREC run files")
+    p.add_argument("--out", required=True)
+    p.add_argument("--method", choices=("interp", "rrf"), default="interp")
+    p.add_argument("--weights", nargs="*", type=float, default=None,
+                   help="per-run weights (default uniform); e.g. 0.3 0.7")
+    p.add_argument("--norm", choices=("minmax", "zscore", "none"),
+                   default="minmax", help="per-topic score normalization "
+                                          "(interp only)")
+    p.add_argument("--rrf-k", type=float, default=60.0)
+    p.add_argument("-k", type=int, default=0,
+                   help="truncate fused topics to top k (0 = keep all)")
+
+    p = sub.add_parser("report", help="the papers' headline table: semantic "
+                                      "model vs lexical LM baseline vs "
+                                      "fused, all metrics, significance "
+                                      "markers (markdown)")
+    _add_recipe_arg(p)
+    p.add_argument("--data", required=True)
+    p.add_argument("--run-dir", default=None,
+                   help="trained run dir (omit for an lm-only report)")
+    p.add_argument("--topics", required=True)
+    p.add_argument("--qrels", required=True)
+    p.add_argument("--step", type=int, default=None)
+    p.add_argument("--fuse-weight", type=float, default=0.5,
+                   help="semantic model's interpolation weight (the LM "
+                        "gets 1 - w)")
+    p.add_argument("--smoothing", choices=("dirichlet", "jm"),
+                   default="dirichlet")
+    p.add_argument("--mu", type=float, default=2000.0)
+    p.add_argument("--lam", type=float, default=0.5)
+    p.add_argument("--out", default=None, help="write markdown here "
+                                               "(default: stdout)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw report JSON instead of markdown")
+    p.add_argument("--title", default=None)
+    _add_device_arg(p)
+
     p = sub.add_parser("evaluate", help="trec_eval-style metrics")
     p.add_argument("--run", required=True)
     p.add_argument("--qrels", required=True)
@@ -405,6 +450,41 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"for {len(run)} topics to {args.out}")
         return 0
 
+    if args.cmd == "report":
+        recipe = load_recipe(args.recipe)
+        if not 0.0 <= args.fuse_weight <= 1.0:
+            raise SystemExit(f"--fuse-weight {args.fuse_weight} out of "
+                             "[0, 1]: it is the semantic model's share of "
+                             "the interpolation (the LM gets 1 - w)")
+        from sert_tpu_torch.eval.report import (build_ranker_runs,
+                                                format_markdown,
+                                                ranker_report)
+        from sert_tpu_torch.eval.trec import read_qrels, read_topics
+        topics = read_topics(args.topics)
+        qrels = read_qrels(args.qrels)
+        try:
+            runs = build_ranker_runs(recipe, args.data, args.run_dir,
+                                     topics, step=args.step,
+                                     fuse_weight=args.fuse_weight,
+                                     smoothing=args.smoothing, mu=args.mu,
+                                     lam=args.lam, device=args.device)
+        except (FileNotFoundError, ValueError) as e:
+            # Predictable user errors (no checkpoint in --run-dir, stats
+            # missing, vocab-hash mismatch) exit cleanly like query does.
+            raise SystemExit(str(e))
+        report = ranker_report(runs, qrels)
+        if args.json:
+            text = json.dumps(report, indent=2, sort_keys=True)
+        else:
+            text = format_markdown(report, title=args.title or recipe.name)
+        if args.out:
+            with open(args.out, "w") as fh:
+                fh.write(text + "\n")
+            print(f"wrote report for {len(runs)} rankers to {args.out}")
+        else:
+            print(text)
+        return 0
+
     if args.cmd == "evaluate":
         from sert_tpu_torch.eval.metrics import DEFAULT_MEASURES, evaluate_run
         from sert_tpu_torch.eval.trec import read_qrels, read_run
@@ -423,6 +503,24 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 0
         out = results if args.per_topic else results["all"]
         print(json.dumps(out, indent=2, sort_keys=True))
+        return 0
+
+    if args.cmd == "fuse":
+        from sert_tpu_torch.eval.fuse import fuse_runs
+        from sert_tpu_torch.eval.trec import read_run, write_run
+        if len(args.runs) < 2:
+            raise SystemExit("fuse needs two or more run files (got "
+                             f"{len(args.runs)}); a single 'fused' run "
+                             "would just be a renormalized copy")
+        runs = [read_run(p) for p in args.runs]
+        try:
+            fused = fuse_runs(runs, weights=args.weights, method=args.method,
+                              norm=args.norm, rrf_k=args.rrf_k, k=args.k)
+        except ValueError as e:   # e.g. --weights count mismatch
+            raise SystemExit(str(e))
+        write_run(fused, args.out, tag=f"fused_{args.method}")
+        print(f"fused {len(runs)} runs ({args.method}) over "
+              f"{len(fused)} topics to {args.out}")
         return 0
 
     if args.cmd == "sweep":

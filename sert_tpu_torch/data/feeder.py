@@ -2,10 +2,11 @@
 ``sert_tpu/data/feeder.py:20``, which imports jax).
 
 A background thread turns each host item into device tensors while the
-current step runs. On a CUDA device it copies each numpy array into pinned
-memory and then to the card with ``non_blocking=True`` on a stream of its
-own, and records an event; the consumer's stream waits on that event
-before the batch is used, so the copy overlaps the previous step.
+current step runs. On a CUDA device it copies each numpy array (the int32
+planes, or the packed feed's uint16 and uint8 ones) into pinned memory and
+then to the card with ``non_blocking=True`` on a stream of its own, and
+records an event; the consumer's stream waits on that event before the
+batch is used, so the copy overlaps the previous step.
 """
 
 from __future__ import annotations

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from sert_tpu_torch.ops import _build
+from sert_tpu_torch.utils import debug
 
 _KERNELS = {torch.float32: "sert_gather_rescore_f32",
             torch.bfloat16: "sert_gather_rescore_bf16"}
@@ -129,6 +130,7 @@ def _launch(R: torch.Tensor, M_binned: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gather_rescore")
     launches += 1
+    debug.kernel_outputs("gather_rescore", out)
     return out
 
 

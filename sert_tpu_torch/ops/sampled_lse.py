@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from sert_tpu_torch.ops import _build
+from sert_tpu_torch.utils import debug
 
 DIM_MULTIPLE = 32   # the kernels' operand width multiple
 MAX_DIM = 256       # widest padded d whose tiles fit the shared memory
@@ -240,6 +241,7 @@ class _SampledLse(torch.autograd.Function):
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "sampled_lse forward (K1)")
         fwd_launches += 1
+        debug.kernel_outputs("sampled_lse_fwd", m, s)
         M = m.amax(dim=0)
         lse = M + torch.log(torch.sum(s * torch.exp(m - M[None, :]), dim=0))
         ctx.save_for_backward(R, C, co, ids, pos, lse)
@@ -268,6 +270,7 @@ class _SampledLse(torch.autograd.Function):
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "sampled_lse backward (K2)")
         bwd_launches += 1
+        debug.kernel_outputs("sampled_lse_bwd", dcorr, dC, dreps, cols=d)
         return (_sum_parts(dreps)[:, :d].to(reps_dtype),
                 _sum_parts(dC)[:, :d].to(cand_dtype), _sum_parts(dcorr),
                 None, None, None)

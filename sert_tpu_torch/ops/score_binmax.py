@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from sert_tpu_torch.ops import _build
+from sert_tpu_torch.utils import debug
 
 LANES = 128          # default bin width; the kernel's entity tile is 128
 DIM_MULTIPLE = 16    # the bf16 tensor-core fragment depth
@@ -138,6 +139,7 @@ def _launch(R: torch.Tensor, Mp: torch.Tensor, E: int,
         f32_launches += 1
     else:
         launches += 1
+    debug.kernel_outputs("score_binmax", out)
     return out
 
 

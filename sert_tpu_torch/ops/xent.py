@@ -38,6 +38,7 @@ from sert_tpu_torch.ops import _build
 from sert_tpu_torch.ops.sampled_lse import (DIM_MULTIPLE, MAX_DIM,
                                             _compute_dtype, _operand,
                                             _operand_fp32, _RoundGrad)
+from sert_tpu_torch.utils import debug
 
 LAYOUTS = ("de", "ed")
 TILE = 64                 # the kernels' entity tile: K7 sums G^2 per tile
@@ -222,6 +223,7 @@ def _fwd(P, W, b, B, E, d, dp, strides, ct):
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "xent forward (K5)")
     fwd_launches += 1
+    debug.kernel_outputs("xent_fwd", m, s)
     M = m.amax(dim=0)
     return M + torch.log(torch.sum(s * torch.exp(m - M[None, :]), dim=0))
 
@@ -284,6 +286,7 @@ class _XentLoss(torch.autograd.Function):
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "xent backward (K6)")
         bwd_launches += 1
+        debug.kernel_outputs("xent_bwd", dW, db)
         dpooled = (part.sum(dim=0)[:B, :d] * g).to(pooled_dtype)
         return (dpooled, dW.to(W.dtype), db.to(b_dtype), None, None, None)
 
@@ -418,6 +421,7 @@ def _bwd_apply(saved, geometry, slots, opt, lr, count, gscale, ct):
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "xent backward with the optimizer update (K7)")
     apply_launches += 1
+    debug.kernel_outputs("xent_bwd_apply", W, db, gsq)
     return (db * gscale, part.sum(dim=0)[:B, :d] * gscale, torch.sum(gsq))
 
 

@@ -18,6 +18,7 @@ import math
 import warnings
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sert_tpu_torch.models import api
@@ -120,20 +121,32 @@ def make_lr(cfg: TrainConfig) -> Callable[[int], float]:
                          else _linear(peak, end, decay_steps, step - w))
 
 
+def factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims`` for adafactor's arguments: the (second
+    largest, largest) axes of a leaf whose two largest dims are both at
+    least ``Optimizer.MIN_DIM_TO_FACTOR``, else None (a full ``v``)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < Optimizer.MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
 class Optimizer:
-    """adam / adagrad / sgd with optax's arithmetic, plus optional
-    global-norm clipping (before) and decoupled weight decay (after), as
-    ``sert_tpu.train.step.make_optimizer`` chains them. :meth:`update`
-    changes the params and the state in place."""
+    """adam / adagrad / sgd / adafactor with optax's arithmetic, plus
+    optional global-norm clipping (before) and decoupled weight decay
+    (after), as ``sert_tpu.train.step.make_optimizer`` chains them.
+    adafactor is ``optax.adafactor(lr, multiply_by_parameter_scale=False,
+    clipping_threshold=None)``: the factored second moment alone, no
+    momentum. :meth:`update` changes the params and the state in place."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
+    # optax.scale_by_factored_rms's defaults.
+    DECAY_RATE, FACTORED_EPS, MIN_DIM_TO_FACTOR = 0.8, 1e-30, 128
 
     def __init__(self, cfg: TrainConfig, prefix: str = ""):
-        if cfg.optimizer == "adafactor":
-            raise NotImplementedError(
-                "optimizer='adafactor' is not ported yet (ROADMAP Queue 1 "
-                "item 13: remaining surfaces)")
-        if cfg.optimizer not in ("adam", "adagrad", "sgd"):
+        if cfg.optimizer not in ("adam", "adagrad", "sgd", "adafactor"):
             raise ValueError(f"unknown optimizer: {cfg.optimizer!r}")
         self.kind = cfg.optimizer
         self.lr = make_lr(cfg)
@@ -162,9 +175,49 @@ class Optimizer:
             for n, p in sorted(params.items()):
                 state[self._key("[0].sum_of_squares", n)] = torch.full_like(
                     p, self.acc0)
+        elif self.kind == "adafactor":
+            # optax's init: the unused slots of a leaf hold zeros of (1,).
+            state[self._key("[0].count")] = 0
+            for n, p in sorted(params.items()):
+                dims = factored_dims(p.shape)
+                shapes = {"v_row": (1,), "v_col": (1,), "v": p.shape}
+                if dims is not None:
+                    d1, d0 = dims
+                    shapes = {"v_row": np.delete(p.shape, d0),
+                              "v_col": np.delete(p.shape, d1), "v": (1,)}
+                for slot, shape in shapes.items():
+                    state[self._key(f"[0].{slot}", n)] = p.new_zeros(
+                        tuple(int(s) for s in shape))
         if self.scheduled:
             state[self._key("[1].count")] = 0
         return state
+
+    def _factored_rms(self, n: str, g: torch.Tensor, state: OptState,
+                      decay: float, keep: float) -> torch.Tensor:
+        """optax.scale_by_factored_rms on one leaf: its statistics in fp32
+        (``decay`` and ``keep`` = 1 - decay are fp32 values, as optax's
+        strongly typed fp32 decay is), stored in the leaf's dtype, and the
+        scaled gradient in the leaf's dtype."""
+        dtype = g.dtype
+        g2 = g * g + scalar(self.FACTORED_EPS, dtype)
+        dims = factored_dims(g.shape)
+        if dims is None:
+            v = state[self._key("[0].v", n)]
+            v.copy_(decay * v.float() + keep * g2.float())
+            return g * v ** -0.5
+        d1, d0 = dims
+        v_row = state[self._key("[0].v_row", n)]
+        v_col = state[self._key("[0].v_col", n)]
+        # jnp.mean of a bf16 array sums in fp32 and rounds the mean.
+        v_row.copy_(decay * v_row.float()
+                    + keep * g2.float().mean(d0).to(dtype).float())
+        v_col.copy_(decay * v_col.float()
+                    + keep * g2.float().mean(d1).to(dtype).float())
+        row_mean = v_row.float().mean(d1 - 1 if d1 > d0 else d1,
+                                      keepdim=True).to(dtype)
+        row_factor = (v_row / row_mean) ** -0.5
+        col_factor = v_col ** -0.5
+        return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
 
     @torch.no_grad()
     def update(self, params: Params, grads: Params, state: OptState) -> None:
@@ -180,11 +233,19 @@ class Optimizer:
             state[self._key("[1].count")] = count + 1
         else:
             lr = self.lr(0)
-        if self.kind == "adam":
+        if self.kind in ("adam", "adafactor"):
             count = state[self._key("[0].count")] + 1
             state[self._key("[0].count")] = count
+        if self.kind == "adam":
             bc1 = 1.0 - self.B1 ** count
             bc2 = 1.0 - self.B2 ** count
+        elif self.kind == "adafactor":
+            # optax's _decay_rate_pow of the count before this update, in
+            # fp32; as host floats, so no copy to the device waits on it.
+            decay_t = 1.0 - torch.tensor(float(count),
+                                         dtype=torch.float32) \
+                ** -self.DECAY_RATE
+            decay, keep = float(decay_t), float(1.0 - decay_t)
         for n, g in grads.items():
             p = params[n]
             c = functools.partial(scalar, dtype=g.dtype)
@@ -201,8 +262,12 @@ class Optimizer:
                     sos + c(self.adagrad_eps)), torch.zeros(
                         (), dtype=sos.dtype, device=sos.device))
                 u = inv * g
+            elif self.kind == "adafactor":
+                u = self._factored_rms(n, g, state, decay, keep)
             else:
                 u = g
+            # adam's scale(-lr), or adafactor's scale(lr) then scale(-1):
+            # a negation is exact, so one product either way.
             u = u * c(-lr)
             if self.decay > 0:
                 u = u + p * c(-self.decay)

@@ -1,1 +1,2 @@
-"""Utilities: typed configs (``config``) and logging (``logging``)."""
+"""Utilities: typed configs (``config``), logging (``logging``), input and
+numeric guards (``debug``) and tracing (``profiling``)."""

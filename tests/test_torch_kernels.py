@@ -843,3 +843,83 @@ class TestXentApplyOnCard:
             xent.xent_loss_apply(torch.zeros(8, 300, device=cuda), big, b,
                                  labels, opt_tree={"m": big.clone(),
                                                    "v": big.clone()}, **kw)
+
+
+# --- the packed feed's unpack, adafactor and the debug guards on the card ----
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,E,lead,w", [(250_000, 1_000_000, (), 8),
+                                        (250_000, 1_000_000, (4,), 8),
+                                        (65_537, 1 << 24, (), 5),
+                                        (100, 65_536, (2,), 7)])
+def test_unpack_batch_on_card_is_exact(cuda, V, E, lead, w):
+    """The packed planes (uint16 and uint8) cross to the card and unpack
+    there to the raw int32 ids, bit for bit, as they do on the CPU."""
+    from sert_tpu_torch.data import wirepack
+    rng = np.random.default_rng(V + E)
+    raw = {"windows": rng.integers(0, V, size=lead + (64, w)),
+           "lengths": rng.integers(1, w + 1, size=lead + (64,)),
+           "entities": rng.integers(0, E, size=lead + (64,))}
+    raw = {k: v.astype(np.int32) for k, v in raw.items()}
+    raw["windows"].reshape(-1, w)[0] = V - 1
+    raw["entities"].reshape(-1)[0] = E - 1
+    packed = wirepack.pack_batch(raw, V, E)
+    got = wirepack.unpack_batch({k: torch.from_numpy(v).to(cuda)
+                                 for k, v in packed.items()}, V, E)
+    for k, v in raw.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == torch.int32
+        assert np.array_equal(got[k].cpu().numpy(), v), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adafactor_on_card_matches_the_cpu(cuda, dtype):
+    """Eight adafactor updates of factored ([128, 300], [300, 128]) and
+    unfactored ([300], [40, 128]) leaves on the card against the CPU from
+    the same params and gradients: fp32 within reassociation (rtol 1e-5,
+    atol 2e-3 x lr), bf16 within the bf16 class (2e-2)."""
+    from sert_tpu_torch.train.step import make_optimizer
+    from sert_tpu_torch.utils.config import TrainConfig
+    lr = 1e-2
+    cfg = TrainConfig(optimizer="adafactor", learning_rate=lr)
+    rng = np.random.default_rng(0)
+    shapes = {"w": (128, 300), "t": (300, 128), "b": (300,), "e": (40, 128)}
+    host = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(dtype) for k, s in shapes.items()}
+    card = {k: v.to(cuda) for k, v in host.items()}
+    opt_h, opt_c = make_optimizer(cfg), make_optimizer(cfg)
+    st_h, st_c = opt_h.init(host), opt_c.init(card)
+    for i in range(8):
+        g = {k: torch.from_numpy((rng.normal(size=s) * (1 + i)).astype(
+            np.float32)).to(dtype) for k, s in shapes.items()}
+        opt_h.update(host, g, st_h)
+        opt_c.update(card, {k: v.to(cuda) for k, v in g.items()}, st_c)
+    fp32 = dtype == torch.float32
+    tol = dict(rtol=1e-5, atol=2e-3 * lr) if fp32 else dict(rtol=2e-2,
+                                                            atol=2e-2)
+    for k in shapes:
+        torch.testing.assert_close(card[k].cpu(), host[k], **tol)
+    for k, v in st_h.items():
+        if torch.is_tensor(v):
+            torch.testing.assert_close(st_c[k].cpu(), v,
+                                       rtol=1e-4 if fp32 else 2e-2,
+                                       atol=1e-12 if fp32 else 2e-2)
+        else:
+            assert st_c[k] == v
+
+
+@pytest.mark.gpu
+def test_checked_names_the_kernel_that_made_a_nan(cuda):
+    """K4 writes NaN scores for an out-of-range bin (by design; the plain
+    version raises): under debug.checked its wrapper names it."""
+    from sert_tpu_torch.utils import debug
+    R, M, _, _ = _data(0, 4, 1024, 64)
+    Mb = torch.from_numpy(M).to(cuda).reshape(8, 128, 64).contiguous()
+    ok = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    f = debug.checked(lambda idx: gather_rescore.gather_rescore(
+        torch.from_numpy(R).to(cuda), Mb, idx))
+    err, _ = f(ok)
+    assert err.get() is None
+    err, out = f(ok + 99)
+    assert torch.isnan(out).all()
+    assert err.get() == "nan generated by kernel gather_rescore"

@@ -172,6 +172,43 @@ def test_lazy_nce_step_runs_with_jax_and_the_reference_blocked(tmp_path):
     assert 0.0 <= metrics["ndcg@100"] <= 1.0
 
 
+def test_packed_feed_runs_with_jax_and_the_reference_blocked(tmp_path):
+    """packed_feed="on" (data/wirepack.py, the loop's unpack)."""
+    from sert_tpu_torch import recipes
+    recipe = recipes.tiny_recipe("lse", objective="sampled_softmax")
+    recipe = dataclasses.replace(recipe, train=dataclasses.replace(
+        recipe.train, packed_feed="on", steps_per_call=2))
+    metrics = _cli_blocked_pipeline(tmp_path, recipe)
+    assert 0.0 <= metrics["ndcg@100"] <= 1.0
+
+
+def test_fuse_and_report_run_with_jax_and_the_reference_blocked(tmp_path):
+    """``fuse`` and ``report`` (eval/fuse.py, eval/report.py, the model
+    ranker on the CPU) through the CLI with jax and the reference
+    unimportable."""
+    from sert_tpu_torch import recipes
+    _cli_blocked_pipeline(tmp_path, recipes.tiny_recipe("loglinear"))
+    r, data, run = (str(tmp_path / n) for n in ("r.json", "data", "run"))
+    lm, fused, md = (str(tmp_path / n) for n in ("lm.trec", "fused.trec",
+                                                 "report.md"))
+    for args in (["query", "--recipe", r, "--data", data, "--topics",
+                  data + "/topics.tsv", "--out", lm, "--ranker", "lm"],
+                 ["fuse", "--runs", str(tmp_path / "run.trec"), lm, "--out",
+                  fused, "--weights", "0.5", "0.5"],
+                 ["report", "--recipe", r, "--data", data, "--run-dir", run,
+                  "--topics", data + "/topics.tsv", "--qrels",
+                  data + "/qrels.trec", "--out", md, "--device", "cpu"],
+                 ["report", "--recipe", r, "--data", data, "--run-dir", run,
+                  "--topics", data + "/topics.tsv", "--qrels",
+                  data + "/qrels.trec", "--json", "--device", "cpu"]):
+        proc = _run(CLI_BLOCKED, REPO, *args)
+        assert proc.returncode == 0, (args[0], proc.stderr[-3000:])
+    assert set(json.loads(proc.stdout)["rankers"]) == {"model", "lm",
+                                                        "interp", "rrf"}
+    assert os.path.getsize(fused) > 0
+    assert "| lm (baseline) |" in open(md).read()
+
+
 def test_serving_path_runs_with_no_jax_module_loaded():
     proc = _run(SERVE_ON_CPU, REPO)
     assert proc.returncode == 0, proc.stderr
