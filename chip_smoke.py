@@ -192,7 +192,34 @@ Phases (each prints one line or more; any failure exits non-zero):
      falls, NDCG@100 printed; on the dense run a gradient fold-in (the NCE
      refit and the moment match on the card: raw, at the trained median
      norm) and `python -m sert_tpu_torch query --ranker lm`, its NDCG@100
-     beside the model's.
+     beside the model's;
+ 20. mesh_kernels: the per-shard kernels at the mesh recipes' shard
+     shapes against their plain versions (not counted as launches): K3/K4
+     on each of synthetic_10m_scoring's 8 row blocks of a seeded 10M
+     matrix (1.25M rows, d=128, Q=64, depth 1000), the blocks' winners
+     (ids offset by each block's) merged by the port's all-gather merge
+     and by its ring merge's hop sequence in one process, each held
+     against the fp32 dense oracle (recall >= 0.99, score error <= 1e-5),
+     the merges equal up to the order of exact ties, and never less exact
+     than the one-card kernel engine on the whole matrix (its bf16
+     prefilter keeps k + pad bins of 10M rows, a block's of 1.25M); K1/K2
+     at amazon_home_kitchen's (8, 1) shard (B=512, k=256, d=256, bf16) and
+     at the flagship's (2, 4) block (B=2048, k=8192, bf16); K5 on each of
+     cerc_expert_finding's four model shards (E=3500/4, d=256, fp32 "de"),
+     their lse stitched (a max and a rescaled sum) against the plain lse
+     over every entity, then K6 on one shard fed that global lse and
+     labels of -1 off the shard against xent_bwd_plain;
+ 21. mesh_nccl: a world of one rank over NCCL, the (1, 1) mesh: the
+     sharded flagship step (parallel.make_sharded_train_step) against the
+     one-card step for 8 micro-steps from the same seed (losses and params
+     compared bit for bit, the difference printed); `python -m
+     sert_tpu_torch query` with engine="distributed" (merge allgather) at
+     synthetic_10m_scoring's score settings on phase 15's 10M run, and
+     in process with both merges, against the kernel engine (ids equal,
+     scores within 1e-5, the run file byte-equal); amazon_home_kitchen as
+     its recipe stands (mesh (8, 1)) on a seeded fixture at its widths,
+     falling back to one card with the reference's warning, K1/K2 every
+     micro-step.
 Then one JSON line of kernel records (with each one's bound: the larger of
 its operations over the H100's peak rate for their type, K1/K2's also
 their exponentials over the special-function units' rate, and its bytes
@@ -599,13 +626,97 @@ SLSE_CASES = [("flagship", B_TRAIN, K_NEG, D, "bfloat16", False, True),
               ("all_masked", 256, 1024, D, "bfloat16", True, False)]
 
 
+def _slse_check(phase: str, seed: int, case, records: dict,
+                keep_times: bool = False) -> None:
+    """One K1/K2 case of SLSE_CASES' form against sampled_lse_plain +
+    autograd on the same seeded inputs: errors join ``records``, times and
+    the case's bounds are printed (and with ``keep_times`` kept as the
+    records' times)."""
+    import torch
+    import torch.nn.functional as F
+    from sert_tpu_torch.ops import sampled_lse as slse
+    label, B, k, d, dtype, masked, twice = case
+    reps, cand, corr, ids, pos, s_pos = _slse_case(B, k, dtype, seed,
+                                                   masked, d)
+    say(phase, case=label, B=B, k=k, d=d, dtype=dtype,
+        plan=_slse_plan_text(B, k, d, dtype))
+    tol = SLSE_TOL[dtype]
+    out = {}
+    for name, fn in (("kernel", slse.sampled_lse),
+                     ("plain", slse.sampled_lse_plain)):
+        r, c, co = (t.clone().requires_grad_(True)
+                    for t in (reps, cand, corr))
+        lse = fn(r, c, co, ids, pos, dtype)
+        loss = F.softplus(lse - s_pos).sum()
+        grads = torch.autograd.grad(loss, [r, c, co], retain_graph=True)
+        out[name] = dict(lse=lse.detach(), dreps=grads[0],
+                         dC=grads[1], dcorr=grads[2])
+        if name == "kernel" and twice:
+            again = torch.autograd.grad(loss, [r, c, co],
+                                        retain_graph=True)
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            say(phase, case=label, dtype=dtype,
+                two_backward_calls_bit_equal=same)
+            if not same:
+                raise AssertionError(f"{label}: two K2 calls differ")
+            del again
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: fn(reps, cand, corr, ids, pos,
+                                        dtype), iters=5, warmup=1)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            loss, [r, c, co], retain_graph=True), iters=5, warmup=1)
+        out[name].update(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+        del lse, loss, grads
+    errs = {}
+    for key in ("lse", "dreps", "dC", "dcorr"):
+        a, b = out["kernel"][key].float(), out["plain"][key].float()
+        if masked and key == "lse":      # both ~-1e30 on the masked row
+            a, b = a[1:], b[1:]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label} {dtype}: {key} not finite")
+        err = (a - b).abs().max().item()
+        limit = tol * b.abs().max().item()
+        errs[key] = err
+        say(phase, case=label, B=B, k=k, d=d, dtype=dtype,
+            output=key, max_abs_err=err, tol=f"{tol}*max|plain|",
+            bound=limit)
+        if err > limit:
+            raise AssertionError(f"{label} {dtype}: {key} error {err} "
+                                 f"> {limit}")
+    if masked:
+        got = out["kernel"]
+        if got["lse"][0].item() > -1e29 or bool(got["dreps"][0].any()):
+            raise AssertionError("the all-masked row's lse is not "
+                                 "~-1e30 or its dreps is not exactly 0")
+    k_, p_ = out["kernel"], out["plain"]
+    # One product of [B, d] by [d, k] a pass: K1 makes one, K2 three (z
+    # again, dC and dreps); inputs read once, outputs written once. Each
+    # sweep also takes one exponential of every logit (K1 one sweep, K2
+    # two), and those run on the SMs' special-function units, a floor of
+    # their own beside the tensor cores' (the larger of the two counts).
+    ins = nbytes(reps, cand, corr, ids, pos)
+    fb = bound(2 * B * k * d, ins + 4 * B, dtype, exps=B * k)
+    bb = bound(6 * B * k * d, ins + 8 * B + nbytes(reps, cand, corr), dtype,
+               exps=2 * B * k)
+    say(phase, case=label, B=B, k=k, d=d, dtype=dtype,
+        fwd_ms=k_["fwd_ms"], fwd_plain_ms=p_["fwd_ms"],
+        fwd_bound_ms=fb["bound_ms"], bwd_ms=k_["bwd_ms"],
+        bwd_plain_ms=p_["bwd_ms"], bwd_bound_ms=bb["bound_ms"])
+    fwd, bwd = records["sampled_lse_fwd"], records["sampled_lse_bwd"]
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["lse"])
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["dreps"],
+                             errs["dC"], errs["dcorr"])
+    if keep_times:
+        fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"], **fb)
+        bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"], **bb)
+    del out
+    torch.cuda.empty_cache()
+
+
 def phase_train_kernels() -> dict:
     """K1 and K2 against sampled_lse_plain + autograd on the same inputs.
     Returns the kernel records of the flagship bf16 case (the training
     path's variant), with errors maxed over every case."""
-    import torch
-    import torch.nn.functional as F
-    from sert_tpu_torch.ops import sampled_lse as slse
     src = "sert_tpu_torch/csrc/sampled_lse.cu"
     records = {
         "sampled_lse_fwd": dict(name="sampled_lse_fwd", route="cuda",
@@ -618,84 +729,8 @@ def phase_train_kernels() -> dict:
                                 replaces="sert_tpu/ops/sampled_lse.py:89",
                                 launches=0, max_abs_err=0.0,
                                 library_ms=None)}
-    for i, (label, B, k, d, dtype, masked, twice) in enumerate(SLSE_CASES):
-        reps, cand, corr, ids, pos, s_pos = _slse_case(B, k, dtype, i,
-                                                       masked, d)
-        say("train_kernels", case=label, B=B, k=k, d=d, dtype=dtype,
-            plan=_slse_plan_text(B, k, d, dtype))
-        tol = SLSE_TOL[dtype]
-        out = {}
-        for name, fn in (("kernel", slse.sampled_lse),
-                         ("plain", slse.sampled_lse_plain)):
-            r, c, co = (t.clone().requires_grad_(True)
-                        for t in (reps, cand, corr))
-            lse = fn(r, c, co, ids, pos, dtype)
-            loss = F.softplus(lse - s_pos).sum()
-            grads = torch.autograd.grad(loss, [r, c, co], retain_graph=True)
-            out[name] = dict(lse=lse.detach(), dreps=grads[0],
-                             dC=grads[1], dcorr=grads[2])
-            if name == "kernel" and twice:
-                again = torch.autograd.grad(loss, [r, c, co],
-                                            retain_graph=True)
-                same = all(torch.equal(a, b) for a, b in zip(grads, again))
-                say("train_kernels", case=label, dtype=dtype,
-                    two_backward_calls_bit_equal=same)
-                if not same:
-                    raise AssertionError(f"{label}: two K2 calls differ")
-                del again
-            with torch.no_grad():
-                fwd_ms = cuda_ms(lambda: fn(reps, cand, corr, ids, pos,
-                                            dtype), iters=5, warmup=1)
-            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-                loss, [r, c, co], retain_graph=True), iters=5, warmup=1)
-            out[name].update(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
-            del lse, loss, grads
-        errs = {}
-        for key in ("lse", "dreps", "dC", "dcorr"):
-            a, b = out["kernel"][key].float(), out["plain"][key].float()
-            if masked and key == "lse":      # both ~-1e30 on the masked row
-                a, b = a[1:], b[1:]
-            if not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"{label} {dtype}: {key} not finite")
-            err = (a - b).abs().max().item()
-            limit = tol * b.abs().max().item()
-            errs[key] = err
-            say("train_kernels", case=label, B=B, k=k, d=d, dtype=dtype,
-                output=key, max_abs_err=err, tol=f"{tol}*max|plain|",
-                bound=limit)
-            if err > limit:
-                raise AssertionError(f"{label} {dtype}: {key} error {err} "
-                                     f"> {limit}")
-        if masked:
-            got = out["kernel"]
-            if got["lse"][0].item() > -1e29 or bool(got["dreps"][0].any()):
-                raise AssertionError("the all-masked row's lse is not "
-                                     "~-1e30 or its dreps is not exactly 0")
-        k_, p_ = out["kernel"], out["plain"]
-        say("train_kernels", case=label, B=B, k=k, d=d, dtype=dtype,
-            fwd_ms=k_["fwd_ms"], fwd_plain_ms=p_["fwd_ms"],
-            bwd_ms=k_["bwd_ms"], bwd_plain_ms=p_["bwd_ms"])
-        fwd, bwd = records["sampled_lse_fwd"], records["sampled_lse_bwd"]
-        fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["lse"])
-        bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["dreps"],
-                                 errs["dC"], errs["dcorr"])
-        if i == 0:
-            # One product of [B, d] by [d, k] a pass: K1 makes one, K2
-            # three (z again, dC and dreps); inputs read once, outputs
-            # written once. Each sweep also takes one exponential of every
-            # logit (K1 one sweep, K2 two), and those run on the SMs'
-            # special-function units, a floor of their own beside the
-            # tensor cores' (the larger of the two counts).
-            ins = nbytes(reps, cand, corr, ids, pos)
-            fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"],
-                       **bound(2 * B * k * d, ins + 4 * B, dtype,
-                               exps=B * k))
-            bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"],
-                       **bound(6 * B * k * d,
-                               ins + 8 * B + nbytes(reps, cand, corr),
-                               dtype, exps=2 * B * k))
-        del out
-        torch.cuda.empty_cache()
+    for i, case in enumerate(SLSE_CASES):
+        _slse_check("train_kernels", i, case, records, keep_times=i == 0)
     return records
 
 
@@ -3208,6 +3243,508 @@ def phase_debug(root: str, data_dir: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------- the mesh phases --------------------------------
+# mesh_kernels: the per-shard kernels at the mesh recipes' shard shapes.
+# synthetic_10m_scoring's (1, 8) blocks (E 10M / 8 rows each, d 128, Q 64,
+# depth 1000, seeded unit rows); amazon_home_kitchen's (8, 1) shard of its
+# batch (B 4096 / 8, k 256, d 256, bf16); the flagship's (2, 4) block
+# (B 4096 / 2, k 32768 / 4, d 128, bf16); one of cerc_expert_finding's four
+# model shards (E 3500 / 4, d 256, fp32 "de", B 1024).
+MESH_E, MESH_SHARDS = 10_000_000, 8
+MESH_SLSE_CASES = [("amazon_home_kitchen_8x1_shard", 512, 256, 256,
+                    "bfloat16", False, False),
+                   ("flagship_2x4_block", 2048, 8192, D, "bfloat16", False,
+                    True)]
+CERC_B, CERC_E, CERC_D, CERC_TP = 1024, 3500, 256, 4
+# mesh_nccl: the sharded flagship step against the one-card step for this
+# many micro-steps; the 10M query's engines; amazon_home_kitchen's fallback
+# on a fixture of this many windows at its widths.
+MESH_STEPS = 8
+# mesh_kernels: the sharded losses at tp > 1 on a gloo world of this many
+# ranks sharing the card.
+CARD_RANKS = 4
+AHK_V, AHK_E, AHK_INSTANCES = 60_000, 20_000, 1 << 17
+
+
+def _merge_winners(parts_s, parts_i, k):
+    """The port's all-gather merge of per-block winners ([S] lists of
+    [Q, k], ids already offset): the top k of their concatenation in block
+    order, ties to the lower position."""
+    import torch
+    from sert_tpu_torch.scoring.scorer import _stable_topk
+    return _stable_topk(torch.cat(parts_s, 1), torch.cat(parts_i, 1), k)
+
+
+def _canonical(s, i):
+    """Each row's (scores, ids) ordered by score, then id: a tie's order
+    made independent of the merge that produced it."""
+    import torch
+    by_id = torch.argsort(i, dim=1, stable=True)
+    s, i = torch.gather(s, 1, by_id), torch.gather(i, 1, by_id)
+    order = torch.argsort(s, dim=1, descending=True, stable=True)
+    return torch.gather(s, 1, order), torch.gather(i, 1, order)
+
+
+def _ring_winners(parts_s, parts_i, k):
+    """The ring merge's hop sequence in one process: rank m's carry starts
+    as its block's winners and, S - 1 times, takes rank m - 1's carry and
+    merges it with its own winners (parallel/topk.py); every rank's final
+    carry."""
+    from sert_tpu_torch.parallel.topk import _merge_topk
+    S = len(parts_s)
+    carry = list(zip(parts_s, parts_i))
+    for _ in range(S - 1):
+        carry = [_merge_topk(*carry[(m - 1) % S], parts_s[m], parts_i[m], k)
+                 for m in range(S)]
+    return carry
+
+
+def phase_mesh_kernels(records: dict) -> None:
+    """K3/K4, K1/K2 and K5/K6 at the mesh recipes' shard shapes against
+    their plain versions (errors join the kernels' records; launches here
+    are comparisons and are not counted)."""
+    import torch
+    from sert_tpu_torch.ops import gather_rescore as k4
+    from sert_tpu_torch.ops import score_binmax as k3
+    from sert_tpu_torch.ops.exact_topk import (PAD_BINS, exact_topk_prepared,
+                                               prepare_entities)
+    from sert_tpu_torch.ops.score_binmax import pad_dim
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    R = torch.randn(Q, D, generator=g, device=dev)
+    R = R / R.norm(dim=1, keepdim=True)
+    M = torch.randn(MESH_E, D, generator=g, device=dev)
+    M = M / M.norm(dim=1, keepdim=True)
+    rows = MESH_E // MESH_SHARDS
+    parts_s, parts_i, oracle_s, oracle_i = [], [], [], []
+    errs = {"score_binmax": 0.0, "gather_rescore": 0.0}
+    t0 = time.perf_counter()
+    for m in range(MESH_SHARDS):
+        Mb = M[m * rows:(m + 1) * rows]
+        prep = prepare_entities(Mb)
+        Rp = pad_dim(R, prep.Mp.shape[1])
+        with torch.no_grad():
+            bins = k3.score_binmax_prepared(Rp, prep.Mp, rows)
+            want = k3.score_binmax_plain(Rp, prep.Mp, rows)
+            torch.testing.assert_close(bins, want, **TOL)
+            errs["score_binmax"] = max(errs["score_binmax"],
+                                       (bins - want).abs().max().item())
+            bin_idx = torch.topk(bins, K + PAD_BINS, dim=1).indices.int()
+            got4 = k4.gather_rescore(Rp, prep.M_binned, bin_idx)
+            want4 = k4.gather_rescore_plain(Rp, prep.M_binned, bin_idx)
+            torch.testing.assert_close(got4, want4, **TOL)
+            errs["gather_rescore"] = max(errs["gather_rescore"],
+                                         (got4 - want4).abs().max().item())
+            if m == 0:
+                ms3 = cuda_ms(lambda: k3.score_binmax_prepared(
+                    Rp, prep.Mp, rows))
+                plain3 = cuda_ms(lambda: k3.score_binmax_plain(
+                    Rp, prep.Mp, rows), iters=3, warmup=1)
+                ms4 = cuda_ms(lambda: k4.gather_rescore(
+                    Rp, prep.M_binned, bin_idx))
+                plain4 = cuda_ms(lambda: k4.gather_rescore_plain(
+                    Rp, prep.M_binned, bin_idx), iters=3, warmup=1)
+                b3 = bound(2 * Q * rows * prep.Mp.shape[1],
+                           nbytes(prep.Mp, Rp, bins), "bfloat16")
+                n_out = Q * bin_idx.shape[1] * BW
+                b4 = bound(2 * n_out * D,
+                           torch.unique(bin_idx).numel() * BW * D * 4
+                           + nbytes(Rp, bin_idx) + 4 * n_out, "float32")
+                say("mesh_kernels", name="score_binmax",
+                    shard=f"{rows}_of_{MESH_E}", ms=ms3, plain_ms=plain3,
+                    **b3)
+                say("mesh_kernels", name="gather_rescore",
+                    shard=f"{rows}_of_{MESH_E}", ms=ms4, plain_ms=plain4,
+                    **b4)
+            s, i = exact_topk_prepared(R, prep, k=K)
+            parts_s.append(s)
+            parts_i.append(i + m * rows)
+            dense = R @ Mb.T                          # the fp32 oracle
+            ds, di = torch.topk(dense, K, dim=1)
+            oracle_s.append(ds)
+            oracle_i.append(di + m * rows)
+        del prep, bins, want, got4, want4, dense
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    gathered = _merge_winners(parts_s, parts_i, K)
+    ring = _ring_winners(parts_s, parts_i, K)
+    prep = prepare_entities(M)
+    one_s, one_i = exact_topk_prepared(R, prep, k=K)      # one card
+    del prep
+    torch.cuda.empty_cache()
+    o_s, o_i = _merge_winners(oracle_s, oracle_i, K)
+
+    def recall(i):
+        hit = torch.zeros_like(o_i, dtype=torch.bool)
+        for q in range(Q):
+            hit[q] = torch.isin(o_i[q], i[q])
+        return hit.float().mean().item()
+
+    # The one card's bf16 prefilter keeps the top k + pad bins of all E
+    # rows, a block's of E / 8, so the blocks keep more bins for the same
+    # k and can only be closer to the oracle (serve_10m reads the one
+    # card's recall at 10M just below 1). Exact fp32 ties occur among 10M
+    # seeded rows, and the merges order a tie by their carry order, so
+    # results compare in a canonical order (score, then id). Held: every
+    # merge's answer the same, the oracle's within RECALL_MIN / SCORE_TOL,
+    # and never less exact than the one card's.
+    one_recall = recall(one_i)
+    ref_s, ref_i = _canonical(*gathered)
+    for name, (s, i) in [("allgather", gathered)] + [
+            (f"ring_rank{m}", c) for m, c in enumerate(ring)]:
+        cs, ci = _canonical(s, i)
+        same_merge = torch.equal(cs, ref_s) and torch.equal(ci, ref_i)
+        rec = recall(i)
+        oracle_err = (s - o_s).abs().max().item()
+        if name in ("allgather", "ring_rank0") or not same_merge:
+            one = _canonical(one_s, one_i)[1]
+            say("mesh_kernels", merge=name,
+                same_as_allgather_up_to_ties=same_merge,
+                in_carry_order=torch.equal(i, gathered[1]),
+                queries_differing_from_one_card=int(
+                    (ci != one).any(dim=1).sum()),
+                recall_vs_fp32_oracle=rec, one_card_recall=one_recall,
+                score_err_oracle=oracle_err,
+                score_err_one_card=(s - one_s).abs().max().item())
+        if (not same_merge or rec < max(RECALL_MIN, one_recall)
+                or oracle_err > SCORE_TOL):
+            raise AssertionError(f"{name}: merged blocks ({same_merge}, "
+                                 f"{rec} against one card's {one_recall}, "
+                                 f"{oracle_err})")
+    say("mesh_kernels", blocks=MESH_SHARDS, entities=MESH_E, queries=Q,
+        depth=K, blocks_s=t1 - t0,
+        kernels_vs_plain=json.dumps(errs).replace(" ", ""))
+    for name, err in errs.items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    del M, R, parts_s, parts_i, oracle_s, oracle_i
+    torch.cuda.empty_cache()
+    for i, case in enumerate(MESH_SLSE_CASES):
+        _slse_check("mesh_kernels", 100 + i, case, records)
+    _xent_shard_check(records)
+    _card_world_check()
+
+
+def _card_world_check() -> None:
+    """The sharded losses at tp > 1 through their kernels: a world of
+    CARD_RANKS gloo ranks on this one card (parallel.dryrun's
+    check_card_world) against the same losses on one card. The ranks'
+    launches are comparisons and are not counted."""
+    from sert_tpu_torch.parallel.dryrun import check_card_world
+    t0 = time.perf_counter()
+    report = check_card_world(CARD_RANKS, timeout=300.0)
+    for case in report["cases"]:
+        say("mesh_kernels", check="gloo_world_on_card", ranks=CARD_RANKS,
+            **{k: (json.dumps(v).replace(" ", "") if isinstance(v, (dict,
+                                                                   list))
+                   else v) for k, v in case.items()})
+    say("mesh_kernels", check="gloo_world_on_card", ranks=CARD_RANKS,
+        ok=report["ok"], seconds=time.perf_counter() - t0)
+    if not report["ok"]:
+        raise AssertionError(f"sharded losses on a gloo world: {report}")
+
+
+def _xent_shard_check(records: dict) -> None:
+    """K5 on each of cerc's four model shards, the global lse stitched from
+    them against the plain lse over every entity, then K6 on one shard fed
+    that global lse and labels of -1 off the shard against its plain
+    version (xent_bwd_plain) on the same inputs."""
+    import torch
+    from sert_tpu_torch.ops import xent
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    pooled = 0.5 * torch.randn(CERC_B, CERC_D, generator=g, device=dev)
+    W = torch.randn(CERC_D, CERC_E, generator=g, device=dev) * (
+        2.0 / CERC_D ** 0.5)
+    b = 0.1 * torch.randn(CERC_E, generator=g, device=dev)
+    labels = torch.randint(0, CERC_E, (CERC_B,), generator=g, device=dev)
+    El = CERC_E // CERC_TP
+    blocks = [(W[:, m * El:(m + 1) * El].contiguous(),
+               b[m * El:(m + 1) * El].contiguous()) for m in range(CERC_TP)]
+    errs = {}
+    lses = []
+    for Wm, bm in blocks:
+        got = xent.xent_lse(pooled, Wm, bm, "de", "float32")
+        want = xent.xent_lse_plain(pooled, Wm, bm, "de", "float32")
+        errs["lse_block"] = max(errs.get("lse_block", 0.0),
+                                (got - want).abs().max().item())
+        lses.append(got)
+    lse_l = torch.stack(lses)
+    top = lse_l.amax(0)
+    lse = top + torch.log(torch.exp(lse_l - top).sum(0))
+    want = xent.xent_lse_plain(pooled, W, b, "de", "float32")
+    errs["lse_global"] = (lse - want).abs().max().item()
+    m = 1
+    Wm, bm = blocks[m]
+    loc = labels - m * El
+    lab = torch.where((loc >= 0) & (loc < El), loc, torch.full_like(loc, -1))
+    got = xent.xent_bwd(pooled, Wm, bm, lse, lab, "de", "float32")
+    plain = xent.xent_bwd_plain(pooled, Wm, bm, lse, lab, "de", "float32")
+    for name, a, w in zip(("dpooled", "dW", "db"), got, plain):
+        errs[name] = (a - w).abs().max().item()
+        if errs[name] > XENT_TOL["float32"] * w.abs().max().item():
+            raise AssertionError(f"K6 on a shard: {name} {errs[name]}")
+    for key in ("lse_block", "lse_global"):
+        if errs[key] > XENT_SUM_RTOL * want.abs().max().item():
+            raise AssertionError(f"K5 on the shards: {key} {errs[key]}")
+    fwd_ms = cuda_ms(lambda: xent.xent_lse(pooled, Wm, bm, "de", "float32"))
+    fwd_plain = cuda_ms(lambda: xent.xent_lse_plain(pooled, Wm, bm, "de",
+                                                    "float32"))
+    bwd_ms = cuda_ms(lambda: xent.xent_bwd(pooled, Wm, bm, lse, lab, "de",
+                                           "float32"))
+    bwd_plain = cuda_ms(lambda: xent.xent_bwd_plain(pooled, Wm, bm, lse, lab,
+                                                    "de", "float32"))
+    off = int((lab < 0).sum())
+    say("mesh_kernels", name="xent_fwd+xent_bwd", shard=f"{El}_of_{CERC_E}",
+        B=CERC_B, d=CERC_D, labels_off_shard=off,
+        errors=json.dumps(errs).replace(" ", ""), fwd_ms=fwd_ms,
+        fwd_plain_ms=fwd_plain, bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain,
+        **{f"fwd_{k}": v for k, v in bound(
+            2 * CERC_B * El * CERC_D, nbytes(pooled, Wm, bm) + 8 * CERC_B,
+            "tf32x3", exps=CERC_B * El).items()},
+        **{f"bwd_{k}": v for k, v in bound(
+            6 * CERC_B * El * CERC_D,
+            2 * nbytes(pooled, Wm, bm) + nbytes(lse, lab), "tf32x3",
+            exps=CERC_B * El).items()})
+    records["xent_fwd"]["max_abs_err"] = max(
+        records["xent_fwd"]["max_abs_err"], errs["lse_block"])
+    records["xent_bwd"]["max_abs_err"] = max(
+        records["xent_bwd"]["max_abs_err"], errs["dpooled"], errs["dW"],
+        errs["db"])
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh_nccl(root: str, data_dir: str, data_10m: str, run_10m: str,
+                    topics_10m: dict) -> dict:
+    """A world of one rank over NCCL, the (1, 1) mesh: the sharded flagship
+    step against the one-card step, ``query`` through the distributed
+    engine at synthetic_10m_scoring's widths (both merges) against the
+    kernel engine, and amazon_home_kitchen's (8, 1) mesh falling back to
+    one card. Returns the launches by kernel of these paths."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        launches = _mesh_flagship_step(data_dir)
+        for name, n in _mesh_query_10m(root, data_10m, run_10m,
+                                       topics_10m).items():
+            launches[name] = launches.get(name, 0) + n
+        for name, n in _mesh_fallback(root).items():
+            launches[name] = launches.get(name, 0) + n
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _mesh_flagship_step(data_dir: str) -> dict:
+    import dataclasses
+    import torch
+    from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.models import lse
+    from sert_tpu_torch.ops import sampled_lse as slse
+    from sert_tpu_torch.parallel.mesh import make_mesh
+    from sert_tpu_torch.parallel.train import make_sharded_train_step
+    from sert_tpu_torch.pipeline import resolve_model_config
+    from sert_tpu_torch.data.instances import InstanceDataset
+    from sert_tpu_torch.train.step import init_state, make_train_step
+    import numpy as np
+    recipe = resolve_model_config(load_recipe(RECIPE),
+                                  InstanceDataset(data_dir).meta)
+    batches, horizon = _epoch0_batches(recipe, data_dir, MESH_STEPS)
+    mcfg = recipe.model
+    tcfg = dataclasses.replace(recipe.train, steps_per_call=1,
+                               lr_decay_steps=horizon)
+    counts = np.random.default_rng(SEED).integers(1, 50, size=E)
+    noise = lse.noise_logits(counts, mcfg, "cuda")
+    mesh = make_mesh((1, 1))
+    out = {}
+    for name in ("one_card", "mesh"):
+        if name == "one_card":
+            state = init_state(tcfg.seed, mcfg, tcfg, "cuda")
+            step = make_train_step(mcfg, tcfg, noise=noise, device="cuda")
+        else:
+            step, init_fn, _ = make_sharded_train_step(mcfg, tcfg, mesh,
+                                                       noise=noise)
+            state = init_fn()
+        slse.fwd_launches = slse.bwd_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [step(state, b)[1]["loss"].item() for b in batches]
+        torch.cuda.synchronize()
+        out[name] = dict(losses=losses, params=state.params,
+                         s=time.perf_counter() - t0,
+                         launches={"sampled_lse_fwd": slse.fwd_launches,
+                                   "sampled_lse_bwd": slse.bwd_launches})
+        del state, step
+    a, b = out["one_card"], out["mesh"]
+    diffs = {k: (a["params"][k].float() - b["params"][k].float()).abs()
+             .max().item() for k in a["params"]}
+    loss_diff = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    say("mesh_nccl", check="flagship_step", mesh="1x1", backend="nccl",
+        micro_steps=MESH_STEPS, losses_bit_equal=a["losses"] == b["losses"],
+        params_bit_equal=all(v == 0 for v in diffs.values()),
+        max_loss_diff=loss_diff,
+        max_param_diff=json.dumps(diffs).replace(" ", ""),
+        one_card_s=a["s"], mesh_s=b["s"],
+        launches=json.dumps(b["launches"]).replace(" ", ""))
+    # At (1, 1) every collective is the identity and the step runs the
+    # one-card step's kernels on the same operands in the same order: the
+    # two runs are held bit-equal (PERF.md section 2).
+    if (a["losses"] != b["losses"] or any(v != 0 for v in diffs.values())
+            or b["launches"] != {"sampled_lse_fwd": MESH_STEPS,
+                                 "sampled_lse_bwd": MESH_STEPS}):
+        raise AssertionError(f"sharded flagship step: {loss_diff}, {diffs},"
+                             f" {b['launches']}")
+    del out
+    torch.cuda.empty_cache()
+    return b["launches"]
+
+
+def _mesh_query_10m(root: str, data_dir: str, run_dir: str,
+                    topics: dict) -> dict:
+    """``query`` with engine="distributed" (allgather through the CLI, and
+    the ring in process) at synthetic_10m_scoring's widths on the 10M run,
+    against the kernel engine on the same params: ids equal, scores within
+    SCORE_TOL. Returns the distributed runs' launches."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch import cli, pipeline, recipes
+    from sert_tpu_torch.data.instances import InstanceDataset
+    from sert_tpu_torch.data.prepare import encode_queries
+    from sert_tpu_torch.eval.trec import write_run, write_topics
+    from sert_tpu_torch.scoring.run import score_topics
+    from sert_tpu_torch.utils.config import save_config
+    base = recipes.synthetic_10m_scoring()
+    topics_path = os.path.join(root, "topics_10m.tsv")
+    write_topics(topics, topics_path)
+    runs, launches = {}, {}
+    _zero_kernel_counts()
+    for merge in ("allgather", "ring"):
+        r = dataclasses.replace(base, score=dataclasses.replace(
+            base.score, engine="distributed", merge=merge))
+        path = os.path.join(root, f"recipe_10m_{merge}.json")
+        save_config(r, path)
+        if merge == "allgather":      # the command a user runs
+            out = os.path.join(root, "dist_10m.trec")
+            t0 = time.perf_counter()
+            if cli.main(["query", "--recipe", path, "--data", data_dir,
+                         "--run-dir", run_dir, "--topics", topics_path,
+                         "--out", out]) != 0:
+                raise AssertionError("query --engine distributed failed")
+            say("mesh_nccl", check="query_cli", merge=merge,
+                seconds=time.perf_counter() - t0)
+    resolved = pipeline.resolve_model_config(
+        r, InstanceDataset(data_dir).meta)
+    params, vocab, registry = pipeline.load_scorer(run_dir, data_dir,
+                                                   resolved, device="cuda")
+    encoded = encode_queries(topics, vocab, resolved.data)
+    for name, sc in (("allgather", dataclasses.replace(resolved.score,
+                                                       merge="allgather")),
+                     ("ring", resolved.score)):
+        t0 = time.perf_counter()
+        runs[name] = score_topics(params, resolved.model, encoded,
+                                  registry.names, sc)
+        say("mesh_nccl", check="query", engine="distributed", merge=name,
+            seconds=time.perf_counter() - t0)
+    launches = _kernel_counts()
+    t0 = time.perf_counter()
+    want = score_topics(params, resolved.model, encoded, registry.names,
+                        dataclasses.replace(resolved.score, engine="pallas"))
+    pallas_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    worst = 0.0
+    for name, got in runs.items():
+        for q, hits in want.items():
+            ids = [n for n, _ in got[q]]
+            if ids != [n for n, _ in hits]:
+                raise AssertionError(f"{name}: topic {q} ids differ from "
+                                     "the kernel engine's")
+            err = max(abs(a[1] - b[1]) for a, b in zip(got[q], hits))
+            worst = max(worst, err)
+            if err > SCORE_TOL:
+                raise AssertionError(f"{name}: topic {q} score error {err}")
+    # The command's run file against the kernel engine's answers written
+    # the same way (write_run orders a tie by name).
+    pallas_out = os.path.join(root, "pallas_10m.trec")
+    write_run(want, pallas_out)
+    with open(out, "rb") as a, open(pallas_out, "rb") as b:
+        cli_equal = a.read() == b.read()
+    if not cli_equal:
+        raise AssertionError("query --engine distributed's run file differs "
+                             "from the kernel engine's")
+    say("mesh_nccl", check="query_10m", entities=E_10M, depth=1000,
+        topics=len(want), ids_equal_pallas=True, max_score_err=worst,
+        cli_run_file_byte_equal=cli_equal,
+        pallas_s=pallas_s,
+        launches=json.dumps(launches).replace(" ", ""))
+    if not launches.get("score_binmax") or not launches.get(
+            "gather_rescore"):
+        raise AssertionError(f"the distributed engine ran no K3/K4 "
+                             f"({launches})")
+    return launches
+
+
+def _mesh_fallback(root: str) -> dict:
+    """amazon_home_kitchen as its recipe stands (mesh (8, 1)) on a world of
+    one rank: the reference's warning, then one card through K1/K2 on a
+    seeded fixture at its widths."""
+    import dataclasses
+    import logging
+    import torch
+    from sert_tpu_torch import pipeline, recipes
+    from sert_tpu_torch.fixture import write_training_fixture
+    from sert_tpu_torch.ops import sampled_lse as slse
+    r = recipes.amazon_home_kitchen()
+    r = dataclasses.replace(r, train=dataclasses.replace(
+        r.train, num_epochs=1, log_every_steps=16))
+    work = os.path.join(root, "ahk")
+    data_dir, _, _ = write_training_fixture(work, r, AHK_V, AHK_E,
+                                            AHK_INSTANCES, seed=SEED)
+    seen = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    log = logging.getLogger("sert_tpu.train")
+    handler = Catch(level=logging.WARNING)
+    log.addHandler(handler)
+    slse.fwd_launches = slse.bwd_launches = 0
+    t0 = time.perf_counter()
+    try:
+        state, _ = pipeline.train_from_dir(r, data_dir,
+                                           os.path.join(work, "run"),
+                                           resume=False, device="cuda")
+    finally:
+        log.removeHandler(handler)
+    torch.cuda.synchronize()
+    launches = {"sampled_lse_fwd": slse.fwd_launches,
+                "sampled_lse_bwd": slse.bwd_launches}
+    warned = [m for m in seen if "running single-device" in m]
+    _, losses, _ = _train_log(os.path.join(work, "run"))
+    say("mesh_nccl", check="amazon_home_kitchen_fallback",
+        mesh=tuple(r.train.mesh_shape), warning=json.dumps(warned[:1]),
+        steps=state.step, seconds=time.perf_counter() - t0,
+        losses=_spread(losses), launches=json.dumps(launches).replace(
+            " ", ""))
+    want = AHK_INSTANCES // r.train.batch_size
+    if not warned or state.step != want or launches != {
+            "sampled_lse_fwd": want, "sampled_lse_bwd": want} or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"fallback: {warned}, {state.step}, {launches}")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import sert_tpu_torch  # noqa: F401  (fails outside a checkout)
     import torch
@@ -3251,6 +3788,9 @@ def main() -> int:
         phase_debug(root, data_dir)
         paths.append(phase_nce_tiny(root))
         paths.append(phase_fused_ab())
+        phase_mesh_kernels(records)
+        paths.append(phase_mesh_nccl(root, data_dir, data_10m, run_10m,
+                                     topics_10m))
         for path in paths:
             for name, n in path.items():
                 launches[name] = launches.get(name, 0) + n

@@ -377,6 +377,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         _prepare(recipe, args)
         return 0
 
+    if args.cmd in ("train", "query", "serve"):
+        _join_world(args)
+
     if args.cmd == "train":
         recipe = load_recipe(args.recipe)
         from sert_tpu_torch import pipeline
@@ -445,9 +448,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         encoded = encode_queries(topics, vocab, resolved.data)
         run = score_topics(params, resolved.model, encoded, registry.names,
                            resolved.score)
-        write_run(run, args.out)
-        print(f"wrote {sum(len(v) for v in run.values())} entries "
-              f"for {len(run)} topics to {args.out}")
+        from sert_tpu_torch.parallel.mesh import world_rank
+        if world_rank() == 0:     # every rank ranked; rank 0 writes
+            write_run(run, args.out)
+            print(f"wrote {sum(len(v) for v in run.values())} entries "
+                  f"for {len(run)} topics to {args.out}")
         return 0
 
     if args.cmd == "report":
@@ -540,32 +545,54 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.cmd == "serve":
         recipe = load_recipe(args.recipe)
-        from sert_tpu_torch.serving import (EntitySearcher, make_http_server,
-                                            serve_stdin)
+        from sert_tpu_torch.serving import EntitySearcher
         searcher = EntitySearcher(recipe, args.data, args.run_dir,
                                   step=args.step, k=args.k,
                                   query_batch=args.batch, device=args.device)
-        if args.http is not None:
-            server = make_http_server(searcher, host=args.host,
-                                      port=args.http)
-            host, port = server.server_address[:2]
-            print(f"ready: http://{host}:{port} — GET /healthz, "
-                  f"GET /search?q=...&k=N, POST /search "
-                  f'{{"query": "...", "k": N}}, POST /entities',
-                  file=sys.stderr, flush=True)
-            try:
-                server.serve_forever()
-            except KeyboardInterrupt:
-                pass
-            finally:
-                server.server_close()
+        from sert_tpu_torch.parallel.mesh import world_rank
+        if world_rank() != 0:     # a lockstep rank: rank 0 takes requests
+            searcher.follow()
             return 0
-        print("ready: one query per line ('qid<TAB>text' or bare text); "
-              "EOF/empty line exits", file=sys.stderr, flush=True)
-        serve_stdin(searcher, sys.stdin, sys.stdout)
+        try:
+            _serve(searcher, args)
+        finally:
+            searcher.close()
         return 0
 
     return 1
+
+
+def _join_world(args) -> None:
+    """Under a launcher of several ranks (torchrun's WORLD_SIZE), join the
+    process group before any work: NCCL on the card, gloo with --device
+    cpu."""
+    from sert_tpu_torch.parallel.multihost import (initialize_multihost,
+                                                   launched_world)
+    if launched_world() > 1:
+        initialize_multihost(device=args.device)
+
+
+def _serve(searcher, args) -> None:
+    """Rank 0's side of ``serve``: HTTP, or one query a line on stdin."""
+    from sert_tpu_torch.serving import make_http_server, serve_stdin
+    if args.http is not None:
+        server = make_http_server(searcher, host=args.host,
+                                  port=args.http)
+        host, port = server.server_address[:2]
+        print(f"ready: http://{host}:{port} — GET /healthz, "
+              f"GET /search?q=...&k=N, POST /search "
+              f'{{"query": "...", "k": N}}, POST /entities',
+              file=sys.stderr, flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
+        return
+    print("ready: one query per line ('qid<TAB>text' or bare text); "
+          "EOF/empty line exits", file=sys.stderr, flush=True)
+    serve_stdin(searcher, sys.stdin, sys.stdout)
 
 
 def console_main(argv: Optional[List[str]] = None) -> int:

@@ -31,6 +31,8 @@ slices), so dW never reaches device memory; its plain version is
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
@@ -254,6 +256,34 @@ def _loss_forward(pooled, W, b, labels, layout, ct):
             (B, E, d, dp, strides))
 
 
+def _bwd(saved, geometry, g, ct):
+    """Launch K6 on :func:`_loss_forward`'s operands and geometry (or the
+    sharded loss's: lse [B] may come from outside, a label -1 is a row
+    whose gold entity another shard holds): (dpooled [B, d], dW in W's
+    layout, db [E]), fp32, each times the fp32 scalar ``g`` [1]."""
+    global bwd_launches
+    P, W, bf, lab, lse = saved
+    B, E, d, dp, strides = geometry
+    dev = P.device
+    (per, n_chunks), (bper, n_slices), part, scratch = _backward_sweeps(
+        B, E, dp, dev)
+    dW = torch.empty(W.shape, dtype=torch.float32, device=dev)
+    db = torch.empty((E,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.kernel("sert_xent_bwd")(
+            P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
+            lab.data_ptr(), g.data_ptr(), dW.data_ptr(), db.data_ptr(),
+            part.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, E, d, dp,
+            strides[0], strides[1], per, n_chunks, bper, n_slices,
+            int(ct == torch.bfloat16), int(W.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "xent backward (K6)")
+    bwd_launches += 1
+    debug.kernel_outputs("xent_bwd", dW, db)
+    return part.sum(dim=0)[:B, :d] * g, dW, db
+
+
 class _XentLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pooled, W, b, labels, layout, dtype):
@@ -261,34 +291,17 @@ class _XentLoss(torch.autograd.Function):
         loss, saved, geometry = _loss_forward(pooled, W, b, labels, layout,
                                               ct)
         ctx.save_for_backward(*saved)
-        ctx.meta = (ct, *geometry, pooled.dtype, b.dtype)
+        ctx.meta = (ct, geometry, pooled.dtype, b.dtype)
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        global bwd_launches
-        P, W, bf, lab, lse = ctx.saved_tensors
-        ct, B, E, d, dp, strides, pooled_dtype, b_dtype = ctx.meta
-        dev = P.device
-        g = g.float().reshape(1).contiguous()
-        (per, n_chunks), (bper, n_slices), part, scratch = _backward_sweeps(
-            B, E, dp, dev)
-        dW = torch.empty(W.shape, dtype=torch.float32, device=dev)
-        db = torch.empty((E,), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            err = _build.kernel("sert_xent_bwd")(
-                P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
-                lab.data_ptr(), g.data_ptr(), dW.data_ptr(), db.data_ptr(),
-                part.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), B, E, d, dp,
-                strides[0], strides[1], per, n_chunks, bper, n_slices,
-                int(ct == torch.bfloat16), int(W.dtype == torch.bfloat16),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "xent backward (K6)")
-        bwd_launches += 1
-        debug.kernel_outputs("xent_bwd", dW, db)
-        dpooled = (part.sum(dim=0)[:B, :d] * g).to(pooled_dtype)
-        return (dpooled, dW.to(W.dtype), db.to(b_dtype), None, None, None)
+        ct, geometry, pooled_dtype, b_dtype = ctx.meta
+        W = ctx.saved_tensors[1]
+        dpooled, dW, db = _bwd(ctx.saved_tensors, geometry,
+                               g.float().reshape(1).contiguous(), ct)
+        return (dpooled.to(pooled_dtype), dW.to(W.dtype), db.to(b_dtype),
+                None, None, None)
 
 
 def xent_loss(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
@@ -321,6 +334,158 @@ def xent_lse(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     B, E, d, dp, strides = _check(pooled, W, b, None, layout, ct)
     return _fwd(_operand(pooled, ct, dp), W, b.float().contiguous(), B, E, d,
                 dp, strides, ct)
+
+
+# ------- the backward fed an outside lse, and the entity-sharded loss -------
+#
+# Port of sert_tpu/ops/xent.py _shard_fwd_stitch :689 and
+# make_sharded_xent_loss :721 (its shard_map body is the rank's own block
+# here: sharded_xent_loss). Each model rank holds a block of W's entity
+# axis (and of b). Forward: K5 gives the block's lse; the global lse is the
+# max over the blocks plus the log of the rescaled sum; the gold logit
+# comes from the rank whose block holds the label, summed over the blocks.
+# The collectives come from the caller (a Stitch), so this layer knows no
+# mesh.
+# Backward: K6 fed the GLOBAL lse and the block's labels, -1 where the gold
+# entity lies on another block (its onehot never fires here; the owning
+# rank supplies the -1 of softmax-minus-onehot). The rank's loss is its
+# partial, the global loss / tp (the mesh's convention, parallel/mesh.py),
+# so the returned gradients are plain local ones: W's and b's block, and
+# this block's share of dpooled, which the step sums over ``model``.
+
+
+@torch.no_grad()
+def xent_bwd_plain(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+                   lse: torch.Tensor, labels: torch.Tensor,
+                   layout: str = "de", dtype: str = "float32"):
+    """(dpooled [B, d], dW in W's layout, db [E]), fp32: the gradients of
+    sum_b [lse_b - z_{b, y_b}] taken with ``lse`` [B] as given (p =
+    exp(z - lse) - onehot, no onehot where a label is -1), in plain
+    PyTorch; materializes [B, E]. Rounds where autograd of
+    :func:`xent_loss_plain` does: p to the compute dtype before both
+    products, db from the unrounded p."""
+    _check_layout(layout)
+    ct = _compute_dtype(dtype)
+    P, Wf = _operand_fp32(pooled, ct), _operand_fp32(W, ct)
+    z = (P @ Wf if layout == "de" else P @ Wf.T) + b.float()
+    p = torch.exp(z - lse.float()[:, None])
+    lab = labels.long()
+    rows = torch.nonzero(lab >= 0)[:, 0]
+    p[rows, lab[rows]] -= 1.0
+    db = p.sum(dim=0)
+    if ct != torch.float32:
+        p = p.to(ct).float()
+    if layout == "de":
+        return p @ Wf.T, P.T @ p, db
+    return p @ Wf, p.T @ P, db
+
+
+def xent_bwd(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+             lse: torch.Tensor, labels: torch.Tensor, layout: str = "de",
+             dtype: str = "float32"):
+    """:func:`xent_bwd_plain`'s gradients through K6 on CUDA tensors (the
+    kernel fed ``lse`` from outside and labels of -1 off the shard), the
+    plain version on CPU tensors."""
+    if pooled.device.type == "cpu":
+        return xent_bwd_plain(pooled, W, b, lse, labels, layout, dtype)
+    _cuda_only(pooled)
+    ct = _compute_dtype(dtype)
+    geometry = _check(pooled, W, b, labels, layout, ct)
+    saved = (_operand(pooled.detach(), ct, geometry[3]), W.detach(),
+             b.detach().float().contiguous(),
+             labels.to(torch.int32).contiguous(),
+             lse.detach().float().contiguous())
+    one = torch.ones((1,), dtype=torch.float32, device=pooled.device)
+    return _bwd(saved, geometry, one, ct)
+
+
+class Stitch(NamedTuple):
+    """How this rank's entity block joins the others: ``offset``, the
+    global id of the block's first entity; ``parts``, the number of
+    blocks; ``reduce_max`` / ``reduce_sum``, the elementwise max and sum
+    of a tensor over the ranks holding the blocks (``parallel.fused_loss``
+    gives them over the mesh's ``model`` axis). The sum must be
+    differentiable under the mesh's convention (``parallel/mesh.py``)."""
+    offset: int
+    parts: int
+    reduce_max: Callable[[torch.Tensor], torch.Tensor]
+    reduce_sum: Callable[[torch.Tensor], torch.Tensor]
+
+
+ONE_BLOCK = Stitch(0, 1, lambda x: x, lambda x: x)
+
+
+class _ShardedXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pooled, W, b, labels, stitch, layout, dtype, fused):
+        ct = _compute_dtype(dtype)
+        El = W.shape[1] if layout == "de" else W.shape[0]
+        lab = labels.long() - stitch.offset
+        own = (lab >= 0) & (lab < El)
+        idx = lab.clamp(0, El - 1)
+        lab_k = torch.where(own, idx, torch.full_like(idx, -1))
+        if fused:
+            geometry = _check(pooled, W, b, labels, layout, ct)
+            B, E, d, dp, strides = geometry
+            P = _operand(pooled.detach(), ct, dp)
+            bf = b.detach().float().contiguous()
+            lse_l = _fwd(P, W.detach(), bf, B, E, d, dp, strides, ct)
+        else:
+            _check_layout(layout)
+            bf = b.detach().float()
+            lse_l = xent_lse_plain(pooled.detach(), W.detach(), b.detach(),
+                                   layout, dtype)
+        # The global lse: max over the blocks, then the rescaled sum.
+        M = stitch.reduce_max(lse_l)
+        lse = M + torch.log(stitch.reduce_sum(torch.exp(lse_l - M)))
+        # The gold logit, from the rank holding the label's column: an fp32
+        # sum of compute-dtype-rounded products (the reference's :711-717).
+        Wd = W.detach()
+        w_gold = Wd[:, idx].T if layout == "de" else Wd[idx]
+        z_gold = (torch.sum(pooled.detach().to(ct).float()
+                            * w_gold.to(ct).float(), dim=1) + bf[idx])
+        z_gold = stitch.reduce_sum(torch.where(own, z_gold, 0.0))
+        if fused:
+            ctx.save_for_backward(P, Wd, bf, lab_k.to(torch.int32)
+                                  .contiguous(), lse.contiguous())
+            ctx.geometry = geometry
+        else:
+            ctx.save_for_backward(pooled.detach(), Wd, b.detach(), lab_k,
+                                  lse)
+        ctx.meta = (ct, layout, dtype, fused, pooled.dtype, b.dtype)
+        return torch.sum(lse - z_gold) / stitch.parts
+
+    @staticmethod
+    def backward(ctx, g):
+        ct, layout, dtype, fused, pooled_dtype, b_dtype = ctx.meta
+        W = ctx.saved_tensors[1]
+        g = g.float().reshape(1).contiguous()
+        if fused:
+            dpooled, dW, db = _bwd(ctx.saved_tensors, ctx.geometry, g, ct)
+        else:
+            pooled, _, b, lab_k, lse = ctx.saved_tensors
+            dpooled, dW, db = (t * g for t in xent_bwd_plain(
+                pooled, W, b, lse, lab_k, layout, dtype))
+        return (dpooled.to(pooled_dtype), dW.to(W.dtype), db.to(b_dtype),
+                None, None, None, None, None)
+
+
+def sharded_xent_loss(pooled: torch.Tensor, W: torch.Tensor,
+                      b: torch.Tensor, labels: torch.Tensor,
+                      stitch: Stitch = ONE_BLOCK, layout: str = "de",
+                      dtype: str = "float32",
+                      fused: bool = True) -> torch.Tensor:
+    """This rank's partial of the softmax cross-entropy SUM over an entity
+    axis split into ``stitch.parts`` blocks: the rows ``pooled`` [B, d]
+    and their global ``labels``, against this rank's block of W
+    (W [d, E/parts] "de" or [E/parts, d] "ed") and of b [E/parts]. The
+    partials of the blocks sum to the loss; each is (sum over the rows of
+    the global row loss) / parts. ``fused``: K5 and K6 (CUDA tensors
+    only), else their plain versions on the block."""
+    if fused:
+        _cuda_only(pooled)
+    return _ShardedXent.apply(pooled, W, b, labels, stitch, layout, dtype,
+                              fused)
 
 
 # ------------- the backward fused with the optimizer update (K7) ------------

@@ -110,7 +110,9 @@ def train_from_dir(recipe: RecipeConfig, data_dir: str, out_dir: str,
     counts = np.asarray(
         assoc.entity_instance_counts(recipe.model.num_entities), np.float64)
     os.makedirs(out_dir, exist_ok=True)
-    save_config(recipe, os.path.join(out_dir, "recipe.json"))
+    from sert_tpu_torch.parallel.mesh import world_rank
+    if world_rank() == 0:    # one writer on a mesh of several ranks
+        save_config(recipe, os.path.join(out_dir, "recipe.json"))
     if init_word_emb:
         vocab = Vocabulary.load(os.path.join(data_dir, VOCAB_NAME))
         loop_kwargs = {**loop_kwargs,
@@ -237,6 +239,8 @@ def default_device() -> torch.device:
             "no CUDA device: sert_tpu_torch runs on the card by default; "
             "pass device=\"cpu\" (--device cpu on the command line) to run "
             "on the CPU")
+    if "LOCAL_RANK" in os.environ:     # a launcher's rank: its own card
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda")
 
 

@@ -7,7 +7,8 @@ vocabulary yield empty result lists.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Dict, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -25,19 +26,17 @@ def resolve_engine(sc: ScoreConfig, num_entities: int,
                    device: torch.device, dim: int) -> str:
     """The scoring engine for params on ``device`` whose entity matrix is
     ``dim`` wide. "pallas" is the K3 + K4 kernel engine (the recipes' name
-    for it). "auto": that engine on a CUDA device where K3 takes the padded
-    width (``ops.score_binmax.kernel_limits``); otherwise, on either
-    device, dense scoring up to ``entity_chunk`` entities and the exact
-    streaming scan above (the reference's rule off the TPU).
-    ``use_pallas`` is the legacy alias."""
+    for it); "distributed" the entity-sharded engine over the score mesh
+    (``parallel/topk.py``). "auto": the kernel engine on a CUDA device
+    where K3 takes the padded width (``ops.score_binmax.kernel_limits``);
+    otherwise, on either device, dense scoring up to ``entity_chunk``
+    entities and the exact streaming scan above (the reference's rule off
+    the TPU). ``use_pallas`` is the legacy alias."""
     if sc.use_pallas:
         return "pallas"
-    if sc.engine == "distributed":
-        raise NotImplementedError(
-            f"scoring engine {sc.engine!r} is not ported yet (ROADMAP "
-            "Queue 1 item 12: multi-GPU)")
     if sc.engine != "auto":
-        if sc.engine not in ("dense", "streaming", "pallas", "approx"):
+        if sc.engine not in ("dense", "streaming", "pallas", "approx",
+                             "distributed"):
             raise ValueError(f"unknown scoring engine {sc.engine!r}")
         return sc.engine
     if device.type == "cuda" and binmax_limits(dim) is None:
@@ -52,6 +51,41 @@ def stage_entities(params, cfg: ModelConfig, sc: ScoreConfig):
     M = _entity_matrix(params, cfg, sc.similarity)
     rdt = resolve_rescore_dtype(sc.rescore_dtype, *M.shape)
     return prepare_entities(M, rescore_dtype=rdt, layout=sc.layout)
+
+
+class DistStaged(NamedTuple):
+    """The distributed engine's one-time staging: the score mesh, this
+    rank's params (its entity block; the rest replicated), the per-shard
+    K3/K4 staging where the local engine is "pallas", and the resolved
+    local engine. Pass it as ``score_topics(..., prep=...)``."""
+    mesh: Any
+    params: Any
+    prep: Any
+    local_engine: str
+
+
+def stage_distributed(params, cfg: ModelConfig, sc: ScoreConfig
+                      ) -> DistStaged:
+    """The score mesh (``sc.mesh_shape``, (1, -1): every rank on
+    ``model``) over the world of ranks, with this rank's block of the
+    params on the params' device and, for "pallas", its block staged once
+    for K3/K4. At one rank the block is the params themselves (no copy)."""
+    from sert_tpu_torch.parallel.mesh import make_mesh
+    from sert_tpu_torch.parallel.topk import (local_params,
+                                              prepare_distributed,
+                                              resolve_local_engine)
+    device = params["word_emb"].device
+    mesh = make_mesh(tuple(sc.mesh_shape), device=device)
+    params = local_params(params, cfg, mesh)
+    M = entity_matrix(params, cfg)
+    local_engine = resolve_local_engine(sc.local_engine, device, M.shape[1])
+    prep = None
+    if local_engine == "pallas":
+        prep = prepare_distributed(
+            params, cfg, mesh, similarity=sc.similarity,
+            rescore_dtype=resolve_rescore_dtype(sc.rescore_dtype,
+                                                *M.shape))
+    return DistStaged(mesh, params, prep, local_engine)
 
 
 # The engine's query-term budget; longer queries truncate.
@@ -85,9 +119,11 @@ def score_topics(
     """Score every topic against every entity; returns a TREC run dict
     {qid: [(entity_name, score), ...]} with the top k per topic.
 
-    Runs on the params' device. ``prep``: the kernel engine's one-time
-    staging (ops.exact_topk.prepare_entities), for repeated calls; without
-    it each call stages the entity matrix again."""
+    Runs on the params' device. ``prep``: the engine's one-time staging,
+    for repeated calls: ops.exact_topk.prepare_entities for the kernel
+    engine, :func:`stage_distributed`'s result for the distributed one
+    (whose every rank calls this with the same topics); without it each
+    call stages the entity matrix again."""
     sc = score_cfg or ScoreConfig()
     qids, term_ids, num_terms = pad_queries(encoded_topics, max_terms)
     E = len(entity_names)
@@ -98,6 +134,9 @@ def score_topics(
                             entity_matrix(params, cfg).shape[1])
     if engine == "pallas" and prep is None:
         prep = stage_entities(params, cfg, sc)
+    elif engine == "distributed":
+        staged = (prep if isinstance(prep, DistStaged)
+                  else stage_distributed(params, cfg, sc))
     if engine == "approx" and not 0.0 < sc.recall_target <= 1.0:
         raise ValueError(f"recall_target must be in (0, 1], got "
                          f"{sc.recall_target}")
@@ -115,6 +154,14 @@ def score_topics(
                                similarity=sc.similarity, prep=prep,
                                normalize=sc.normalize_scores,
                                adaptive_bins=sc.adaptive_bins)
+        if engine == "distributed":
+            from sert_tpu_torch.parallel.topk import distributed_topk
+            return distributed_topk(staged.params, cfg, t, m, staged.mesh,
+                                    k=k, chunk=min(sc.entity_chunk, E),
+                                    similarity=sc.similarity,
+                                    merge=sc.merge,
+                                    local_engine=staged.local_engine,
+                                    prep=staged.prep)
         if engine == "streaming":
             return streaming_topk(params, cfg, t, m, k=k,
                                   chunk=sc.entity_chunk,

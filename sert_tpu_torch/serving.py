@@ -3,9 +3,10 @@ of ``sert_tpu/serving.py``: ``EntitySearcher`` :65-609, ``serve_stdin``
 :612 and the HTTP server :635-764).
 
   * :class:`EntitySearcher` loads a trained run onto a device, resolves
-    the engine (any single-device engine the recipe's ScoreConfig names:
-    the kernels, streaming, approx or dense), stages the entity matrix
-    once for the kernel engine (in the recipe's layout), fires one
+    the engine the recipe's ScoreConfig names (the kernels, streaming,
+    approx, dense, or the entity-sharded distributed engine), stages the
+    entity matrix once for the kernel engines (in the recipe's layout; for
+    the distributed engine this rank's block, keeping only it), fires one
     warm-up dispatch (which also builds the kernels), and answers
     free-text queries with a thread-safe ``search`` / ``search_many``; for
     LSE models ``add_entities`` folds NEW entities into the live index
@@ -16,10 +17,15 @@ of ``sert_tpu/serving.py``: ``EntitySearcher`` :65-609, ``serve_stdin``
     /entities), used by ``serve --http PORT``.
 
 Device dispatches serialize on one lock, so per-query latency stays
-predictable. Concurrent requests micro-batch: the first free thread
-becomes the leader, drains every request that arrived while the previous
-dispatch ran, and answers them all with one engine call; a lone request
-dispatches at once.
+predictable. With the distributed engine on a world of several ranks,
+every rank runs every engine call: rank 0 takes the requests and
+broadcasts each call's encoded queries (and the gradient fold-in's sample
+of entity rows) to the others, which follow in lockstep in
+:meth:`EntitySearcher.follow` until :meth:`EntitySearcher.close`; the
+answers and the fold-in extras live on rank 0. Concurrent requests
+micro-batch: the first free thread becomes the leader, drains every
+request that arrived while the previous dispatch ran, and answers them all
+with one engine call; a lone request dispatches at once.
 """
 
 from __future__ import annotations
@@ -40,8 +46,11 @@ from sert_tpu_torch.data.prepare import encode_queries
 from sert_tpu_torch.models import lse as lse_model
 from sert_tpu_torch.models.api import entity_matrix
 from sert_tpu_torch.models.lm import load_lm
+from sert_tpu_torch.parallel.mesh import (broadcast_object, world_rank,
+                                          world_size)
 from sert_tpu_torch.scoring.run import (MAX_QUERY_TERMS, resolve_engine,
-                                        score_topics, stage_entities)
+                                        score_topics, stage_distributed,
+                                        stage_entities)
 from sert_tpu_torch.utils.config import RecipeConfig
 from sert_tpu_torch.utils.logging import get_logger
 
@@ -104,6 +113,14 @@ class EntitySearcher:
         if self.engine == "pallas":
             self.prep = stage_entities(self.params, self.recipe.model,
                                        self.score_cfg)
+        elif self.engine == "distributed":
+            self.prep = stage_distributed(self.params, self.recipe.model,
+                                          self.score_cfg)
+            # Only the staged params stay: this rank's entity block (the
+            # full matrix at one rank) and the replicated rest.
+            self.params = self.prep.params
+        # Several ranks run every engine call together; rank 0 leads.
+        self._lockstep = self.engine == "distributed" and world_size() > 1
         # Folded-in entities (LSE only): names + vectors appended at serve
         # time, scored per query on the host and merged into the engine's
         # top k.
@@ -120,12 +137,53 @@ class EntitySearcher:
         # dispatches = engine calls made by the batcher, batched_queries =
         # live queries answered, max_batch = largest single dispatch.
         self.stats = {"dispatches": 0, "batched_queries": 0, "max_batch": 0}
-        # Warm-up dispatch: kernel build and first launches happen here.
-        self._score({"_warmup": self.vocab.encode(["warmup"])})
+        # Warm-up dispatch: kernel build and first launches happen here
+        # (on every rank: they all construct).
+        self._score_here({"_warmup": self.vocab.encode(["warmup"])})
 
-    def _score(self, encoded):
+    def _score_here(self, encoded):
         return score_topics(self.params, self.recipe.model, encoded,
                             self.names, self.score_cfg, prep=self.prep)
+
+    def _score(self, encoded):
+        if self._lockstep:
+            broadcast_object(("score", encoded))
+        return self._score_here(encoded)
+
+    def _entity_rows(self, idx: np.ndarray) -> np.ndarray:
+        """fp32 host rows ``idx`` of the trained entity matrix; with the
+        ranks in lockstep each contributes the rows of its block."""
+        if self._lockstep:
+            broadcast_object(("rows", idx))
+        return self._entity_rows_here(idx)
+
+    def _entity_rows_here(self, idx: np.ndarray) -> np.ndarray:
+        emb = self.params["entity_emb"]
+        if self.engine != "distributed":
+            return _host(emb[torch.from_numpy(idx).to(emb.device)])
+        from sert_tpu_torch.parallel.fused_loss import gather_rows
+        mesh = self.prep.mesh
+        with torch.no_grad():
+            return _host(gather_rows(
+                emb.float(), torch.from_numpy(idx).to(emb.device), mesh))
+
+    def follow(self) -> None:
+        """A rank other than 0 of a lockstep searcher: run each engine call
+        rank 0 broadcasts, until :meth:`close` (at once where the searcher
+        is not in lockstep: rank 0 then serves alone)."""
+        while self._lockstep:
+            kind, arg = broadcast_object(None)
+            if kind == "stop":
+                return
+            if kind == "score":
+                self._score_here(arg)
+            else:
+                self._entity_rows_here(arg)
+
+    def close(self) -> None:
+        """Rank 0 of a lockstep searcher: release the followers."""
+        if self._lockstep and world_rank() == 0:
+            broadcast_object(("stop", None))
 
     def encode(self, text: str) -> List[int]:
         """Query terms -> vocab ids with document preprocessing (OOV
@@ -410,8 +468,7 @@ class EntitySearcher:
         if getattr(self, "_trained_stats_cache", None) is None:
             E = self.num_entities
             idx = np.linspace(0, E - 1, num=min(sample, E)).astype(np.int64)
-            emb = self.params["entity_emb"]
-            rows = _host(emb[torch.from_numpy(idx).to(emb.device)])
+            rows = self._entity_rows(idx)
             norms = np.linalg.norm(rows, axis=-1)
             rows_n = rows / np.maximum(norms[:, None], 1e-9)
             neg = self._background_reps(raw=True)

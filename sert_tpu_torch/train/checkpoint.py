@@ -191,16 +191,36 @@ def _cast_params(state: Any, dtype: Optional[torch.dtype]) -> Any:
         for k, v in state.params.items()})
 
 
+def _on_mesh(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
 def save_checkpoint(ckpt_dir: str, step: int, state: Any,
                     meta: Optional[Dict] = None, max_to_keep: int = 0,
                     params_only: bool = False,
-                    params_dtype: Optional[str] = None) -> str:
+                    params_dtype: Optional[str] = None, mesh=None,
+                    specs=None) -> str:
     """Write ckpt-{step}.npz + .json atomically from a ``TrainState``.
 
     ``params_only``: just ``.params`` and ``.step`` (the reference's epoch
     dump; serves scoring, not resume), stored at ``params_dtype``
     ("bfloat16" casts on the device before the fetch and is recorded in
-    the sidecar). ``max_to_keep > 0`` prunes the oldest checkpoints."""
+    the sidecar). ``max_to_keep > 0`` prunes the oldest checkpoints.
+
+    ``mesh`` (of more than one rank) with ``specs`` (the full state's
+    ``parallel.sharding.state_shardings``): every rank calls this with its
+    blocks; they are gathered in shard order (a collective), rank 0 alone
+    writes the one-card format, and every rank returns after the file is
+    in place (the reference's ``_to_host`` :47 and ``_barrier`` :98)."""
+    from sert_tpu_torch.parallel import mesh as mesh_mod
+    if _on_mesh(mesh):
+        from sert_tpu_torch.parallel.sharding import gather_state
+        if params_only:     # the slots never leave their ranks
+            state = dataclasses.replace(state, opt_state={})
+        state = gather_state(state, mesh, specs)
+        if mesh_mod.world_rank() != 0:
+            mesh_mod.barrier()
+            return os.path.join(ckpt_dir, f"ckpt-{step:08d}.npz")
     narrow = _narrow(params_dtype) if params_only else None
     flat = _flatten(_cast_params(state, narrow), params_only)
     extra = {"params_only": True} if params_only else {}
@@ -209,19 +229,28 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
     path = _write(ckpt_dir, step, flat, extra, meta)
     if max_to_keep > 0:
         _prune(ckpt_dir, max_to_keep)
+    if _on_mesh(mesh):
+        mesh_mod.barrier()
     return path
 
 
-def rewrite_meta(ckpt_dir: str, step: int, meta: Optional[Dict]) -> str:
+def rewrite_meta(ckpt_dir: str, step: int, meta: Optional[Dict],
+                 mesh=None) -> str:
     """Atomically replace an existing checkpoint's sidecar (a mid-epoch
     save that lands on the epoch boundary becomes the epoch snapshot
-    without writing the npz again)."""
+    without writing the npz again). On a ``mesh``, rank 0 writes and
+    every rank returns after it."""
+    from sert_tpu_torch.parallel import mesh as mesh_mod
     base = os.path.join(ckpt_dir, f"ckpt-{step:08d}")
-    if not os.path.exists(base + ".npz"):
-        raise FileNotFoundError(f"no checkpoint to rewrite at {base}.npz")
-    with open(base + ".json.tmp", "w") as fh:
-        json.dump({"step": int(step), **(meta or {})}, fh, indent=2)
-    os.replace(base + ".json.tmp", base + ".json")
+    if not _on_mesh(mesh) or mesh_mod.world_rank() == 0:
+        if not os.path.exists(base + ".npz"):
+            raise FileNotFoundError(
+                f"no checkpoint to rewrite at {base}.npz")
+        with open(base + ".json.tmp", "w") as fh:
+            json.dump({"step": int(step), **(meta or {})}, fh, indent=2)
+        os.replace(base + ".json.tmp", base + ".json")
+    if _on_mesh(mesh):
+        mesh_mod.barrier()
     return base + ".npz"
 
 
@@ -248,21 +277,25 @@ class AsyncCheckpointer:
     state is copied on the device first, then one worker thread fetches
     and writes while the next steps run. At most one save is in flight (a
     second ``save`` waits for the first); a worker's exception re-raises
-    on the next ``save``/``wait``."""
+    on the next ``save``/``wait``. On a ``mesh`` of more than one rank
+    (with the full state's ``specs``) every save is synchronous:
+    :func:`save_checkpoint` gathers the blocks and rank 0 writes."""
 
-    def __init__(self) -> None:
+    def __init__(self, mesh=None, specs=None) -> None:
         self._thread: Optional[threading.Thread] = None
         self._err: Optional[BaseException] = None
+        self._mesh, self._specs = mesh, specs
 
     def save(self, ckpt_dir: str, step: int, state: Any,
              meta: Optional[Dict] = None, max_to_keep: int = 0,
              sync: bool = False, params_only: bool = False,
              params_dtype: Optional[str] = None) -> None:
         self.wait()
-        if sync:
+        if sync or _on_mesh(self._mesh):
             save_checkpoint(ckpt_dir, step, state, meta,
                             max_to_keep=max_to_keep, params_only=params_only,
-                            params_dtype=params_dtype)
+                            params_dtype=params_dtype, mesh=self._mesh,
+                            specs=self._specs)
             return
         narrow = _narrow(params_dtype) if params_only else None
         snap = _device_copy(state, params_only, narrow)

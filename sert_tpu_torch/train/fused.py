@@ -94,7 +94,8 @@ def fused_enabled(model_cfg: ModelConfig, train_cfg: TrainConfig,
             "optimizer in (adam, adagrad, sgd), weight_decay=0, "
             "grad_clip_norm=0, a constant lr (no schedule or warmup: the "
             "kernel takes one lr), adagrad_eps=1e-7, mesh_shape=(1, 1) (the "
-            "mesh variant is ROADMAP Queue 1 item 12), a word/entity dim "
+            "mesh variant is ROADMAP Queue 1 item 14: the pure-TP "
+            "fused-update step), a word/entity dim "
             "that is a multiple of 128, and the K5/K7 kernels' limits "
             f"(ops.xent.kernel_limits: {limits or 'met'}); "
             f"got model={model_cfg.model!r} "

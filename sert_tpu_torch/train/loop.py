@@ -8,8 +8,16 @@ and checkpoints carry the exact (epoch, shard, batch) cursor, so resume
 replays nothing and skips nothing. With ``packed_feed="on"`` the feeder
 thread packs each batch (or stacked group) into the wire format of
 ``data/wirepack.py`` before the copy, and the step unpacks it on the
-device, so every step receives the standard int32 batch. The mesh branch
-(ROADMAP Queue 1 item 12) is not ported.
+device, so every step receives the standard int32 batch.
+
+A recipe whose ``mesh_shape`` holds more than one rank trains on the mesh
+(``parallel/``: the sharded step, each rank its rows and its entity
+blocks) when the world of ranks holds it, fed per data rank from the
+instance shards of its reader where there are several data ranks and
+several processes; with fewer ranks than the mesh asks for, one rank
+trains alone after the reference's warning. Checkpoints on a mesh are
+gathered and written by rank 0 in the one-card format; a resume reads the
+full file and keeps this rank's blocks.
 """
 
 from __future__ import annotations
@@ -27,6 +35,11 @@ from sert_tpu_torch.data import wirepack
 from sert_tpu_torch.data.feeder import DevicePut, PrefetchFeeder
 from sert_tpu_torch.data.instances import InstanceDataset
 from sert_tpu_torch.models import lse as lse_model
+from sert_tpu_torch.parallel.mesh import make_mesh, world_rank, world_size
+from sert_tpu_torch.parallel.sharding import (batch_rows, gather_state,
+                                              shard_state)
+from sert_tpu_torch.parallel.train import (make_sharded_train_step,
+                                           state_specs)
 from sert_tpu_torch.pipeline import resolve_device
 from sert_tpu_torch.train import checkpoint as ckpt
 from sert_tpu_torch.train import sparse
@@ -39,10 +52,6 @@ log = get_logger("train")
 
 def _check_supported(recipe: RecipeConfig) -> None:
     tcfg = recipe.train
-    if tcfg.mesh_shape[0] * tcfg.mesh_shape[1] > 1:
-        raise NotImplementedError(
-            f"mesh_shape={tuple(tcfg.mesh_shape)}: training on a mesh is not "
-            "ported yet (ROADMAP Queue 1 item 12: multi-GPU)")
     if tcfg.packed_feed not in ("auto", "on", "off"):
         raise ValueError(f"unknown packed_feed: {tcfg.packed_feed!r}")
     if tcfg.fused_update not in ("auto", "on", "off"):
@@ -90,10 +99,26 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
         noise = lse_model.noise_logits(
             entity_counts if mcfg.negative_distribution == "unigram" else None,
             mcfg, device)
-    train_step = make_train_step(mcfg, tcfg, noise=noise, device=device)
+    mesh, readers, feed_batch = _mesh_branch(tcfg, device)
+    specs = rows_fn = None
+    if mesh is not None:
+        train_step, _, _ = make_sharded_train_step(
+            mcfg, tcfg, mesh, noise=noise,
+            per_process_feed=readers is not None)
+        specs = state_specs(mcfg, tcfg)
+        if readers is None:
+            bdim = 1 if tcfg.steps_per_call > 1 else 0
+
+            def rows_fn(batch):
+                return batch_rows(batch, mesh, bdim)
+    else:
+        train_step = make_train_step(mcfg, tcfg, noise=noise, device=device)
     pack_fn = None
-    if wirepack.feed_enabled(tcfg.packed_feed, mcfg.vocab_size,
-                             mcfg.num_entities, recipe.data.window_size):
+    if mesh is not None and tcfg.packed_feed == "on":
+        log.warning("packed_feed='on' ignored: the sharded train step "
+                    "consumes raw batches")
+    elif wirepack.feed_enabled(tcfg.packed_feed, mcfg.vocab_size,
+                               mcfg.num_entities, recipe.data.window_size):
         V, E = mcfg.vocab_size, mcfg.num_entities
         base_step = train_step
 
@@ -107,7 +132,10 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
                  "true bit width", V, E)
 
     t_setup = time.perf_counter()
-    state = init_state(tcfg.seed, mcfg, tcfg, device)
+    # On a mesh every rank draws the full state from the seed, and keeps
+    # its blocks once a hook or a checkpoint has filled it.
+    state = init_state(tcfg.seed, mcfg, tcfg, device,
+                       sparse_override=False if mesh is not None else None)
     _sync(device)
     t_init = time.perf_counter()
     start_epoch, cursor = 0, None
@@ -137,12 +165,16 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
             cursor = None
         log.info("resumed from %s (epoch=%d cursor=%s)", latest,
                  start_epoch, cursor)
+    if mesh is not None:
+        state = shard_state(state, mesh, mcfg, specs)
 
     meta_common = {"recipe": config_to_dict(recipe),
                    "vocab_hash": dataset.meta.get("vocab_hash")}
-    jlog = JsonlLogger(os.path.join(out_dir, "train_log.jsonl"))
+    # On a mesh of several ranks, rank 0 keeps the metrics log.
+    jlog = JsonlLogger(os.path.join(out_dir, "train_log.jsonl")
+                       if world_rank() == 0 else None)
     n_micro = max(tcfg.steps_per_call, 1)
-    n_batches = dataset.num_batches_per_epoch(tcfg.batch_size)
+    n_batches = dataset.num_batches_per_epoch(feed_batch, readers=readers)
     if n_batches == 0:
         raise ValueError(
             f"dataset yields 0 full batches of train.batch_size="
@@ -158,17 +190,18 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
     stack_groups = tcfg.steps_per_call > 1
     put = DevicePut(device)
     feeders = []
-    saver = ckpt.AsyncCheckpointer()
+    saver = ckpt.AsyncCheckpointer(mesh, specs)
     sync_saves = not tcfg.async_checkpoint
     try:
         for epoch in range(start_epoch, tcfg.num_epochs):
             t_loop0 = time.perf_counter()
             epoch_cursor = cursor if epoch == start_epoch else None
-            batches = dataset.iter_batches(tcfg.batch_size, epoch=epoch,
-                                           start_cursor=epoch_cursor)
+            batches = dataset.iter_batches(feed_batch, epoch=epoch,
+                                           start_cursor=epoch_cursor,
+                                           readers=readers)
             batches = _group_batches(batches, n_micro, stack=stack_groups)
             feeder = PrefetchFeeder(batches,
-                                    put_fn=_batch_put(put, pack_fn))
+                                    put_fn=_batch_put(put, pack_fn, rows_fn))
             feeders.append(feeder)
             last_cursor = epoch_cursor
             t_last = time.perf_counter()
@@ -235,7 +268,7 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
                 saver.wait()
                 ckpt.rewrite_meta(ckpt_dir, step_i,
                                   {"epoch": epoch + 1, "cursor": None,
-                                   **meta_common})
+                                   **meta_common}, mesh=mesh)
             else:
                 final = epoch + 1 == tcfg.num_epochs
                 every = max(1, tcfg.epoch_snapshot_every)
@@ -271,7 +304,45 @@ def train(recipe: RecipeConfig, dataset: InstanceDataset, out_dir: str,
                 saver.wait()
             except BaseException:
                 log.exception("async checkpoint save failed during teardown")
+    if mesh is not None:
+        state = gather_state(state, mesh, specs)
     return state
+
+
+def _mesh_branch(tcfg, device):
+    """(mesh or None, readers or None, rows a rank feeds a step) for
+    ``tcfg.mesh_shape`` in the current world of ranks: the mesh where the
+    world holds it; per-data-rank readers ``(d, dp)`` where there are
+    several ranks and several data ranks (the model ranks of one data
+    index read the same reader); None and one device, after the
+    reference's warning, where the mesh asks for more ranks than the one
+    there is. ValueError where several ranks would not fill the mesh."""
+    mesh_size = tcfg.mesh_shape[0] * tcfg.mesh_shape[1]
+    world = world_size()
+    if mesh_size > world and world == 1:
+        log.warning("mesh %s needs %d devices, have %d; running "
+                    "single-device", tuple(tcfg.mesh_shape), mesh_size,
+                    world)
+        return None, None, tcfg.batch_size
+    if mesh_size != world:
+        raise ValueError(
+            f"mesh_shape={tuple(tcfg.mesh_shape)} needs {mesh_size} ranks; "
+            f"the world has {world}")
+    if world == 1:
+        return None, None, tcfg.batch_size
+    mesh = make_mesh(tuple(tcfg.mesh_shape), device=device)
+    dp = mesh.shape["data"]
+    readers, feed = None, tcfg.batch_size
+    if dp > 1:
+        if tcfg.batch_size % dp:
+            raise ValueError(
+                f"batch_size {tcfg.batch_size} must divide by the data "
+                f"mesh axis ({dp}) for per-process feeding")
+        readers, feed = (mesh.coords["data"], dp), tcfg.batch_size // dp
+        log.info("per-process feed: reader %d/%d, %d local rows per global "
+                 "batch", readers[0], dp, feed)
+    log.info("training on mesh %s", mesh.shape)
+    return mesh, readers, feed
 
 
 def _pin_sparse_update(mcfg, tcfg, path: str):
@@ -313,12 +384,16 @@ def _group_batches(it, n: int, stack: Optional[bool] = None):
             buf = []
 
 
-def _batch_put(put: DevicePut, pack_fn: Optional[Callable] = None):
+def _batch_put(put: DevicePut, pack_fn: Optional[Callable] = None,
+               rows_fn: Optional[Callable] = None):
     """Lift the device put over (batch, cursor) pairs, leaving the cursors
-    on the host. ``pack_fn`` (data/wirepack.py) runs on the feeder thread
-    before the copy, so fewer bytes cross."""
+    on the host. ``rows_fn`` (a mesh rank's rows of the global batch) and
+    ``pack_fn`` (data/wirepack.py) run on the feeder thread before the
+    copy, so fewer bytes cross."""
     def lifted(item):
         batch, cur = item
+        if rows_fn is not None:
+            batch = rows_fn(batch)
         if pack_fn is not None:
             batch = pack_fn(batch)
         return put(batch), cur

@@ -133,22 +133,48 @@ def factored_dims(shape) -> Optional[Tuple[int, int]]:
     return int(order[-2]), int(order[-1])
 
 
+@dataclasses.dataclass
+class ShardInfo:
+    """Where a mesh step's leaves lie (``parallel/train.py``): each param's
+    sharded axis (None where it is replicated), its full shape, and the sum
+    over the ``model`` axis. The reductions that GSPMD inserted for the
+    reference over a sharded axis (the global norm, adafactor's factored
+    means) sum each sharded leaf over ``model`` exactly once; a replicated
+    leaf counts once."""
+    axes: Dict[str, Optional[int]]
+    shapes: Dict[str, Tuple[int, ...]]
+    model_sum: Callable[[torch.Tensor], torch.Tensor]
+
+    def mean(self, x: torch.Tensor, n: str, dim: int, full_dim: int,
+             keepdim: bool = False) -> torch.Tensor:
+        """``x.mean(dim)`` over the full axis ``full_dim`` of leaf ``n``
+        (``dim`` is that axis in ``x``)."""
+        if self.axes.get(n) != full_dim:
+            return x.mean(dim, keepdim=keepdim)
+        return (self.model_sum(x.sum(dim, keepdim=keepdim))
+                / self.shapes[n][full_dim])
+
+
 class Optimizer:
     """adam / adagrad / sgd / adafactor with optax's arithmetic, plus
     optional global-norm clipping (before) and decoupled weight decay
     (after), as ``sert_tpu.train.step.make_optimizer`` chains them.
     adafactor is ``optax.adafactor(lr, multiply_by_parameter_scale=False,
     clipping_threshold=None)``: the factored second moment alone, no
-    momentum. :meth:`update` changes the params and the state in place."""
+    momentum. :meth:`update` changes the params and the state in place.
+    ``shards`` (a mesh step's :class:`ShardInfo`): the norm and the
+    factored statistics reduce over the sharded axes."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
     # optax.scale_by_factored_rms's defaults.
     DECAY_RATE, FACTORED_EPS, MIN_DIM_TO_FACTOR = 0.8, 1e-30, 128
 
-    def __init__(self, cfg: TrainConfig, prefix: str = ""):
+    def __init__(self, cfg: TrainConfig, prefix: str = "",
+                 shards: Optional[ShardInfo] = None):
         if cfg.optimizer not in ("adam", "adagrad", "sgd", "adafactor"):
             raise ValueError(f"unknown optimizer: {cfg.optimizer!r}")
         self.kind = cfg.optimizer
+        self.shards = shards
         self.lr = make_lr(cfg)
         self.scheduled = has_schedule(cfg)
         self.clip = cfg.grad_clip_norm
@@ -200,21 +226,28 @@ class Optimizer:
         scaled gradient in the leaf's dtype."""
         dtype = g.dtype
         g2 = g * g + scalar(self.FACTORED_EPS, dtype)
-        dims = factored_dims(g.shape)
+        sh = self.shards
+        dims = factored_dims(g.shape if sh is None else sh.shapes[n])
         if dims is None:
             v = state[self._key("[0].v", n)]
             v.copy_(decay * v.float() + keep * g2.float())
             return g * v ** -0.5
         d1, d0 = dims
+
+        def mean(x, dim, full_dim, keepdim=False):
+            if sh is None:
+                return x.mean(dim, keepdim=keepdim)
+            return sh.mean(x, n, dim, full_dim, keepdim)
+
         v_row = state[self._key("[0].v_row", n)]
         v_col = state[self._key("[0].v_col", n)]
         # jnp.mean of a bf16 array sums in fp32 and rounds the mean.
         v_row.copy_(decay * v_row.float()
-                    + keep * g2.float().mean(d0).to(dtype).float())
+                    + keep * mean(g2.float(), d0, d0).to(dtype).float())
         v_col.copy_(decay * v_col.float()
-                    + keep * g2.float().mean(d1).to(dtype).float())
-        row_mean = v_row.float().mean(d1 - 1 if d1 > d0 else d1,
-                                      keepdim=True).to(dtype)
+                    + keep * mean(g2.float(), d1, d1).to(dtype).float())
+        row_mean = mean(v_row.float(), d1 - 1 if d1 > d0 else d1, d1,
+                        keepdim=True).to(dtype)
         row_factor = (v_row / row_mean) ** -0.5
         col_factor = v_col ** -0.5
         return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -222,7 +255,7 @@ class Optimizer:
     @torch.no_grad()
     def update(self, params: Params, grads: Params, state: OptState) -> None:
         if self.clip > 0:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.shards)
             keep = norm < self.clip
             grads = {n: torch.where(keep, g, g / norm.to(g.dtype)
                                     * scalar(self.clip, g.dtype))
@@ -290,10 +323,20 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
     return Optimizer(cfg)
 
 
-def global_norm(tensors: Params) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float())
-                          for _, t in sorted(tensors.items())))
+def global_norm(tensors: Params,
+                shards: Optional[ShardInfo] = None) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (optax.global_norm).
+    With ``shards``, each sharded leaf's sum of squares is summed over the
+    ``model`` axis (one collective for all of them)."""
+    names = sorted(tensors)
+    sq = {n: torch.sum(tensors[n].float() * tensors[n].float())
+          for n in names}
+    split = [n for n in names
+             if shards is not None and shards.axes.get(n) is not None]
+    if split:
+        summed = shards.model_sum(torch.stack([sq[n] for n in split]))
+        sq.update(zip(split, summed.unbind(0)))
+    return torch.sqrt(sum(sq[n] for n in names))
 
 
 def init_state(seed: int, model_cfg: ModelConfig, train_cfg: TrainConfig,

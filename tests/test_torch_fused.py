@@ -213,7 +213,7 @@ def test_auto_takes_the_fused_step_for_sgd_where_the_kernels_run():
         fused.fused_enabled(m, t)
     m, t = _gate_cfgs(config, "loglinear", {},
                       dict(fused_update="on", mesh_shape=(1, 4)))
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="item 14"):
         fused.fused_enabled(m, t)
 
 

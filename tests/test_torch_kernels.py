@@ -705,6 +705,80 @@ class TestXentOnCard:
 APPLY_LR = 1e-2
 
 
+@pytest.mark.gpu
+class TestShardedOnCard:
+    """The kernels as a mesh rank runs them: K6 fed an lse from outside
+    and labels of -1 off the shard, and K3/K4 on a row block whose ids are
+    offset into the global range."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("layout", ["de", "ed"])
+    @pytest.mark.parametrize("B,E,d", [(1024, 875, 256), (256, 4096, 128)])
+    def test_k6_with_outside_lse_and_off_shard_labels(self, cuda, B, E, d,
+                                                      layout, dtype):
+        pooled, W, b, labels = _xent_inputs(cuda, B, E, d, layout, seed=3)
+        # a global lse larger than the block's (the other blocks' mass),
+        # and a third of the rows' gold entities on other blocks
+        lse = xent.xent_lse_plain(pooled, W, b, layout, dtype) + 0.7
+        labels = torch.where(torch.arange(B, device=cuda) % 3 == 0,
+                             torch.full_like(labels, -1), labels)
+        n = xent.bwd_launches
+        got = xent.xent_bwd(pooled, W, b, lse, labels, layout, dtype)
+        assert xent.bwd_launches == n + 1
+        want = xent.xent_bwd_plain(pooled, W, b, lse, labels, layout, dtype)
+        for name, a, w in zip(("dpooled", "dW", "db"), got, want):
+            assert a.shape == w.shape, name
+            err = (a - w).abs().max().item()
+            assert err <= XENT_TOL[dtype] * w.abs().max().item(), name
+
+    def test_sharded_loss_on_one_rank_is_the_loss(self, cuda):
+        """At one rank the sharded loss's stitch is the identity: K5/K6
+        give xent_loss's value and gradients bit for bit."""
+        x = _xent_inputs(cuda, 1024, 875, 256, "de", seed=4)
+        want = _xent_run(xent.xent_loss, *x, "de", "float32")
+
+        def sharded(p, w, bb, lab, layout, dtype):
+            return xent.sharded_xent_loss(p, w, bb, lab, xent.ONE_BLOCK,
+                                          layout, dtype)
+        got = _xent_run(sharded, *x, "de", "float32")
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+    def test_sharded_losses_at_tp_above_one_on_a_gloo_world(self, cuda):
+        """The stitch at tp > 1 through the kernels: four gloo ranks share
+        the card (NCCL takes one rank per card) and run the sharded xent
+        loss (K5, then K6 fed the stitched lse, labels of -1 off the
+        block) and the mesh's model losses (K5/K6 per entity block, K1/K2
+        per candidate block, K1/K2 on the whole block where tp does not
+        divide k); each is held against the same loss on one card, and
+        every rank must have launched its kernels."""
+        from sert_tpu_torch.parallel.dryrun import check_card_world
+        report = check_card_world(4)
+        assert report["ok"], report
+
+    @pytest.mark.parametrize("blocks", [2, 8])
+    def test_k3_k4_per_block_with_offset(self, cuda, blocks):
+        """Each block's K3/K4 top k, offset and merged by the top k of the
+        concatenation, is the whole matrix's kernel engine answer."""
+        R, M, _, _ = _data(5, Q=64, E=40_000, d=128)
+        Rt, Mt = torch.from_numpy(R).to(cuda), torch.from_numpy(M).to(cuda)
+        want_s, want_i = exact_topk.exact_topk(Rt, Mt, k=100)
+        rows = M.shape[0] // blocks
+        parts_s, parts_i = [], []
+        n3 = score_binmax.launches
+        for m in range(blocks):
+            s, i = exact_topk.exact_topk(Rt, Mt[m * rows:(m + 1) * rows],
+                                         k=100)
+            parts_s.append(s)
+            parts_i.append(i + m * rows)
+        assert score_binmax.launches == n3 + blocks
+        s, sel = torch.sort(torch.cat(parts_s, 1), dim=1, descending=True,
+                            stable=True)
+        i = torch.gather(torch.cat(parts_i, 1), 1, sel[:, :100])
+        assert torch.equal(i, want_i)
+        torch.testing.assert_close(s[:, :100], want_s, **TOL)
+
+
 def _apply_inputs(dev, B, E, d, layout, opt, w_dtype=torch.float32):
     pooled, W, b, labels = _xent_inputs(dev, B, E, d, layout)
     g = torch.Generator(device=dev).manual_seed(1)

@@ -261,7 +261,7 @@ def test_fused_update_on_names_its_item(tmp_path):
         loop._check_supported(dataclasses.replace(
             recipe, train=dataclasses.replace(recipe.train,
                                               fused_update="always")))
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="item 14"):
         port_step.make_train_step(
             recipe.model.replace(word_dim=128),
             dataclasses.replace(recipe.train, fused_update="on",

@@ -239,6 +239,21 @@ def test_lm_ranker_runs_with_jax_and_the_reference_blocked(tmp_path):
     assert 0.5 <= json.loads(proc.stdout)["ndcg@100"] <= 1.0
 
 
+def test_mesh_dry_run_with_jax_and_the_reference_blocked():
+    """The multi-rank dry run (parallel/dryrun.py) from a process that
+    cannot import jax or the reference: a (2, 2) mesh of 4 gloo ranks, its
+    sharded step and distributed top-k against one rank, no foreign
+    module in any rank."""
+    code = CLI_BLOCKED.replace('runpy.run_module("sert_tpu_torch"',
+                               'runpy.run_module('
+                               '"sert_tpu_torch.parallel.dryrun"')
+    proc = _run(code, REPO, "--ranks", "4", "--mesh", "2", "2")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["ok"] and len(report["ranks"]) == 4
+    assert all(r["foreign"] == [] for r in report["ranks"])
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):

@@ -189,10 +189,13 @@ def test_resolve_engine_matches_reference_off_the_tpu(engine, use_pallas):
 
 
 def test_resolve_engine_refuses_only_distributed():
+    """The distributed engine, once refused here, resolves as the
+    reference's does (tests/test_torch_mesh_topk.py holds its answers)."""
     sc = ScoreConfig(engine="distributed")
     assert ref_run.resolve_engine(sc, 10) == "distributed"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run.resolve_engine(sc, 10, CPU, 64)
+    assert run.resolve_engine(sc, 10, CPU, 64) == "distributed"
+    with pytest.raises(ValueError, match="unknown scoring engine"):
+        run.resolve_engine(ScoreConfig(engine="sharded"), 10, CPU, 64)
 
 
 # --- the clustered layout ---------------------------------------------------

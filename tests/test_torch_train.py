@@ -22,6 +22,7 @@ Tolerances, with their reasons:
 
 import dataclasses
 import json
+import logging
 import os
 
 import numpy as np
@@ -707,11 +708,29 @@ def test_snapshot_rules(tmp_path):
 @pytest.mark.parametrize("train_kw,item", [
     (dict(mesh_shape=(2, 1)), "item 12"),
 ])
-def test_unported_loop_options_raise(tmp_path, train_kw, item):
+def test_unported_loop_options_raise(tmp_path, caplog, train_kw, item):
+    """The mesh (ROADMAP Queue 1 item 12) was once refused here and is now
+    ported; the test keeps its name. A mesh larger than the world of one
+    rank no longer raises: it logs the reference's warning, trains on that
+    rank, and ends where the one-device run ends
+    (tests/test_torch_mesh_train.py holds the mesh itself)."""
     recipe, data = _prepared(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
-        pipeline.train_from_dir(_with_train(recipe, **train_kw), data,
-                                str(tmp_path / "run"), device="cpu")
+    log = logging.getLogger("sert_tpu.train")   # the port's does not
+    log.addHandler(caplog.handler)              # propagate to the root
+    try:
+        with caplog.at_level(logging.WARNING):
+            meshed, _ = pipeline.train_from_dir(
+                _with_train(recipe, **train_kw), data,
+                str(tmp_path / "run"), device="cpu")
+    finally:
+        log.removeHandler(caplog.handler)
+    assert "mesh (2, 1) needs 2 devices, have 1; running single-device" \
+        in caplog.text, item
+    single, _ = pipeline.train_from_dir(recipe, data, str(tmp_path / "one"),
+                                        device="cpu")
+    assert meshed.step == single.step > 0
+    for k, v in single.params.items():
+        assert torch.equal(meshed.params[k], v), (item, k)
 
 
 def test_packed_feed_resumes_where_the_raw_feed_ends(tmp_path):
