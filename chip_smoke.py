@@ -209,10 +209,26 @@ Phases (each prints one line or more; any failure exits non-zero):
      their lse stitched (a max and a rescaled sum) against the plain lse
      over every entity, then K6 on one shard fed that global lse and
      labels of -1 off the shard against xent_bwd_plain;
+ 20a. mesh_fused_tp: the pure-TP fused step (K5 and K7 per entity block)
+     at phase 14's width (E 500k, V 60k, d 256, B 1024, bf16 compute, fp32
+     params, lr 1e-2) on a world of 4 gloo ranks sharing the card, mesh
+     (1, 4), blocks of 125,000 entities, for adam, adagrad and sgd: each
+     of 8 micro-steps against the dense sharded step (K5/K6 per block)
+     taken from the same state, the first against the one-card fused step,
+     the free-running losses and grad norms against one card's, all within
+     1e-4 (params and slots: the norm of each leaf's difference over its
+     norm; the slots against one card in the bf16 class, 2e-2); every
+     rank K5 and K7 once a micro-step, K6 never; replicated
+     leaves bit-equal on every rank; each rank's ms a micro-step, the gloo
+     collectives' share and peak memory; K7 alone on one block against
+     its plain version, its time and bound;
  21. mesh_nccl: a world of one rank over NCCL, the (1, 1) mesh: the
      sharded flagship step (parallel.make_sharded_train_step) against the
      one-card step for 8 micro-steps from the same seed (losses and params
-     compared bit for bit, the difference printed); `python -m
+     compared bit for bit, the difference printed); fused_update="on" at
+     (1, 1) (the one-card fused step, K5 + K7) against
+     make_fused_train_step at phase 14's width with adam for 8
+     micro-steps, params, slots and losses bit for bit; `python -m
      sert_tpu_torch query` with engine="distributed" (merge allgather) at
      synthetic_10m_scoring's score settings on phase 15's 10M run, and
      in process with both merges, against the kernel engine (ids equal,
@@ -377,15 +393,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
 def phase_device() -> str:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(smi, flush=True)
@@ -1994,6 +2015,56 @@ def _apply_times(x, opt, layout, dtype, iters):
     return ms, plain_ms
 
 
+def _apply_errors(phase, label, opt, got, x, layout, dtype, shape) -> dict:
+    """Each of K7's outputs ``got`` against xent_loss_apply_plain's on the
+    same inputs ``x``: its largest error, printed with its tolerance
+    (XENT_TOL of the output's scale; W' of the learning rate; a bf16
+    stored output one step of its value more); AssertionError beyond."""
+    import torch
+    from sert_tpu_torch.ops import xent
+    want = _apply_outputs(xent.xent_loss_apply_plain, x, opt, layout, dtype)
+    errs = {}
+    for key, b in want.items():
+        a, bf32 = got[key].float(), b.float()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label} {opt}: {key} not finite")
+        if key in ("loss", "gsq"):
+            rtol, scale = XENT_SUM_RTOL, bf32.abs().max()
+        elif key == "W":
+            rtol, scale = XENT_TOL[dtype], APPLY_LR
+        else:
+            rtol, scale = XENT_TOL[dtype], bf32.abs().max()
+        limit = rtol * scale
+        if b.dtype == torch.bfloat16:
+            # One step of the storage: at most 2^-7 of the value.
+            limit = limit + 2.0 ** -7 * bf32.abs()
+        diff = (a - bf32).abs()
+        errs[key] = err = diff.max().item()
+        say(phase, case=label, opt=opt, **shape, output=key,
+            max_abs_err=err,
+            tol=f"{rtol}*{'lr' if key == 'W' else 'max|plain|'}"
+                + ("+2^-7*|plain|" if b.dtype == torch.bfloat16 else ""))
+        if not bool((diff <= limit).all()):
+            raise AssertionError(f"{label} {opt}: {key} error {err}")
+    return errs
+
+
+def _apply_bound(x, dtype):
+    """K7's bound on inputs ``x`` (its own three products, z, dW and
+    dpooled; its dpooled sweep's recompute of z is not counted; P, W, the
+    slots, the bias and the labels read once, W' and the slots written
+    once, db, dpooled and the per-tile gsq written once), and the same on
+    the CUDA cores."""
+    pooled, W, b, labels, slots = x
+    B, d = pooled.shape
+    E = b.shape[0]
+    flops = 6 * B * E * d
+    moved = (nbytes(pooled, W, b, labels, *slots.values())
+             + nbytes(W, *slots.values()) + 4 * (E + B * d - (-E // 64)))
+    return (bound(flops, moved, _product_type(dtype)),
+            bound(flops, moved, dtype)["bound_ms"])
+
+
 def phase_xent_apply_kernels() -> dict:
     """K7 against xent_loss_apply_plain on the same inputs, for each
     optimizer. Returns the kernel record of the w3c adam case (the fused
@@ -2033,45 +2104,14 @@ def phase_xent_apply_kernels() -> dict:
             if not same:
                 raise AssertionError(f"{label} {opt}: two K7 calls differ")
             del again
-        want = _apply_outputs(xent.xent_loss_apply_plain, x, opt, layout,
-                              dtype)
-        errs = {}
-        for key, b in want.items():
-            a, bf32 = got[key].float(), b.float()
-            if not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"{label} {opt}: {key} not finite")
-            if key in ("loss", "gsq"):
-                rtol, scale = XENT_SUM_RTOL, bf32.abs().max()
-            elif key == "W":
-                rtol, scale = XENT_TOL[dtype], APPLY_LR
-            else:
-                rtol, scale = XENT_TOL[dtype], bf32.abs().max()
-            limit = rtol * scale
-            if b.dtype == torch.bfloat16:
-                # One step of the storage: at most 2^-7 of the value.
-                limit = limit + 2.0 ** -7 * bf32.abs()
-            diff = (a - bf32).abs()
-            errs[key] = err = diff.max().item()
-            say("xent_apply_kernels", case=label, opt=opt, B=B, E=E, d=d,
-                layout=layout, dtype=dtype, storage=str(w_dtype)[6:],
-                output=key, max_abs_err=err,
-                tol=f"{rtol}*{'lr' if key == 'W' else 'max|plain|'}"
-                    + ("+2^-7*|plain|" if b.dtype == torch.bfloat16 else ""))
-            if not bool((diff <= limit).all()):
-                raise AssertionError(f"{label} {opt}: {key} error {err}")
-        del got, want
+        errs = _apply_errors("xent_apply_kernels", label, opt, got, x,
+                             layout, dtype, dict(B=B, E=E, d=d,
+                                                 layout=layout, dtype=dtype,
+                                                 storage=str(w_dtype)[6:]))
+        del got
         iters = 3 if E > 100_000 else 10
         ms, plain_ms = _apply_times(x, opt, layout, dtype, iters)
-        pooled, W, b, labels, slots = x
-        # K7's own three products (z, dW, dpooled; its dpooled sweep's
-        # recompute of z is not counted); P, W, the slots, the bias and the
-        # labels read once, W' and the slots written once, db, dpooled and
-        # the per-tile gsq written once.
-        flops = 6 * B * E * d
-        moved = (nbytes(pooled, W, b, labels, *slots.values())
-                 + nbytes(W, *slots.values()) + 4 * (E + B * d - (-E // 64)))
-        bnd = bound(flops, moved, _product_type(dtype))
-        cores = bound(flops, moved, dtype)["bound_ms"]
+        bnd, cores = _apply_bound(x, dtype)
         say("xent_apply_kernels", case=label, opt=opt, ms=ms,
             plain_ms=plain_ms, **bnd, bound_cuda_cores_ms=cores)
         rec["max_abs_err"] = max(rec["max_abs_err"], *errs.values())
@@ -2259,14 +2299,11 @@ def phase_fused_ab() -> dict:
     the other rows. Returns adafactor's launches by kernel."""
     import dataclasses
     import torch
-    from sert_tpu_torch.cli import load_recipe
     from sert_tpu_torch.ops import xent
     from sert_tpu_torch.train.step import init_state, make_train_step
 
-    r = load_recipe("w3c_expert_finding")
-    mcfg = r.model.replace(vocab_size=AB_V, num_entities=AB_E,
-                           word_dim=AB_D, compute_dtype="bfloat16")
-    B, n, w = r.train.batch_size, AB_STEPS_PER_CALL, r.data.window_size
+    mcfg, train, w = _ab_configs()
+    B, n = train.batch_size, AB_STEPS_PER_CALL
     g = torch.Generator(device="cuda").manual_seed(SEED)
     lengths = torch.randint(1, w + 1, (n, B), generator=g, device="cuda")
     windows = torch.randint(0, AB_V, (n, B, w), generator=g, device="cuda")
@@ -2278,8 +2315,7 @@ def phase_fused_ab() -> dict:
     for opt in ("adam", "adagrad", "sgd"):
         got = {"off": [], "on": []}
         for mode in ("off", "on", "on", "off"):
-            tcfg = dataclasses.replace(r.train, optimizer=opt,
-                                       learning_rate=AB_LR,
+            tcfg = dataclasses.replace(train, optimizer=opt,
                                        fused_update=mode, steps_per_call=n)
             state = init_state(SEED, mcfg, tcfg, device="cuda")
             step = make_train_step(mcfg, tcfg, device="cuda")
@@ -2323,9 +2359,8 @@ def phase_fused_ab() -> dict:
 
     got, launches = [], {"xent_fwd": 0, "xent_bwd": 0, "xent_bwd_apply": 0}
     for _ in range(2):
-        tcfg = dataclasses.replace(r.train, optimizer="adafactor",
-                                   learning_rate=AB_LR, fused_update="off",
-                                   steps_per_call=n)
+        tcfg = dataclasses.replace(train, optimizer="adafactor",
+                                   fused_update="off", steps_per_call=n)
         state = init_state(SEED, mcfg, tcfg, device="cuda")
         step = make_train_step(mcfg, tcfg, device="cuda")
         torch.cuda.synchronize()
@@ -3261,8 +3296,10 @@ CERC_B, CERC_E, CERC_D, CERC_TP = 1024, 3500, 256, 4
 # on a fixture of this many windows at its widths.
 MESH_STEPS = 8
 # mesh_kernels: the sharded losses at tp > 1 on a gloo world of this many
-# ranks sharing the card.
+# ranks sharing the card; mesh_fused_tp: the pure-TP fused step on that
+# world at mesh (1, CARD_RANKS), this many micro-steps an optimizer.
 CARD_RANKS = 4
+MESH_FUSED_STEPS = 8
 AHK_V, AHK_E, AHK_INSTANCES = 60_000, 20_000, 1 << 17
 
 
@@ -3512,6 +3549,105 @@ def _xent_shard_check(records: dict) -> None:
         errs["db"])
 
 
+def _ab_configs():
+    """The fused-step A/B's configs (phase_fused_ab): w3c_expert_finding
+    at the width of the reference's benchmarks/fused_step_bench.py
+    (log-linear, V 60k, E 500k, d 256, B 1024, bf16 compute, fp32
+    params, lr 1e-2); and its window width."""
+    import dataclasses
+    from sert_tpu_torch.cli import load_recipe
+    r = load_recipe("w3c_expert_finding")
+    mcfg = r.model.replace(vocab_size=AB_V, num_entities=AB_E,
+                           word_dim=AB_D, compute_dtype="bfloat16")
+    return (mcfg, dataclasses.replace(r.train, learning_rate=AB_LR),
+            r.data.window_size)
+
+
+def phase_mesh_fused_tp(records: dict) -> dict:
+    """The pure-TP fused step (train.fused.make_fused_train_step on a mesh:
+    K5 and K7 per entity block) at the fused-step A/B's width on a world
+    of CARD_RANKS gloo ranks sharing the card, mesh (1, 4), blocks of
+    125,000 entities, for adam, adagrad and sgd
+    (parallel.dryrun.check_fused_card_world): each of MESH_FUSED_STEPS
+    micro-steps against the dense sharded step ("off", K5/K6 per block)
+    from the same state, the first against the one-card fused step in this
+    process, the free-running losses and grad norms against one card's,
+    all within FUSED_PARITY_RTOL (the slots against one card within the
+    bf16 class: the word table's carry the bf16 rounding of a gradient
+    whose entity sum runs in another order); every rank K5 and K7 once a
+    micro-step and K6 never. Prints each rank's ms a micro-step, the collectives'
+    share and peak memory; then K7 alone on one block against its plain
+    version, its time and bound. Returns the ranks' launches by kernel
+    ("on" and "off")."""
+    import torch
+    from sert_tpu_torch.ops import xent
+    from sert_tpu_torch.parallel.dryrun import check_fused_card_world
+    mcfg, tcfg, window = _ab_configs()
+    smi = card()
+    t0 = time.perf_counter()
+    report = check_fused_card_world(
+        mcfg, tcfg, n=CARD_RANKS, window=window, steps=MESH_FUSED_STEPS,
+        rtol=FUSED_PARITY_RTOL, seed=SEED, timeout=600.0)
+    seconds = time.perf_counter() - t0
+    launches = {"xent_fwd": 0, "xent_bwd": 0, "xent_bwd_apply": 0}
+    for opt, rep in report["optimizers"].items():
+        for mode, ranks in rep["launches"].items():
+            for r in ranks:
+                for name in launches:
+                    launches[name] += r[name]
+        worst = {which: max(x["rel_norm"] for x in v.values())
+                 for which, v in rep["leaves"].items()}
+        say("mesh_fused_tp", opt=opt, mesh=f"1x{CARD_RANKS}",
+            backend="gloo_on_one_card", E=AB_E, block=AB_E // CARD_RANKS,
+            V=AB_V, d=AB_D, B=tcfg.batch_size, steps=MESH_FUSED_STEPS,
+            ok=rep["ok"], through_kernels=rep["launches_through_kernels"],
+            replicas_bit_equal=rep["replicas_bit_equal"],
+            blocks_ok=rep["blocks_ok"],
+            errors=json.dumps(rep["errors"]).replace(" ", ""),
+            worst_leaf_rel_norm=json.dumps(worst).replace(" ", ""),
+            rtol=FUSED_PARITY_RTOL,
+            slot_rtol_vs_one_card=rep["slot_rtol_vs_one_card"],
+            card=json.dumps(smi))
+        for which, v in rep["leaves"].items():
+            say("mesh_fused_tp", opt=opt, against=which,
+                leaves=json.dumps(v).replace(" ", ""))
+        say("mesh_fused_tp", opt=opt,
+            ms_per_step=json.dumps(rep["ms_per_step"]).replace(" ", ""),
+            collective_share=json.dumps(rep["collective_share"]).replace(
+                " ", ""),
+            collective_calls_per_step=json.dumps(
+                rep["collective_calls_per_step"]).replace(" ", ""),
+            peak_mem_bytes=json.dumps(rep["peak_mem_bytes"]).replace(
+                " ", ""),
+            rank_launches=json.dumps(rep["launches"]).replace(" ", ""),
+            losses=json.dumps(rep["losses"]).replace(" ", ""),
+            card=json.dumps(smi))
+    say("mesh_fused_tp", ok=report["ok"], seconds=seconds,
+        launches=json.dumps(launches).replace(" ", ""))
+    if not report["ok"]:
+        raise AssertionError(f"the pure-TP fused step: {report}")
+
+    # K7 alone on one block of the world's shape, against its plain
+    # version (a comparison: not counted).
+    El = AB_E // CARD_RANKS
+    x = _apply_case(tcfg.batch_size, El, AB_D, "de", "adam", 900,
+                    torch.float32)
+    got = _apply_outputs(xent.xent_loss_apply, x, "adam", "de", "bfloat16")
+    errs = _apply_errors("mesh_fused_tp", "block", "adam", got, x, "de",
+                         "bfloat16", dict(B=tcfg.batch_size, E=El, d=AB_D))
+    del got
+    ms, plain_ms = _apply_times(x, "adam", "de", "bfloat16", 3)
+    bnd, cores = _apply_bound(x, "bfloat16")
+    say("mesh_fused_tp", name="xent_bwd_apply", shard=f"{El}_of_{AB_E}",
+        B=tcfg.batch_size, d=AB_D, opt="adam", ms=ms, plain_ms=plain_ms,
+        **bnd, bound_cuda_cores_ms=cores, card=json.dumps(smi))
+    records["xent_bwd_apply"]["max_abs_err"] = max(
+        records["xent_bwd_apply"]["max_abs_err"], *errs.values())
+    del x
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -3533,6 +3669,8 @@ def phase_mesh_nccl(root: str, data_dir: str, data_10m: str, run_10m: str,
                             f"{_free_port()}", world_size=1, rank=0)
     try:
         launches = _mesh_flagship_step(data_dir)
+        for name, n in _mesh_fused_one_rank().items():
+            launches[name] = launches.get(name, 0) + n
         for name, n in _mesh_query_10m(root, data_10m, run_10m,
                                        topics_10m).items():
             launches[name] = launches.get(name, 0) + n
@@ -3605,6 +3743,63 @@ def _mesh_flagship_step(data_dir: str) -> dict:
     del out
     torch.cuda.empty_cache()
     return b["launches"]
+
+
+def _mesh_fused_one_rank() -> dict:
+    """fused_update="on" at mesh (1, 1) over NCCL: make_sharded_train_step
+    takes the one-card fused step (K5 + K7), as the reference's does at
+    size 1; MESH_STEPS micro-steps at the fused-step A/B's width with
+    adam, against make_fused_train_step's from the same seed on the same
+    batches, params, slots and losses bit for bit. Returns the mesh run's
+    launches."""
+    import dataclasses
+    import torch
+    from sert_tpu_torch.ops import xent
+    from sert_tpu_torch.parallel.dryrun import seeded_batches
+    from sert_tpu_torch.parallel.mesh import make_mesh
+    from sert_tpu_torch.parallel.train import make_sharded_train_step
+    from sert_tpu_torch.parallel.worlds import tensor_leaves
+    from sert_tpu_torch.train.fused import make_fused_train_step
+    from sert_tpu_torch.train.step import init_state
+    mcfg, tcfg, window = _ab_configs()
+    tcfg = dataclasses.replace(tcfg, optimizer="adam", fused_update="on",
+                               steps_per_call=1)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+               for b in seeded_batches(mcfg, tcfg, window, MESH_STEPS,
+                                       SEED)]
+    out = {}
+    for name in ("one_card", "mesh"):
+        if name == "one_card":
+            state = init_state(tcfg.seed, mcfg, tcfg, "cuda")
+            step = make_fused_train_step(mcfg, tcfg)
+        else:
+            step, init_fn, _ = make_sharded_train_step(
+                mcfg, tcfg, make_mesh((1, 1)))
+            state = init_fn()
+        xent.fwd_launches = xent.bwd_launches = xent.apply_launches = 0
+        losses = [step(state, b)[1]["loss"].item() for b in batches]
+        out[name] = dict(losses=losses, leaves=tensor_leaves(state),
+                         launches={"xent_fwd": xent.fwd_launches,
+                                   "xent_bwd": xent.bwd_launches,
+                                   "xent_bwd_apply": xent.apply_launches})
+        del state, step
+    a, b = out["one_card"], out["mesh"]
+    same = a["leaves"].keys() == b["leaves"].keys() and all(
+        torch.equal(v, b["leaves"][k]) for k, v in a["leaves"].items())
+    say("mesh_nccl", check="fused_update_on_at_1x1", backend="nccl",
+        E=AB_E, d=AB_D, opt="adam", micro_steps=MESH_STEPS,
+        losses_bit_equal=a["losses"] == b["losses"],
+        params_and_slots_bit_equal=same,
+        launches=json.dumps(b["launches"]).replace(" ", ""))
+    if not same or a["losses"] != b["losses"] or b["launches"] != {
+            "xent_fwd": MESH_STEPS, "xent_bwd": 0,
+            "xent_bwd_apply": MESH_STEPS}:
+        raise AssertionError(f"fused_update='on' at (1, 1): {same}, "
+                             f"{b['launches']}")
+    launches = b["launches"]
+    del out, a, b
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _mesh_query_10m(root: str, data_dir: str, run_dir: str,
@@ -3789,6 +3984,7 @@ def main() -> int:
         paths.append(phase_nce_tiny(root))
         paths.append(phase_fused_ab())
         phase_mesh_kernels(records)
+        paths.append(phase_mesh_fused_tp(records))
         paths.append(phase_mesh_nccl(root, data_dir, data_10m, run_10m,
                                      topics_10m))
         for path in paths:

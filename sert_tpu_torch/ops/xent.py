@@ -27,6 +27,12 @@ or sgd applied to W (and its optimizer slots) where K6 would store dW (or,
 where the dW sweep is split over the batch, in the ordered sum of its
 slices), so dW never reaches device memory; its plain version is
 :func:`xent_loss_apply_plain`.
+
+On a mesh each rank holds a block of the entity axis:
+:func:`sharded_xent_loss` (K5, then K6, per block) and, where every rank
+holds the whole batch, :func:`sharded_xent_apply` (K5, then K7, per
+block; ``make_sharded_xent_apply`` :818), their blocks joined by a
+:class:`Stitch`.
 """
 
 from __future__ import annotations
@@ -415,44 +421,61 @@ class Stitch(NamedTuple):
 ONE_BLOCK = Stitch(0, 1, lambda x: x, lambda x: x)
 
 
+def _block_forward(pooled, W, b, labels, stitch, layout, dtype, fused):
+    """The forward of this rank's entity block, stitched with the others:
+    K5 (or its plain version) on the block, the global lse (the max over
+    the blocks, then the rescaled sum) and the global gold logit (from the
+    block holding the label). Returns (lse [B], z_gold [B], the backward's
+    operands, geometry): with ``fused`` K6's or K7's operands (P, W, fp32
+    bias, int32 labels of the block, -1 off it, lse) and ``_check``'s
+    geometry, else (pooled, W, b, int64 labels of the block, lse) and
+    None. Nothing here is differentiable."""
+    ct = _compute_dtype(dtype)
+    El = W.shape[1] if layout == "de" else W.shape[0]
+    lab = labels.long() - stitch.offset
+    own = (lab >= 0) & (lab < El)
+    idx = lab.clamp(0, El - 1)
+    lab_k = torch.where(own, idx, torch.full_like(idx, -1))
+    Wd = W.detach()
+    if fused:
+        geometry = _check(pooled, W, b, labels, layout, ct)
+        B, E, d, dp, strides = geometry
+        P = _operand(pooled.detach(), ct, dp)
+        bf = b.detach().float().contiguous()
+        lse_l = _fwd(P, Wd, bf, B, E, d, dp, strides, ct)
+    else:
+        _check_layout(layout)
+        geometry = None
+        bf = b.detach().float()
+        lse_l = xent_lse_plain(pooled.detach(), Wd, b.detach(), layout,
+                               dtype)
+    # The gold logit, from the rank holding the label's column: an fp32
+    # sum of compute-dtype-rounded products (the reference's :711-717).
+    w_gold = Wd[:, idx].T if layout == "de" else Wd[idx]
+    z_gold = (torch.sum(pooled.detach().to(ct).float()
+                        * w_gold.to(ct).float(), dim=1) + bf[idx])
+    # The global lse: max over the blocks, then the rescaled sum, which
+    # travels with the gold logits' sum.
+    M = stitch.reduce_max(lse_l)
+    sums = stitch.reduce_sum(torch.stack([torch.exp(lse_l - M),
+                                          torch.where(own, z_gold, 0.0)]))
+    lse, z_gold = M + torch.log(sums[0]), sums[1]
+    if fused:
+        saved = (P, Wd, bf, lab_k.to(torch.int32).contiguous(),
+                 lse.contiguous())
+    else:
+        saved = (pooled.detach(), Wd, b.detach(), lab_k, lse)
+    return lse, z_gold, saved, geometry
+
+
 class _ShardedXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pooled, W, b, labels, stitch, layout, dtype, fused):
-        ct = _compute_dtype(dtype)
-        El = W.shape[1] if layout == "de" else W.shape[0]
-        lab = labels.long() - stitch.offset
-        own = (lab >= 0) & (lab < El)
-        idx = lab.clamp(0, El - 1)
-        lab_k = torch.where(own, idx, torch.full_like(idx, -1))
-        if fused:
-            geometry = _check(pooled, W, b, labels, layout, ct)
-            B, E, d, dp, strides = geometry
-            P = _operand(pooled.detach(), ct, dp)
-            bf = b.detach().float().contiguous()
-            lse_l = _fwd(P, W.detach(), bf, B, E, d, dp, strides, ct)
-        else:
-            _check_layout(layout)
-            bf = b.detach().float()
-            lse_l = xent_lse_plain(pooled.detach(), W.detach(), b.detach(),
-                                   layout, dtype)
-        # The global lse: max over the blocks, then the rescaled sum.
-        M = stitch.reduce_max(lse_l)
-        lse = M + torch.log(stitch.reduce_sum(torch.exp(lse_l - M)))
-        # The gold logit, from the rank holding the label's column: an fp32
-        # sum of compute-dtype-rounded products (the reference's :711-717).
-        Wd = W.detach()
-        w_gold = Wd[:, idx].T if layout == "de" else Wd[idx]
-        z_gold = (torch.sum(pooled.detach().to(ct).float()
-                            * w_gold.to(ct).float(), dim=1) + bf[idx])
-        z_gold = stitch.reduce_sum(torch.where(own, z_gold, 0.0))
-        if fused:
-            ctx.save_for_backward(P, Wd, bf, lab_k.to(torch.int32)
-                                  .contiguous(), lse.contiguous())
-            ctx.geometry = geometry
-        else:
-            ctx.save_for_backward(pooled.detach(), Wd, b.detach(), lab_k,
-                                  lse)
-        ctx.meta = (ct, layout, dtype, fused, pooled.dtype, b.dtype)
+        lse, z_gold, saved, ctx.geometry = _block_forward(
+            pooled, W, b, labels, stitch, layout, dtype, fused)
+        ctx.save_for_backward(*saved)
+        ctx.meta = (_compute_dtype(dtype), layout, dtype, fused,
+                    pooled.dtype, b.dtype)
         return torch.sum(lse - z_gold) / stitch.parts
 
     @staticmethod
@@ -624,3 +647,78 @@ def xent_loss_apply(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     db, dpooled, gsq = _bwd_apply(saved, geometry, slots, opt, lr, count,
                                   gscale, ct)
     return loss, W, opt_tree, db, dpooled, gsq
+
+
+# ---------- the entity-sharded backward with the update (pure TP) ----------
+#
+# Port of sert_tpu/ops/xent.py make_sharded_xent_apply :818 (its shard_map
+# body :857-905 is the rank's own block here). Where the mesh's data axis
+# has size 1, every rank holds the whole batch, so the dW of its block is
+# the complete gradient of the block's entity columns and the update
+# applies per block with no reduction before it. The forward is the
+# sharded loss's (_block_forward); K7 is fed the global lse and the
+# block's labels, -1 off the block.
+
+def _stitched_apply(stitch: Stitch, lse, z_gold, W, opt_tree, db, dpooled,
+                    gsq):
+    """``xent_loss_apply``'s results from a block's: the global loss
+    (alike on every block), W and the slots as given, the block's db, and
+    dpooled and gsq summed over the blocks (one collective)."""
+    flat = stitch.reduce_sum(torch.cat([dpooled.reshape(-1),
+                                        gsq.reshape(1)]))
+    return (torch.sum(lse - z_gold), W, opt_tree, db,
+            flat[:-1].view(dpooled.shape), flat[-1])
+
+
+@torch.no_grad()
+def sharded_xent_apply_plain(pooled: torch.Tensor, W: torch.Tensor,
+                             b: torch.Tensor, labels: torch.Tensor,
+                             stitch: Stitch = ONE_BLOCK, *, opt: str,
+                             opt_tree, lr: float, count, gscale: float,
+                             layout: str = "de", dtype: str = "float32"):
+    """:func:`sharded_xent_apply` in plain PyTorch: the block's lse
+    (:func:`xent_lse_plain`), stitched; :func:`xent_bwd_plain` fed the
+    global lse; the update in the kernel's order (materializes
+    [B, E/parts])."""
+    slots = _slots(W, opt, opt_tree)
+    lse, z_gold, saved, _ = _block_forward(pooled, W, b, labels, stitch,
+                                           layout, dtype, False)
+    dpooled, dW, db = xent_bwd_plain(pooled, W, b, lse, saved[3], layout,
+                                     dtype)
+    gsq = _update_plain(W, slots, dW, opt, lr, count, gscale)
+    return _stitched_apply(stitch, lse, z_gold, W, opt_tree, db * gscale,
+                           dpooled * gscale, gsq)
+
+
+@torch.no_grad()
+def sharded_xent_apply(pooled: torch.Tensor, W: torch.Tensor,
+                       b: torch.Tensor, labels: torch.Tensor,
+                       stitch: Stitch = ONE_BLOCK, *, opt: str, opt_tree,
+                       lr: float, count, gscale: float, layout: str = "de",
+                       dtype: str = "float32"):
+    """:func:`xent_loss_apply` on this rank's block of an entity axis split
+    into ``stitch.parts`` blocks, every rank holding the whole batch: the
+    rows ``pooled`` [B, d] and their global ``labels``, this rank's block
+    of W ([d, E/parts] "de" or [E/parts, d] "ed"), of b [E/parts] and of
+    the optimizer slots. K5 on the block, its lse stitched with the
+    others', then K7 fed the global lse and labels of -1 off the block,
+    which updates W's block and its slots IN PLACE; on CPU tensors
+    :func:`sharded_xent_apply_plain`. Not differentiable.
+
+    Returns ``(loss_sum, W, opt_tree, db * gscale, dpooled * gscale,
+    gsq)``: the global loss (alike on every block), this block's db, and
+    dpooled and gsq = ||gscale * dW||^2 over every block (summed with
+    ``stitch.reduce_sum``)."""
+    if pooled.device.type == "cpu":
+        return sharded_xent_apply_plain(
+            pooled, W, b, labels, stitch, opt=opt, opt_tree=opt_tree, lr=lr,
+            count=count, gscale=gscale, layout=layout, dtype=dtype)
+    _cuda_only(pooled)
+    slots = _slots(W, opt, opt_tree)
+    lse, z_gold, saved, geometry = _block_forward(pooled, W, b, labels,
+                                                  stitch, layout, dtype,
+                                                  True)
+    db, dpooled, gsq = _bwd_apply(saved, geometry, slots, opt, lr, count,
+                                  gscale, _compute_dtype(dtype))
+    return _stitched_apply(stitch, lse, z_gold, W, opt_tree, db, dpooled,
+                           gsq)

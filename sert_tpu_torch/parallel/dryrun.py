@@ -305,6 +305,197 @@ def check_card_world(n: int = 4, timeout: float = 600.0) -> dict:
     return {"ok": ok, "ranks": n, "cases": report}
 
 
+def _one_card_fused(cfg, tcfg, batches, out_dir: str, device) -> dict:
+    """The one-card fused step (``train.fused.make_fused_train_step``) of
+    ``cfg``, ``tcfg`` at mesh (1, 1) over ``batches`` on ``device``, in this
+    process: its losses and grad norms, and its params and slots after
+    the first micro-step written to ``out_dir`` as ``.npy`` files (their
+    paths by leaf name)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from sert_tpu_torch.parallel.worlds import tensor_leaves
+    from sert_tpu_torch.train.fused import make_fused_train_step
+    from sert_tpu_torch.train.step import init_state
+    tcfg = dataclasses.replace(tcfg, mesh_shape=(1, 1), fused_update="on")
+    state = init_state(tcfg.seed, cfg, tcfg, device)
+    step = make_fused_train_step(cfg, tcfg)
+    losses, norms, paths = [], [], {}
+    for i, b in enumerate(batches):
+        _, m = step(state, {k: torch.from_numpy(v).to(device)
+                            for k, v in b.items()})
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        if i == 0:
+            for j, (k, t) in enumerate(sorted(tensor_leaves(state).items())):
+                paths[k] = os.path.join(out_dir, f"{j}.npy")
+                np.save(paths[k], t.cpu().numpy())
+    del state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": losses, "norms": norms, "paths": paths}
+
+
+def seeded_batches(cfg, tcfg, window: int, steps: int, seed: int):
+    """``steps`` seeded host batches of ``tcfg.batch_size`` windows of
+    width ``window`` (lengths 1 to ``window``, padding id 0)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        lengths = rng.integers(1, window + 1, tcfg.batch_size)
+        windows = rng.integers(0, cfg.vocab_size,
+                               (tcfg.batch_size, window))
+        windows *= np.arange(window) < lengths[:, None]
+        out.append({"windows": windows.astype(np.int32),
+                    "lengths": lengths.astype(np.int32),
+                    "entities": rng.integers(0, cfg.num_entities,
+                                             tcfg.batch_size)
+                    .astype(np.int32)})
+    return out
+
+
+def _max_rel(got, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _leaf_parity(stats, leaf: str, sharded: bool) -> dict:
+    """One leaf's ``worlds._diff_stats`` over the mesh from each rank's
+    ``stats`` (a sharded leaf's blocks added, a replicated leaf's from rank
+    0: the ranks hold equal copies): the norm of the difference over the
+    norm of the other, the largest difference, and the elements beyond
+    rtol times the other's largest magnitude, out of all."""
+    rows = ([st[leaf] for st in stats] if sharded else [stats[0][leaf]])
+    num, den = sum(x[0] for x in rows), sum(x[1] for x in rows)
+    return {"rel_norm": (num / den) ** 0.5 if den else num ** 0.5,
+            "max_abs": max(x[2] for x in rows),
+            "over": sum(x[3] for x in rows), "of": sum(x[4] for x in rows)}
+
+
+def check_fused_card_world(cfg, tcfg, n: int = 4, window: int = 8,
+                           steps: int = 8, opts=("adam", "adagrad", "sgd"),
+                           rtol: float = 1e-4, seed: int = 0,
+                           timeout: float = 600.0,
+                           device: str = "cuda") -> dict:
+    """The pure-TP fused step on the card: for each optimizer of ``opts``,
+    ``cfg`` (log-linear or lse_full) and ``tcfg`` run ``steps`` seeded
+    micro-steps on an ``n``-rank gloo world whose ranks all hold the one
+    card, at mesh (1, n), with ``fused_update`` "on" (K5 + K7 per entity
+    block), each micro-step also taken from the same state by the dense
+    sharded step, "off" (K5/K6 per block) (``worlds.fused_tp_card``), and
+    through the one-card fused step in this process.
+
+    Held: each micro-step's params and slots of "on" against those of
+    "off" from the same state, and the first micro-step's against one
+    card's, the norm of each leaf's difference within ``rtol`` of the
+    other's norm (the slots against one card within :data:`CARD_TOL` of
+    the compute dtype: the word table's carry the compute dtype's
+    rounding of a gradient whose entity sum runs in another order);
+    elementwise a bf16 rounding can land one step, 2^-8, the other way,
+    so the largest difference and the elements beyond ``rtol`` times the
+    other's largest magnitude are reported, not held. The losses and grad
+    norms within ``rtol`` (relative) of "off"'s and, over the free-running
+    micro-steps, of one card's; every replicated leaf bit-equal on every
+    rank; every block E / n entities wide; every rank's "on" run K5 and K7
+    once a micro-step and K6 never ("off": K5 and K6).
+
+    Returns a report by optimizer (launches, ms a micro-step and the
+    collectives' share by rank, peak memory by rank, the errors) and
+    ``ok``. ``device`` "cpu" runs the same on CPU ranks, where no kernel
+    launches."""
+    import dataclasses
+    import numpy as np
+    from sert_tpu_torch.ops import _build
+    from sert_tpu_torch.parallel.sharding import sharded_axis
+    from sert_tpu_torch.parallel.train import state_specs
+    if device == "cuda":
+        _build.build()             # the ranks load it; none compiles
+    batches = seeded_batches(cfg, tcfg, window, steps, seed)
+    report, ok = {}, True
+    with tempfile.TemporaryDirectory(prefix="sert-fused-") as tmp:
+        jobs, ones = [], {}
+        for opt in opts:
+            t = dataclasses.replace(tcfg, optimizer=opt, steps_per_call=1,
+                                    mesh_shape=(1, n))
+            os.makedirs(os.path.join(tmp, opt))
+            ones[opt] = _one_card_fused(cfg, t, batches,
+                                        os.path.join(tmp, opt), device)
+            jobs.append(("fused_tp_card", dict(
+                cfg=cfg, tcfg=t, batches=batches, device=device,
+                one_card=ones[opt]["paths"], rtol=rtol)))
+        out = launch(n, "sert_tpu_torch.parallel.worlds:run_jobs", jobs,
+                     timeout=timeout)
+    k = steps if device == "cuda" else 0
+    want = {"on": (k, 0, k), "off": (k, k, 0)}    # K5, K6, K7 a rank
+    for j, opt in enumerate(opts):
+        ranks = [r[j] for r in out]
+        r0 = ranks[0]
+        on, off, one = r0["on"], r0["off"], ones[opt]
+        errs = {f"{key}_vs_{name}": _max_rel(on[key], other[key])
+                for key in ("losses", "norms")
+                for name, other in (("off", off), ("one_card", one))}
+        # The worst micro-step against "off", and the first against one
+        # card, leaf by leaf.
+        leaves = {"vs_off": {}, "vs_one_card": {
+            leaf: _leaf_parity([r["vs_one_card"] for r in ranks], leaf,
+                               r0["sharded"][leaf]) for leaf in r0["blocks"]}}
+        for i in range(steps):
+            for leaf in r0["blocks"]:
+                x = _leaf_parity([r["vs_off"][i] for r in ranks], leaf,
+                                 r0["sharded"][leaf])
+                w = leaves["vs_off"].setdefault(leaf, x)
+                leaves["vs_off"][leaf] = {k: max(w[k], x[k]) for k in x}
+        specs = state_specs(cfg, dataclasses.replace(tcfg, optimizer=opt))
+        # The slots are images of the gradients: against one card, whose
+        # entity axis sums in another order, the word table's carry the
+        # compute dtype's rounding of the window reps' gradient (CARD_TOL).
+        slot_tol = max(rtol, CARD_TOL[cfg.compute_dtype])
+        leaves_ok = all(
+            x["rel_norm"] <= (slot_tol if which == "vs_one_card"
+                              and leaf not in specs["params"] else rtol)
+            for which, v in leaves.items() for leaf, x in v.items())
+        axes = {name: sharded_axis(spec) for group in specs.values()
+                for name, spec in group.items()}
+        blocks_ok = all(
+            r["blocks"][leaf][axes[leaf]] == cfg.num_entities // n
+            for r in ranks for leaf in r["blocks"]
+            if axes[leaf] is not None)
+        replicas_ok = all(r["replica_hash"] == r0["replica_hash"]
+                          for r in ranks)
+        metrics_alike = all(r["on"]["losses"] == on["losses"]
+                            and r["on"]["norms"] == on["norms"]
+                            for r in ranks)
+        through = all(
+            (r[m]["launches"]["xent_fwd"], r[m]["launches"]["xent_bwd"],
+             r[m]["launches"]["xent_bwd_apply"]) == want[m]
+            for r in ranks for m in want)
+        opt_ok = (through and blocks_ok and replicas_ok and metrics_alike
+                  and leaves_ok and max(errs.values()) <= rtol)
+        ok = ok and opt_ok
+        report[opt] = {
+            "ok": opt_ok, "launches_through_kernels": through,
+            "blocks_ok": blocks_ok, "replicas_bit_equal": replicas_ok,
+            "metrics_alike_on_ranks": metrics_alike,
+            "leaves_within_rtol": leaves_ok, "slot_rtol_vs_one_card": slot_tol,
+            "errors": errs,
+            "leaves": leaves,
+            "launches": {m: [r[m]["launches"] for r in ranks]
+                         for m in want},
+            "ms_per_step": {m: [float(np.median(r[m]["ms"][1:]))
+                                for r in ranks] for m in want},
+            "collective_share": {
+                m: [r[m]["collective_s"] * 1e3 / sum(r[m]["ms"])
+                    for r in ranks] for m in want},
+            "collective_calls_per_step": {
+                m: r0[m]["collective_calls"] / steps for m in want},
+            "peak_mem_bytes": {m: [r[m]["peak_mem_bytes"] for r in ranks]
+                               for m in want},
+            "losses": {"on": on["losses"], "off": off["losses"],
+                       "one_card": one["losses"]}}
+    return {"ok": ok, "ranks": n, "mesh": [1, n], "steps": steps,
+            "rtol": rtol, "optimizers": report}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m "
                                  "sert_tpu_torch.parallel.dryrun")

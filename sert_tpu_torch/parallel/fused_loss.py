@@ -10,7 +10,11 @@ Every loss here returns the rank's partial (the mesh's convention,
 loss over the global batch, each rank's value being its data block's
 share divided by tp. The pooling front (word gather, masked mean, the tanh
 projection) runs on each rank for its rows from the replicated word table;
-the step sums the replicated leaves' gradients over the mesh.
+the step sums the replicated leaves' gradients over the mesh. Where the
+blocks split the softmax, the window reps' gradient is summed over
+``model`` in fp32 before the front's backward rounds it to the compute
+dtype (``parallel.mesh.grad_on_first``), where the reference's
+shard_map transpose sums it.
 
   * full softmax (loglinear, lse_full): ``ops.xent.sharded_xent_loss``,
     K5/K6 per entity block (or their plain versions per block);
@@ -41,7 +45,7 @@ from sert_tpu_torch.models.common import use_fused
 from sert_tpu_torch.ops.sampled_lse import sampled_lse, sampled_lse_plain
 from sert_tpu_torch.ops.xent import Stitch, sharded_xent_loss
 from sert_tpu_torch.parallel.mesh import (Mesh, all_reduce_max,
-                                          all_reduce_sum)
+                                          all_reduce_sum, grad_on_first)
 from sert_tpu_torch.parallel.sharding import block
 from sert_tpu_torch.utils.config import ModelConfig
 
@@ -107,6 +111,7 @@ def make_sharded_fused_loss(cfg: ModelConfig, mesh: Mesh):
             b = torch.zeros((El,), dtype=torch.float32, device=W.device)
         kernel = use_fused(dataclasses.replace(cfg_, num_entities=El),
                            pooled.device, pooled.shape[0])
+        pooled = grad_on_first(pooled, mesh, "model")
         total = sharded_xent_loss(pooled, W, b, batch["entities"].long(),
                                   model_stitch(mesh, El), layout,
                                   cfg_.compute_dtype, kernel)
@@ -158,6 +163,7 @@ def make_sharded_sampled_loss(cfg: ModelConfig, mesh: Mesh):
                 noise=None, negatives=None) -> torch.Tensor:
         reps, pos_rows, cand, corr, negs, pos = _sampled_inputs(
             params, batch, cfg_, mesh, generator, noise, negatives)
+        reps = grad_on_first(reps, mesh, "model")
         s_pos = torch.sum(reps * pos_rows, dim=-1)
         kernel = use_fused(
             dataclasses.replace(cfg_, num_negatives=hi - lo), reps.device,

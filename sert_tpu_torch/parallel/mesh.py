@@ -158,6 +158,39 @@ def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh],
     return _AllReduceSum.apply(x, mesh.group(axis))
 
 
+class _GradOnFirst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM,
+                        group=ctx.mesh.group(ctx.axis))
+        if ctx.mesh.coords[ctx.axis] != 0:
+            g.zero_()
+        return g, None, None
+
+
+def grad_on_first(x: torch.Tensor, mesh: Optional[Mesh],
+                  axis: str) -> torch.Tensor:
+    """``x`` itself, whose gradient becomes the sum over ``axis`` of the
+    ranks' gradients on the axis's first rank and zero on the others. For
+    a tensor computed alike on every rank of ``axis`` from replicated
+    leaves (the window reps that a loss's entity blocks share), whose
+    gradient on each rank is that rank's partial: the partials are summed
+    here, in their own dtype (fp32), before the backward above rounds them
+    to the compute dtype, as the reference's shard_map transpose sums them;
+    the mesh's sum of the leaves' gradients (``parallel/train._finish``)
+    then adds zeros to the first rank's, exactly. The identity on an axis
+    of size 1."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return x
+    return _GradOnFirst.apply(x, mesh, axis)
+
+
 @torch.no_grad()
 def all_reduce_max(x: torch.Tensor, mesh: Optional[Mesh],
                    axis: Axis) -> torch.Tensor:

@@ -13,6 +13,11 @@ replicated over ``model`` (the word table, the LSE projection) over
 ``model`` too. The optimizer then updates each rank's blocks in place;
 its global norm and adafactor's factored means sum the sharded leaves
 over ``model`` (``train.step.ShardInfo``).
+
+With ``fused_update="on"`` on a pure-TP mesh (data axis 1) the step is
+instead ``train/fused.py``'s per entity block (the reference's :72-81):
+K5 and K7 on the block, the optimizer applied inside K7, so no gradient
+of the entity matrix leaves its rank; the collectives are the stitch's.
 """
 
 from __future__ import annotations
@@ -29,15 +34,12 @@ from sert_tpu_torch.parallel.fused_loss import (make_replicated_loss,
 from sert_tpu_torch.parallel.mesh import WORLD, Mesh, all_reduce_sum
 from sert_tpu_torch.parallel.sharding import (batch_rows, shard_state,
                                               sharded_axis, state_shardings)
+from sert_tpu_torch.train import fused
 from sert_tpu_torch.train.step import (Optimizer, ShardInfo, TrainState,
                                        check_optimizer_model_fit,
                                        global_norm, init_state,
-                                       micro_step_calls)
+                                       make_train_step, micro_step_calls)
 from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
-
-# The pure-TP fused-update step (K5/K7 per entity shard,
-# sert_tpu/ops/xent.py:818 make_sharded_xent_apply) is not ported yet.
-FUSED_TP_ITEM = "ROADMAP Queue 1 item 14: the pure-TP fused-update step"
 
 
 def _want_fused_sampled(model_cfg: ModelConfig, mesh: Mesh) -> bool:
@@ -87,29 +89,68 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     the same seed and keeps its blocks; the generator that draws the
     negatives is then alike on every rank), ``put_fn(batch)`` this rank's
     rows of a host batch as tensors on the mesh's device, and
-    ``train_step(state, batch)`` the dense step with the contract of
+    ``train_step(state, batch)`` the step with the contract of
     ``train.step.make_train_step``'s (metrics: the global loss and grad
     norm, alike on every rank).
 
     ``per_process_feed``: ``put_fn`` takes this data rank's rows already
     (B/dp of them; the loop's reader mode), not the global batch.
 
-    The step is always the dense one: the row-sparse step is
-    single-device (``sparse_update="on"`` on a mesh larger than one rank
-    raises, as the reference's gate refuses a mesh), and the fused-update
-    step on a mesh is not ported (:data:`FUSED_TP_ITEM`)."""
-    if mesh.size > 1 and train_cfg.fused_update == "on":
-        raise ValueError(
-            "fused_update='on' on a mesh is not ported yet ("
-            f"{FUSED_TP_ITEM}); use fused_update='off' or 'auto'")
-    if mesh.size > 1 and train_cfg.sparse_update == "on":
+    The step, in the reference's order: on a mesh of one rank with
+    ``fused_update`` or ``sparse_update`` "on", the one-card step
+    (``make_train_step``: the fused step, K5 + K7, or the row-sparse lazy
+    one) on its own state; on a pure-TP mesh with ``fused_update="on"``,
+    the fused step per entity block (``train.fused.make_fused_train_step``
+    with the mesh; "on" elsewhere on a mesh raises); otherwise the dense
+    step on this rank's blocks. ``sparse_update="on"`` on a mesh larger
+    than one rank raises, as the reference's gate refuses a mesh."""
+    check_optimizer_model_fit(model_cfg, train_cfg)
+    one_rank = mesh.size == 1 and "on" in (train_cfg.fused_update,
+                                           train_cfg.sparse_update)
+    specs = state_specs(model_cfg, train_cfg)
+    if one_rank:
+        step = make_train_step(model_cfg, train_cfg, noise=noise,
+                               device=mesh.device)
+    elif fused.fused_tp_enabled(model_cfg, train_cfg, mesh):
+        step = fused.make_fused_train_step(model_cfg, train_cfg, mesh=mesh)
+    elif mesh.size > 1 and train_cfg.sparse_update == "on":
         raise ValueError(
             "sparse_update='on' needs mesh_shape=(1, 1): the row-sparse "
             "step is single-device")
-    check_optimizer_model_fit(model_cfg, train_cfg)
-    meta = _meta_state(model_cfg, train_cfg)
-    specs = state_shardings(meta, model_cfg)
+    else:
+        step = _dense_step(model_cfg, train_cfg, mesh, specs, noise)
+
+    def init_fn() -> TrainState:
+        if one_rank:       # the one-card step's state: dense or row-sparse
+            return init_state(train_cfg.seed, model_cfg, train_cfg,
+                              mesh.device)
+        state = init_state(train_cfg.seed, model_cfg, train_cfg, mesh.device,
+                           sparse_override=False)
+        return shard_state(state, mesh, model_cfg, specs)
+
+    bdim = 1 if train_cfg.steps_per_call > 1 else 0
+
+    def put_fn(batch):
+        if per_process_feed:
+            n = next(iter(batch.values())).shape[bdim]
+            if n * mesh.shape["data"] != train_cfg.batch_size:
+                raise ValueError(
+                    f"local batch rows {n} must be the data rank's share "
+                    f"of batch_size {train_cfg.batch_size}")
+        else:
+            batch = batch_rows(batch, mesh, bdim)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.device)
+                for k, v in batch.items()}
+
+    return step, init_fn, put_fn
+
+
+def _dense_step(model_cfg: ModelConfig, train_cfg: TrainConfig, mesh: Mesh,
+                specs, noise):
+    """The dense step on this rank's blocks: the mesh loss's partial,
+    autograd, :func:`_finish`'s reduction, the optimizer on the blocks."""
     loss_fn = make_mesh_loss(model_cfg, mesh)
+    meta = _meta_state(model_cfg, train_cfg)
     shards = ShardInfo(
         axes={n: sharded_axis(s) for n, s in specs["params"].items()},
         shapes={n: tuple(t.shape) for n, t in meta.params.items()},
@@ -130,27 +171,7 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         state.step += 1
         return {"loss": loss, "grad_norm": grad_norm}
 
-    def init_fn() -> TrainState:
-        state = init_state(train_cfg.seed, model_cfg, train_cfg, mesh.device,
-                           sparse_override=False)
-        return shard_state(state, mesh, model_cfg, specs)
-
-    bdim = 1 if train_cfg.steps_per_call > 1 else 0
-
-    def put_fn(batch):
-        if per_process_feed:
-            n = next(iter(batch.values())).shape[bdim]
-            if n * mesh.shape["data"] != train_cfg.batch_size:
-                raise ValueError(
-                    f"local batch rows {n} must be the data rank's share "
-                    f"of batch_size {train_cfg.batch_size}")
-        else:
-            batch = batch_rows(batch, mesh, bdim)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.device)
-                for k, v in batch.items()}
-
-    return (micro_step_calls(micro_step, train_cfg.steps_per_call), init_fn,
-            put_fn)
+    return micro_step_calls(micro_step, train_cfg.steps_per_call)
 
 
 @torch.no_grad()

@@ -1,9 +1,10 @@
 """Work run on every rank of a gloo world (``parallel.dryrun.launch``):
-the sharded losses, steps, loop, feed, top-k and searcher on a mesh, from
-numpy inputs, each returning numpy results that a caller holds against
-one rank or against the reference. The ranks are CPU processes; the
-losses also run on CUDA tensors (``spec["device"]``), every rank on the
-same card, which gloo allows where NCCL does not.
+the sharded losses, steps (the pure-TP fused step too), loop, feed, top-k
+and searcher on a mesh, from numpy inputs, each returning numpy results
+that a caller holds against one rank or against the reference. The ranks
+are CPU processes; the losses and the pure-TP fused step also run on CUDA
+tensors (``spec["device"]``), every rank on the same card, which gloo
+allows where NCCL does not.
 
 :func:`run_jobs` runs a list of ``(function name, spec)`` jobs in one
 world, so that one world of processes serves many cases. Every function
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Any, Dict, List
 
 import numpy as np
@@ -54,7 +56,8 @@ def _launches() -> Dict[str, int]:
     from sert_tpu_torch.ops import sampled_lse, xent
     return {"sampled_lse_fwd": sampled_lse.fwd_launches,
             "sampled_lse_bwd": sampled_lse.bwd_launches,
-            "xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches}
+            "xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches,
+            "xent_bwd_apply": xent.apply_launches}
 
 
 def _since(before: Dict[str, int]) -> Dict[str, int]:
@@ -133,6 +136,34 @@ def xent_loss(spec) -> dict:
             "launches": launches}
 
 
+def xent_apply(spec) -> dict:
+    """``ops.xent.sharded_xent_apply`` on the (1, world) mesh from the full
+    pooled, W, b, labels and ``spec["slots"]`` (each rank its block of W,
+    b and the slots), with ``spec["kw"]`` (opt, lr, count, gscale,
+    layout, dtype): the loss, gsq and dpooled, and the full updated W,
+    slots and db (gathered over ``model``)."""
+    from sert_tpu_torch.ops.xent import sharded_xent_apply
+    from sert_tpu_torch.parallel.fused_loss import model_stitch
+    mesh = make_mesh((1, -1), device="cpu")
+    kw = spec["kw"]
+    w_spec = (None, "model") if kw["layout"] == "de" else ("model", None)
+
+    def mine(x, s):
+        return shard_tensor(torch.from_numpy(x), s, mesh).contiguous()
+
+    W, b = mine(spec["W"], w_spec), mine(spec["b"], ("model",))
+    slots = {k: mine(v, w_spec) for k, v in spec["slots"].items()}
+    loss, W, slots, db, dpooled, gsq = sharded_xent_apply(
+        torch.from_numpy(spec["pooled"]), W, b,
+        torch.from_numpy(spec["labels"]), model_stitch(mesh, b.shape[0]),
+        opt_tree=slots, **kw)
+    return {"loss": float(loss), "gsq": float(gsq), "dpooled": _np(dpooled),
+            "db": _np(gather_tensor(db, ("model",), mesh)),
+            "W": _np(gather_tensor(W, w_spec, mesh)),
+            "slots": {k: _np(gather_tensor(v, w_spec, mesh))
+                      for k, v in slots.items()}}
+
+
 def model_loss(spec) -> dict:
     """The mesh loss of ``spec["cfg"]`` (``parallel.train.make_mesh_loss``)
     on one global batch from full numpy params, with ``spec["negatives"]``
@@ -188,13 +219,22 @@ def _rows(batch, mesh, bdim: int = 0):
     return _tensors(batch_rows(batch, mesh, bdim))
 
 
+def tensor_leaves(state) -> Dict[str, torch.Tensor]:
+    """The params and the optimizer's tensor slots of a TrainState, by
+    name (a param's name, or an optimizer state key)."""
+    return {**state.params, **{k: v for k, v in state.opt_state.items()
+                               if isinstance(v, torch.Tensor)}}
+
+
 def train_steps(spec) -> dict:
     """``make_sharded_train_step`` of ``spec["cfg"]``, ``spec["tcfg"]`` on
     ``spec["mesh"]`` over ``spec["batches"]`` (global host batches), from
     ``spec["params"]`` (full numpy params; the step's own init where
     absent), with ``spec["negatives"]`` injected at every draw (drawn by
     the generator where absent): each step's loss and grad norm, the
-    final full params and optimizer slots, and the draws this rank made."""
+    final full params and optimizer slots, the shapes of this rank's
+    blocks of them, the draws this rank made and the kernels it
+    launched."""
     cfg, tcfg = spec["cfg"], spec["tcfg"]
     mesh = make_mesh(tuple(spec["mesh"]), device="cpu")
     step, init_fn, put_fn = make_sharded_train_step(cfg, tcfg, mesh)
@@ -207,48 +247,190 @@ def train_steps(spec) -> dict:
     else:
         state = init_fn()
     losses, norms, draws = [], [], []
+    before = _launches()
     with injected_negatives(spec.get("negatives"), record=draws):
         for b in spec["batches"]:
             state, m = step(state, put_fn(b))
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+    launches = _since(before)
+    blocks = {k: tuple(v.shape) for k, v in tensor_leaves(state).items()}
     full = gather_state(state, mesh, specs)
     return {"losses": losses, "norms": norms, "draws": draws,
+            "launches": launches, "blocks": blocks,
             "params": {k: _np(v) for k, v in full.params.items()},
             "opt": {k: (v if isinstance(v, int) else _np(v))
                     for k, v in full.opt_state.items()}}
 
 
+@contextlib.contextmanager
+def timed_collectives(sync):
+    """[seconds, calls] of ``torch.distributed.all_reduce`` while the block
+    runs (every collective of a train step), ``sync()`` called before and
+    after each so that the time is the collective's, not that of the
+    kernels it would wait for."""
+    import torch.distributed as dist
+    orig, spent = dist.all_reduce, [0.0, 0]
+
+    def timed(*args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        sync()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield spent
+    finally:
+        dist.all_reduce = orig
+
+
+def _diff_stats(got: torch.Tensor, want: torch.Tensor, rtol: float
+                ) -> list:
+    """[sum of squared differences, sum of squares of ``want``, largest
+    absolute difference, elements whose difference exceeds ``rtol`` times
+    the largest magnitude of ``want``, elements], the sums in fp64."""
+    a, b = got.double(), want.to(got.device).double()
+    diff = (a - b).abs()
+    limit = rtol * float(b.abs().max()) if b.numel() else 0.0
+    return [float((diff ** 2).sum()), float((b ** 2).sum()),
+            float(diff.max()) if diff.numel() else 0.0,
+            int((diff > limit).sum()), diff.numel()]
+
+
+def _copy_state(state):
+    return dataclasses.replace(
+        state, params={k: v.clone() for k, v in state.params.items()},
+        opt_state={k: v if isinstance(v, int) else v.clone()
+                   for k, v in state.opt_state.items()})
+
+
+def fused_tp_card(spec) -> dict:
+    """The pure-TP fused step on ``spec["device"]``: ``spec["tcfg"]``'s
+    ``make_sharded_train_step`` of ``spec["cfg"]`` on the (1, world) mesh
+    with ``fused_update`` "on" over ``spec["batches"]`` (global host
+    batches) from the step's own init; before each micro-step, a copy of
+    the state takes the same micro-step through the dense sharded step
+    ("off"). Returns, for each: the losses, grad norms, host ms a
+    micro-step (each synced by reading its loss), seconds and calls in
+    collectives (:func:`timed_collectives`), launches, and peak device
+    memory (the state's, without the copy, and the micro-step's own).
+    Also, for every param and slot this rank holds, :func:`_diff_stats`
+    at ``spec["rtol"]`` of "on" against "off" after each micro-step, and
+    after the first against ``spec["one_card"]`` (``.npy`` paths by leaf
+    name of the one-card state then; this rank's block sliced out);
+    whether each leaf is sharded, its block's shape, and a hash of each
+    replicated leaf's bytes (every rank's must be equal)."""
+    import hashlib
+    cfg, tcfg = spec["cfg"], spec["tcfg"]
+    dev = torch.device(spec.get("device", "cuda"))
+    mesh = make_mesh((1, -1), device=dev)
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    specs = state_specs(cfg, tcfg)
+    axes = {name: sharded_axis(s) for group in specs.values()
+            for name, s in group.items()}
+    steps = {m: make_sharded_train_step(
+        cfg, dataclasses.replace(tcfg, fused_update=m), mesh)
+        for m in ("on", "off")}
+    state = steps["on"][1]()
+    batches = [steps["on"][2](b) for b in spec["batches"]]
+    runs = {m: {"losses": [], "norms": [], "ms": [], "launches": {},
+                "collective_s": 0.0, "collective_calls": 0,
+                "peak_mem_bytes": 0} for m in steps}
+    vs_off, vs_one = [], None
+    rtol = spec["rtol"]
+    for i, b in enumerate(batches):
+        sync()
+        resident = torch.cuda.memory_allocated(dev) if cuda else 0
+        before = _copy_state(state)
+        for mode, st in (("off", before), ("on", state)):
+            run = runs[mode]
+            sync()
+            if cuda:
+                start = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            n0 = _launches()
+            with timed_collectives(sync) as coll:
+                t0 = time.perf_counter()
+                _, m = steps[mode][0](st, b)
+                run["losses"].append(m["loss"].item())
+                run["ms"].append((time.perf_counter() - t0) * 1e3)
+                run["norms"].append(m["grad_norm"].item())
+            for k, n in _since(n0).items():
+                run["launches"][k] = run["launches"].get(k, 0) + n
+            run["collective_s"] += coll[0]
+            run["collective_calls"] += coll[1]
+            if cuda:       # the state's, and the micro-step's own
+                run["peak_mem_bytes"] = max(
+                    run["peak_mem_bytes"], resident
+                    + torch.cuda.max_memory_allocated(dev) - start)
+        on, off = tensor_leaves(state), tensor_leaves(before)
+        vs_off.append({k: _diff_stats(t, off[k], rtol)
+                       for k, t in on.items()})
+        del before, off
+        if i == 0:
+            vs_one = {}
+            for k, t in on.items():
+                full = np.load(spec["one_card"][k], mmap_mode="r")
+                if axes[k] is not None:
+                    lo, hi = block(full.shape[axes[k]], mesh)
+                    full = full[(slice(None),) * axes[k] + (slice(lo, hi),)]
+                vs_one[k] = _diff_stats(t, torch.from_numpy(
+                    np.ascontiguousarray(full)), rtol)
+    on = tensor_leaves(state)
+    return {"rank": world_rank(), **runs, "vs_off": vs_off,
+            "vs_one_card": vs_one,
+            "sharded": {k: axes[k] is not None for k in on},
+            "blocks": {k: tuple(t.shape) for k, t in on.items()},
+            "replica_hash": {k: hashlib.sha256(t.cpu().numpy().tobytes())
+                             .hexdigest() for k, t in on.items()
+                             if axes[k] is None}}
+
+
 def train_loop(spec) -> dict:
     """``pipeline.train_from_dir`` of ``spec["recipe"]`` on
     ``spec["data"]`` into ``spec["out"]`` on the CPU (each run of
-    ``spec["runs"]``, a list of num_epochs, resumes the last): the final
-    full params and step of each run, and the steps of the checkpoints
-    this rank wrote."""
+    ``spec["runs"]`` resumes the last; a run is a num_epochs, or a dict of
+    TrainConfig fields to set): the final full params and step of each
+    run and the fused steps it built on a mesh, and the steps of the
+    checkpoints this rank wrote."""
     from sert_tpu_torch import pipeline
     from sert_tpu_torch.train import checkpoint as ckpt
-    out, writes = [], []
-    write = ckpt._write
+    from sert_tpu_torch.train import fused
+    out, writes, built = [], [], []
+    write, make_fused = ckpt._write, fused.make_fused_train_step
 
     def counted(*args, **kw):
         writes.append(args[1])
         return write(*args, **kw)
 
-    ckpt._write = counted
+    def counted_fused(*args, **kw):
+        built.append(kw.get("mesh") is not None)
+        return make_fused(*args, **kw)
+
+    ckpt._write, fused.make_fused_train_step = counted, counted_fused
     try:
-        for epochs in spec.get("runs", [None]):
+        for run in spec.get("runs", [None]):
             recipe = spec["recipe"]
-            if epochs is not None:
+            if run is not None:
+                fields = run if isinstance(run, dict) else {
+                    "num_epochs": run}
                 recipe = dataclasses.replace(
                     recipe, train=dataclasses.replace(recipe.train,
-                                                      num_epochs=epochs))
+                                                      **fields))
+            n = len(built)
             state, _ = pipeline.train_from_dir(recipe, spec["data"],
                                                spec["out"], device="cpu")
             out.append({"step": state.step,
+                        "fused_mesh_steps": sum(built[n:]),
                         "params": {k: _np(v)
                                    for k, v in state.params.items()}})
     finally:
-        ckpt._write = write
+        ckpt._write, fused.make_fused_train_step = write, make_fused
     return {"rank": world_rank(), "runs": out, "writes": writes}
 
 

@@ -22,8 +22,17 @@ adagrad's eps 1e-7 (baked into the kernel), one device and a width that
 is a multiple of 128. The reference's VMEM plan (``fused_update_te``) is a
 TPU limit and is not ported: the kernels' own limits take its place
 (``ops.xent.kernel_limits``), so a batch the TPU refused (B = 32768) is
-applicable here. The mesh variant (``fused_tp_applicable``,
-``make_sharded_xent_apply``) is ROADMAP Queue 1 item 12.
+applicable here.
+
+On a pure-TP mesh (data axis 1, ``fused_tp_applicable`` :83,
+``fused_tp_enabled`` :99, ``make_fused_train_step(mesh=)``; "on" only)
+every rank holds the whole batch, so the dW of its block of the entity
+matrix is the complete gradient of those columns: K5 runs on the block,
+the ranks stitch the lse and the gold logit over ``model``, and K7
+updates the block and its slots in place
+(``ops.xent.sharded_xent_apply``). Under data parallelism dW would have
+to be summed over ``data`` before any update, the round trip the fusion
+removes, so "on" raises there.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ import torch
 from sert_tpu_torch.models import loglinear, lse
 from sert_tpu_torch.models.common import use_fused
 from sert_tpu_torch.ops.xent import (ADAGRAD_EPS, OPTIMIZERS, SLOTS,
-                                     kernel_limits, xent_loss_apply)
+                                     kernel_limits, sharded_xent_apply,
+                                     xent_loss_apply)
 from sert_tpu_torch.train.step import (TrainState, has_schedule,
                                        make_optimizer, micro_step_calls)
 from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
@@ -49,10 +59,10 @@ def _dim(model_cfg: ModelConfig) -> int:
             else model_cfg.entity_dim)
 
 
-def fused_applicable(model_cfg: ModelConfig, train_cfg: TrainConfig) -> bool:
-    """True when the one-device fused step exists and matches the dense
-    step's semantics (module docstring)."""
-    d = _dim(model_cfg)
+def _semantics_ok(model_cfg: ModelConfig, train_cfg: TrainConfig) -> bool:
+    """The part of the gates the mesh does not touch: the family, the
+    optimizer, no decay or clipping, a constant lr, adagrad's eps and a
+    width that is a multiple of 128 (module docstring)."""
     return (
         model_cfg.model in ("loglinear", "lse_full")
         and train_cfg.optimizer in OPTIMIZERS
@@ -61,10 +71,65 @@ def fused_applicable(model_cfg: ModelConfig, train_cfg: TrainConfig) -> bool:
         and not has_schedule(train_cfg)
         and (train_cfg.optimizer != "adagrad"
              or train_cfg.adagrad_eps == ADAGRAD_EPS)
-        and tuple(train_cfg.mesh_shape) == (1, 1)
-        and d % 128 == 0
-        and kernel_limits(train_cfg.batch_size, model_cfg.num_entities,
-                          d) is None)
+        and _dim(model_cfg) % 128 == 0)
+
+
+def fused_applicable(model_cfg: ModelConfig, train_cfg: TrainConfig) -> bool:
+    """True when the one-device fused step exists and matches the dense
+    step's semantics (module docstring)."""
+    return (tuple(train_cfg.mesh_shape) == (1, 1)
+            and _semantics_ok(model_cfg, train_cfg)
+            and kernel_limits(train_cfg.batch_size, model_cfg.num_entities,
+                              _dim(model_cfg)) is None)
+
+
+def fused_tp_applicable(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                        mesh_shape=None) -> bool:
+    """True when the pure-TP step applies on a (data, model) mesh of
+    ``mesh_shape`` (default ``train_cfg.mesh_shape``): data 1, model above
+    1 and dividing the entity count, the one-device step's semantics, and
+    the kernels' limits at a block's shape (B, E / tp, d)."""
+    dp, tp = (tuple(mesh_shape) if mesh_shape is not None
+              else tuple(train_cfg.mesh_shape))
+    return (dp == 1 and tp > 1
+            and model_cfg.num_entities % tp == 0
+            and _semantics_ok(model_cfg, train_cfg)
+            and kernel_limits(train_cfg.batch_size,
+                              model_cfg.num_entities // tp,
+                              _dim(model_cfg)) is None)
+
+
+def fused_tp_enabled(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                     mesh) -> bool:
+    """Whether the step on ``mesh`` (``parallel.mesh.Mesh``) is the
+    pure-TP fused one. "off" and "auto" never (the reference keeps "auto"
+    off on meshes: its one-device measurements do not carry over); "on"
+    where :func:`fused_tp_applicable` holds, and a ValueError otherwise,
+    never a silent fallback."""
+    mode = train_cfg.fused_update
+    if mode in ("off", "auto"):
+        return False
+    if mode != "on":
+        raise ValueError(f"unknown fused_update mode: {mode!r}")
+    shape = (mesh.shape["data"], mesh.shape["model"])
+    if fused_tp_applicable(model_cfg, train_cfg, mesh_shape=shape):
+        return True
+    d = _dim(model_cfg)
+    raise ValueError(
+        "fused_update='on' on a mesh requires a pure-TP layout (data axis "
+        "of size 1: under data parallelism dW must be summed over 'data' "
+        "before any update, so the in-kernel update cannot apply), "
+        "num_entities divisible by the model axis, model in (loglinear, "
+        "lse_full), optimizer in (adam, adagrad, sgd), weight_decay=0, "
+        "grad_clip_norm=0, a constant lr (no schedule or warmup), "
+        "adagrad_eps=1e-7, a word/entity dim that is a multiple of 128, "
+        "and the K5/K7 kernels' limits at a block's shape "
+        "(ops.xent.kernel_limits); got "
+        f"mesh={shape} model={model_cfg.model!r} "
+        f"optimizer={train_cfg.optimizer!r} E={model_cfg.num_entities} "
+        f"weight_decay={train_cfg.weight_decay} "
+        f"grad_clip_norm={train_cfg.grad_clip_norm} "
+        f"batch={train_cfg.batch_size} dim={d}")
 
 
 def fused_enabled(model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -93,9 +158,8 @@ def fused_enabled(model_cfg: ModelConfig, train_cfg: TrainConfig,
             "fused_update='on' requires model in (loglinear, lse_full), "
             "optimizer in (adam, adagrad, sgd), weight_decay=0, "
             "grad_clip_norm=0, a constant lr (no schedule or warmup: the "
-            "kernel takes one lr), adagrad_eps=1e-7, mesh_shape=(1, 1) (the "
-            "mesh variant is ROADMAP Queue 1 item 14: the pure-TP "
-            "fused-update step), a word/entity dim "
+            "kernel takes one lr), adagrad_eps=1e-7, mesh_shape=(1, 1) (on a "
+            "pure-TP mesh: fused_tp_enabled), a word/entity dim "
             "that is a multiple of 128, and the K5/K7 kernels' limits "
             f"(ops.xent.kernel_limits: {limits or 'met'}); "
             f"got model={model_cfg.model!r} "
@@ -109,18 +173,36 @@ def fused_enabled(model_cfg: ModelConfig, train_cfg: TrainConfig,
     return True
 
 
-def make_fused_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
+def make_fused_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                          mesh=None):
     """The fused step, with the dense ``train.step.make_train_step``'s
     contract: ``step(state, batch) -> (state, metrics)`` updating the
     params and the optimizer state in place, ``steps_per_call > 1`` a
     Python loop over the stacked batch's micro-steps, metrics the last
-    micro-step's (loss and grad_norm as device tensors)."""
-    if not fused_applicable(model_cfg, train_cfg):
-        raise ValueError("fused step built for an inapplicable config; see "
-                         "fused_applicable")
+    micro-step's (loss and grad_norm as device tensors).
+
+    With ``mesh`` (a pure-TP ``parallel.mesh.Mesh``; ``fused_tp_applicable``
+    must hold) the state is this rank's: its blocks of the entity matrix,
+    of its slots and of ``proj_b``, the other leaves whole, and the batch
+    is the whole batch. Metrics are global and alike on every rank."""
     cfg, opt_name = model_cfg, train_cfg.optimizer
-    opt = make_optimizer(train_cfg)          # the stock small-leaf update
     loglin = cfg.model == "loglinear"
+    E = cfg.num_entities
+    stitch = None
+    if mesh is None:
+        if not fused_applicable(model_cfg, train_cfg):
+            raise ValueError("fused step built for an inapplicable config; "
+                             "see fused_applicable")
+    else:
+        shape = (mesh.shape["data"], mesh.shape["model"])
+        if not fused_tp_applicable(model_cfg, train_cfg, mesh_shape=shape):
+            raise ValueError("mesh fused step built for an inapplicable "
+                             "config; see fused_tp_applicable")
+        # parallel/ imports this module.
+        from sert_tpu_torch.parallel.fused_loss import model_stitch
+        E //= mesh.shape["model"]
+        stitch = model_stitch(mesh, E)
+    opt = make_optimizer(train_cfg)          # the stock small-leaf update
     mat_key, layout = ("proj_w", "de") if loglin else ("entity_emb", "ed")
     head_keys = (("word_emb",) if loglin
                  else ("word_emb", "proj_w", "proj_b"))
@@ -143,22 +225,31 @@ def make_fused_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
         W = params[mat_key]
         # lse_full's logits have no bias: a zero vector, not a parameter.
         bias = (params["proj_b"] if loglin else
-                torch.zeros((cfg.num_entities,), dtype=torch.float32,
-                            device=W.device))
-        loss_sum, _, _, db, dpooled, gsq = xent_loss_apply(
-            pooled.detach(), W, bias, batch["entities"], opt=opt_name,
-            opt_tree={s: opt_state[opt._key(_SLOT_PATHS[s], mat_key)]
-                      for s in SLOTS[opt_name]},
-            lr=train_cfg.learning_rate, count=count, gscale=1.0 / B,
-            layout=layout, dtype=cfg.compute_dtype)
+                torch.zeros((E,), dtype=torch.float32, device=W.device))
+        kw = dict(opt=opt_name,
+                  opt_tree={s: opt_state[opt._key(_SLOT_PATHS[s], mat_key)]
+                            for s in SLOTS[opt_name]},
+                  lr=train_cfg.learning_rate, count=count, gscale=1.0 / B,
+                  layout=layout, dtype=cfg.compute_dtype)
+        if stitch is None:
+            loss_sum, _, _, db, dpooled, gsq = xent_loss_apply(
+                pooled.detach(), W, bias, batch["entities"], **kw)
+        else:
+            loss_sum, _, _, db, dpooled, gsq = sharded_xent_apply(
+                pooled.detach(), W, bias, batch["entities"], stitch, **kw)
+        # dpooled is the whole batch's on every rank, so the replicated
+        # leaves' gradients are complete here: no sum over the mesh.
         grads = dict(zip(head_keys, torch.autograd.grad(
             pooled, [leaves[k] for k in head_keys], grad_outputs=dpooled)))
         if loglin:
             grads["proj_b"] = db        # lse_full's db is dropped
         opt.update(params, grads, opt_state)
         grads_sq = gsq
-        for g in grads.values():
-            grads_sq = grads_sq + torch.sum(g.float() * g.float())
+        for k, g in grads.items():
+            sq = torch.sum(g.float() * g.float())
+            if stitch is not None and k == "proj_b" and loglin:
+                sq = stitch.reduce_sum(sq)          # a block of the entities
+            grads_sq = grads_sq + sq
         state.step += 1
         return {"loss": loss_sum / B, "grad_norm": torch.sqrt(grads_sq)}
 

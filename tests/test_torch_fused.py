@@ -211,10 +211,16 @@ def test_auto_takes_the_fused_step_for_sgd_where_the_kernels_run():
     m, t = _gate_cfgs(config, "loglinear", {}, dict(fused_update="sometimes"))
     with pytest.raises(ValueError, match="unknown fused_update"):
         fused.fused_enabled(m, t)
+    # A mesh goes through the pure-TP gate (fused_tp_enabled): the
+    # one-device gate refuses it with the reference's message.
     m, t = _gate_cfgs(config, "loglinear", {},
                       dict(fused_update="on", mesh_shape=(1, 4)))
-    with pytest.raises(ValueError, match="item 14"):
+    with pytest.raises(ValueError, match=r"mesh_shape=\(1, 1\)"):
         fused.fused_enabled(m, t)
+    with pytest.raises(ValueError, match=r"mesh_shape=\(1, 1\)"):
+        ref_fused.fused_enabled(*_gate_cfgs(
+            ref_config, "loglinear", {},
+            dict(fused_update="on", mesh_shape=(1, 4))))
 
 
 # --- the steps: shared inputs ----------------------------------------------

@@ -250,8 +250,9 @@ def test_three_steps_match_reference(model, fused, train_kw):
 
 def test_fused_update_on_names_its_item(tmp_path):
     """"on" is ported (the fused step, tests/test_torch_fused.py): the loop
-    takes it, an unknown mode still raises, and "on" with a mesh names
-    the item that ports the mesh variant."""
+    takes it, an unknown mode still raises, and "on" with a mesh shape on
+    the one-card step raises the reference's ``mesh_shape=(1, 1)``
+    message (the mesh's own step is tests/test_torch_mesh_fused.py's)."""
     recipe = recipes.tiny_recipe("loglinear")
     for mode in ("on", "auto", "off"):
         loop._check_supported(dataclasses.replace(
@@ -261,7 +262,7 @@ def test_fused_update_on_names_its_item(tmp_path):
         loop._check_supported(dataclasses.replace(
             recipe, train=dataclasses.replace(recipe.train,
                                               fused_update="always")))
-    with pytest.raises(ValueError, match="item 14"):
+    with pytest.raises(ValueError, match=r"mesh_shape=\(1, 1\)"):
         port_step.make_train_step(
             recipe.model.replace(word_dim=128),
             dataclasses.replace(recipe.train, fused_update="on",

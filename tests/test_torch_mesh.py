@@ -277,10 +277,25 @@ class TestGates:
         st = fused_loss.model_stitch(mesh, E // 4)
         assert (st.offset, st.parts) == (3 * E // 4, 4)
 
-    def test_fused_update_on_a_mesh_names_the_item(self):
+    def test_fused_update_on_a_mesh_names_the_item(self, monkeypatch):
+        """fused_update="on" on a pure-TP mesh builds the fused step per
+        entity block; under data parallelism it raises "pure-TP" (the
+        reference's gate), never falling back."""
         cfg = ModelConfig(model="loglinear", vocab_size=V, num_entities=E,
                           word_dim=128)
         tcfg = dataclasses.replace(TCFG, fused_update="on")
-        mesh = types.SimpleNamespace(shape={"data": 1, "model": 4}, size=4)
-        with pytest.raises(ValueError, match="item 14"):
+        built = []
+        make = ptrain.fused.make_fused_train_step
+        monkeypatch.setattr(ptrain.fused, "make_fused_train_step",
+                            lambda *a, **kw: built.append(kw["mesh"])
+                            or make(*a, **kw))
+        mesh = types.SimpleNamespace(shape={"data": 1, "model": 4}, size=4,
+                                     coords={"data": 0, "model": 1},
+                                     device=torch.device("cpu"))
+        step, _, _ = ptrain.make_sharded_train_step(cfg, tcfg, mesh)
+        assert callable(step) and built == [mesh]
+        mesh = types.SimpleNamespace(shape={"data": 2, "model": 2}, size=4,
+                                     coords={"data": 0, "model": 1},
+                                     device=torch.device("cpu"))
+        with pytest.raises(ValueError, match="pure-TP"):
             ptrain.make_sharded_train_step(cfg, tcfg, mesh)
