@@ -216,12 +216,16 @@ Phases (each prints one line or more; any failure exits non-zero):
      of 8 micro-steps against the dense sharded step (K5/K6 per block)
      taken from the same state, the first against the one-card fused step,
      the free-running losses and grad norms against one card's, all within
-     1e-4 (params and slots: the norm of each leaf's difference over its
-     norm; the slots against one card in the bf16 class, 2e-2); every
-     rank K5 and K7 once a micro-step, K6 never; replicated
-     leaves bit-equal on every rank; each rank's ms a micro-step, the gloo
+     1e-4 (params and slots: the norm of the difference of each leaf's
+     change over the norm of the other's change, which a skipped update
+     reads as ~1, each element's difference counted beyond one storage
+     step; against one card within 2e-3, set from the readings, and the
+     same run in fp32 compute for 2 micro-steps, within 5e-4);
+     every rank K5 and K7 once a micro-step, K6 never; replicated leaves
+     bit-equal on every rank; each rank's ms a micro-step, the gloo
      collectives' share and peak memory; K7 alone on one block against
-     its plain version, its time and bound;
+     its plain version for each optimizer (W' held to its change where
+     that is smaller than lr), its time and bound with adam;
  21. mesh_nccl: a world of one rank over NCCL, the (1, 1) mesh: the
      sharded flagship step (parallel.make_sharded_train_step) against the
      one-card step for 8 micro-steps from the same seed (losses and params
@@ -2018,8 +2022,10 @@ def _apply_times(x, opt, layout, dtype, iters):
 def _apply_errors(phase, label, opt, got, x, layout, dtype, shape) -> dict:
     """Each of K7's outputs ``got`` against xent_loss_apply_plain's on the
     same inputs ``x``: its largest error, printed with its tolerance
-    (XENT_TOL of the output's scale; W' of the learning rate; a bf16
-    stored output one step of its value more); AssertionError beyond."""
+    (XENT_TOL of the output's scale; W' of the smaller of lr and its
+    largest change from W, the latter plus one fp32 step of its value; a
+    bf16 stored output one step of its value more); AssertionError
+    beyond."""
     import torch
     from sert_tpu_torch.ops import xent
     want = _apply_outputs(xent.xent_loss_apply_plain, x, opt, layout, dtype)
@@ -2035,14 +2041,21 @@ def _apply_errors(phase, label, opt, got, x, layout, dtype, shape) -> dict:
         else:
             rtol, scale = XENT_TOL[dtype], bf32.abs().max()
         limit = rtol * scale
+        if key == "W":
+            # sgd's and adagrad's steps can move W by far less than lr.
+            step = (bf32 - x[1].float()).abs().max()
+            limit = torch.clamp(rtol * step + 2.0 ** -22 * bf32.abs(),
+                                max=limit)
         if b.dtype == torch.bfloat16:
             # One step of the storage: at most 2^-7 of the value.
             limit = limit + 2.0 ** -7 * bf32.abs()
         diff = (a - bf32).abs()
         errs[key] = err = diff.max().item()
-        say(phase, case=label, opt=opt, **shape, output=key,
+        extra = dict(max_change=step.item()) if key == "W" else {}
+        say(phase, case=label, opt=opt, **shape, output=key, **extra,
             max_abs_err=err,
-            tol=f"{rtol}*{'lr' if key == 'W' else 'max|plain|'}"
+            tol=(f"min({rtol}*lr,{rtol}*max|W'-W|+2^-22*|plain|)"
+                 if key == "W" else f"{rtol}*max|plain|")
                 + ("+2^-7*|plain|" if b.dtype == torch.bfloat16 else ""))
         if not bool((diff <= limit).all()):
             raise AssertionError(f"{label} {opt}: {key} error {err}")
@@ -3300,6 +3313,8 @@ MESH_STEPS = 8
 # world at mesh (1, CARD_RANKS), this many micro-steps an optimizer.
 CARD_RANKS = 4
 MESH_FUSED_STEPS = 8
+# mesh_fused_tp's witness in fp32 compute: this many micro-steps.
+MESH_FUSED_F32_STEPS = 2
 AHK_V, AHK_E, AHK_INSTANCES = 60_000, 20_000, 1 << 17
 
 
@@ -3572,79 +3587,89 @@ def phase_mesh_fused_tp(records: dict) -> dict:
     micro-steps against the dense sharded step ("off", K5/K6 per block)
     from the same state, the first against the one-card fused step in this
     process, the free-running losses and grad norms against one card's,
-    all within FUSED_PARITY_RTOL (the slots against one card within the
-    bf16 class: the word table's carry the bf16 rounding of a gradient
-    whose entity sum runs in another order); every rank K5 and K7 once a
-    micro-step and K6 never. Prints each rank's ms a micro-step, the collectives'
-    share and peak memory; then K7 alone on one block against its plain
-    version, its time and bound. Returns the ranks' launches by kernel
-    ("on" and "off")."""
+    all within FUSED_PARITY_RTOL, params and slots on each step's change
+    beyond rounding (against one card within the check's limit for the
+    compute dtype; the same run in fp32 compute too, MESH_FUSED_F32_STEPS
+    micro-steps); every rank K5 and K7 once a micro-step and K6 never. Prints each rank's ms a micro-step, the collectives' share and
+    peak memory; then K7 alone on one block against its plain version for
+    each optimizer, and its time and bound with adam. Returns the ranks'
+    launches by kernel ("on" and "off")."""
     import torch
     from sert_tpu_torch.ops import xent
-    from sert_tpu_torch.parallel.dryrun import check_fused_card_world
+    from sert_tpu_torch.parallel import dryrun
+    if dryrun.FUSED_TP_RTOL != FUSED_PARITY_RTOL:
+        raise AssertionError("the pure-TP check's rtol is not "
+                             "FUSED_PARITY_RTOL")
     mcfg, tcfg, window = _ab_configs()
     smi = card()
-    t0 = time.perf_counter()
-    report = check_fused_card_world(
-        mcfg, tcfg, n=CARD_RANKS, window=window, steps=MESH_FUSED_STEPS,
-        rtol=FUSED_PARITY_RTOL, seed=SEED, timeout=600.0)
-    seconds = time.perf_counter() - t0
     launches = {"xent_fwd": 0, "xent_bwd": 0, "xent_bwd_apply": 0}
-    for opt, rep in report["optimizers"].items():
-        for mode, ranks in rep["launches"].items():
-            for r in ranks:
-                for name in launches:
-                    launches[name] += r[name]
-        worst = {which: max(x["rel_norm"] for x in v.values())
-                 for which, v in rep["leaves"].items()}
-        say("mesh_fused_tp", opt=opt, mesh=f"1x{CARD_RANKS}",
-            backend="gloo_on_one_card", E=AB_E, block=AB_E // CARD_RANKS,
-            V=AB_V, d=AB_D, B=tcfg.batch_size, steps=MESH_FUSED_STEPS,
-            ok=rep["ok"], through_kernels=rep["launches_through_kernels"],
-            replicas_bit_equal=rep["replicas_bit_equal"],
-            blocks_ok=rep["blocks_ok"],
-            errors=json.dumps(rep["errors"]).replace(" ", ""),
-            worst_leaf_rel_norm=json.dumps(worst).replace(" ", ""),
-            rtol=FUSED_PARITY_RTOL,
-            slot_rtol_vs_one_card=rep["slot_rtol_vs_one_card"],
-            card=json.dumps(smi))
-        for which, v in rep["leaves"].items():
-            say("mesh_fused_tp", opt=opt, against=which,
-                leaves=json.dumps(v).replace(" ", ""))
-        say("mesh_fused_tp", opt=opt,
-            ms_per_step=json.dumps(rep["ms_per_step"]).replace(" ", ""),
-            collective_share=json.dumps(rep["collective_share"]).replace(
-                " ", ""),
-            collective_calls_per_step=json.dumps(
-                rep["collective_calls_per_step"]).replace(" ", ""),
-            peak_mem_bytes=json.dumps(rep["peak_mem_bytes"]).replace(
-                " ", ""),
-            rank_launches=json.dumps(rep["launches"]).replace(" ", ""),
-            losses=json.dumps(rep["losses"]).replace(" ", ""),
-            card=json.dumps(smi))
-    say("mesh_fused_tp", ok=report["ok"], seconds=seconds,
-        launches=json.dumps(launches).replace(" ", ""))
-    if not report["ok"]:
-        raise AssertionError(f"the pure-TP fused step: {report}")
+    for cfg, steps in ((mcfg, MESH_FUSED_STEPS),
+                       (mcfg.replace(compute_dtype="float32"),
+                        MESH_FUSED_F32_STEPS)):
+        t0 = time.perf_counter()
+        report = dryrun.check_fused_card_world(
+            cfg, tcfg, n=CARD_RANKS, window=window, steps=steps, seed=SEED)
+        seconds = time.perf_counter() - t0
+        dt = cfg.compute_dtype
+        for opt, rep in report["optimizers"].items():
+            for mode, ranks in rep["launches"].items():
+                for r in ranks:
+                    for name in launches:
+                        launches[name] += r[name]
+            worst = {which: max(x["rel_norm"] for x in v.values())
+                     for which, v in rep["leaves"].items()}
+            say("mesh_fused_tp", opt=opt, compute=dt,
+                mesh=f"1x{CARD_RANKS}", backend="gloo_on_one_card", E=AB_E,
+                block=AB_E // CARD_RANKS, V=AB_V, d=AB_D,
+                B=tcfg.batch_size, steps=steps, ok=rep["ok"],
+                through_kernels=rep["launches_through_kernels"],
+                replicas_bit_equal=rep["replicas_bit_equal"],
+                blocks_ok=rep["blocks_ok"],
+                errors=json.dumps(rep["errors"]).replace(" ", ""),
+                worst_change_rel_norm=json.dumps(worst).replace(" ", ""),
+                rtol=report["rtol"], one_card_rtol=report["one_card_rtol"],
+                card=json.dumps(smi))
+            for which, v in rep["leaves"].items():
+                say("mesh_fused_tp", opt=opt, compute=dt, against=which,
+                    leaves=json.dumps(v).replace(" ", ""))
+            say("mesh_fused_tp", opt=opt, compute=dt,
+                ms_per_step=json.dumps(rep["ms_per_step"]).replace(" ", ""),
+                collective_share=json.dumps(
+                    rep["collective_share"]).replace(" ", ""),
+                collective_calls_per_step=json.dumps(
+                    rep["collective_calls_per_step"]).replace(" ", ""),
+                peak_mem_bytes=json.dumps(rep["peak_mem_bytes"]).replace(
+                    " ", ""),
+                rank_launches=json.dumps(rep["launches"]).replace(" ", ""),
+                losses=json.dumps(rep["losses"]).replace(" ", ""),
+                card=json.dumps(smi))
+        say("mesh_fused_tp", compute=dt, ok=report["ok"], seconds=seconds)
+        if not report["ok"]:
+            raise AssertionError(f"the pure-TP fused step ({dt}): {report}")
+    say("mesh_fused_tp", launches=json.dumps(launches).replace(" ", ""))
 
     # K7 alone on one block of the world's shape, against its plain
-    # version (a comparison: not counted).
+    # version for each optimizer (a comparison: not counted).
     El = AB_E // CARD_RANKS
-    x = _apply_case(tcfg.batch_size, El, AB_D, "de", "adam", 900,
-                    torch.float32)
-    got = _apply_outputs(xent.xent_loss_apply, x, "adam", "de", "bfloat16")
-    errs = _apply_errors("mesh_fused_tp", "block", "adam", got, x, "de",
-                         "bfloat16", dict(B=tcfg.batch_size, E=El, d=AB_D))
-    del got
-    ms, plain_ms = _apply_times(x, "adam", "de", "bfloat16", 3)
-    bnd, cores = _apply_bound(x, "bfloat16")
-    say("mesh_fused_tp", name="xent_bwd_apply", shard=f"{El}_of_{AB_E}",
-        B=tcfg.batch_size, d=AB_D, opt="adam", ms=ms, plain_ms=plain_ms,
-        **bnd, bound_cuda_cores_ms=cores, card=json.dumps(smi))
-    records["xent_bwd_apply"]["max_abs_err"] = max(
-        records["xent_bwd_apply"]["max_abs_err"], *errs.values())
-    del x
-    torch.cuda.empty_cache()
+    shape = dict(B=tcfg.batch_size, E=El, d=AB_D)
+    for opt in dryrun.FUSED_TP_OPTS:
+        x = _apply_case(tcfg.batch_size, El, AB_D, "de", opt, 900,
+                        torch.float32)
+        got = _apply_outputs(xent.xent_loss_apply, x, opt, "de", "bfloat16")
+        errs = _apply_errors("mesh_fused_tp", "block", opt, got, x, "de",
+                             "bfloat16", shape)
+        del got
+        records["xent_bwd_apply"]["max_abs_err"] = max(
+            records["xent_bwd_apply"]["max_abs_err"], *errs.values())
+        if opt == "adam":
+            ms, plain_ms = _apply_times(x, "adam", "de", "bfloat16", 3)
+            bnd, cores = _apply_bound(x, "bfloat16")
+            say("mesh_fused_tp", name="xent_bwd_apply",
+                shard=f"{El}_of_{AB_E}", B=tcfg.batch_size, d=AB_D,
+                opt="adam", ms=ms, plain_ms=plain_ms, **bnd,
+                bound_cuda_cores_ms=cores, card=json.dumps(smi))
+        del x
+        torch.cuda.empty_cache()
     return launches
 
 

@@ -673,9 +673,9 @@ def _stitched_apply(stitch: Stitch, lse, z_gold, W, opt_tree, db, dpooled,
 @torch.no_grad()
 def sharded_xent_apply_plain(pooled: torch.Tensor, W: torch.Tensor,
                              b: torch.Tensor, labels: torch.Tensor,
-                             stitch: Stitch = ONE_BLOCK, *, opt: str,
+                             stitch: Stitch, *, opt: str,
                              opt_tree, lr: float, count, gscale: float,
-                             layout: str = "de", dtype: str = "float32"):
+                             layout: str, dtype: str):
     """:func:`sharded_xent_apply` in plain PyTorch: the block's lse
     (:func:`xent_lse_plain`), stitched; :func:`xent_bwd_plain` fed the
     global lse; the update in the kernel's order (materializes
@@ -693,9 +693,9 @@ def sharded_xent_apply_plain(pooled: torch.Tensor, W: torch.Tensor,
 @torch.no_grad()
 def sharded_xent_apply(pooled: torch.Tensor, W: torch.Tensor,
                        b: torch.Tensor, labels: torch.Tensor,
-                       stitch: Stitch = ONE_BLOCK, *, opt: str, opt_tree,
-                       lr: float, count, gscale: float, layout: str = "de",
-                       dtype: str = "float32"):
+                       stitch: Stitch, *, opt: str, opt_tree,
+                       lr: float, count, gscale: float, layout: str,
+                       dtype: str):
     """:func:`xent_loss_apply` on this rank's block of an entity axis split
     into ``stitch.parts`` blocks, every rank holding the whole batch: the
     rows ``pooled`` [B, d] and their global ``labels``, this rank's block

@@ -30,7 +30,8 @@ import torch
 from sert_tpu_torch.models import api
 from sert_tpu_torch.parallel.fused_loss import (make_replicated_loss,
                                                 make_sharded_fused_loss,
-                                                make_sharded_sampled_loss)
+                                                make_sharded_sampled_loss,
+                                                model_stitch)
 from sert_tpu_torch.parallel.mesh import WORLD, Mesh, all_reduce_sum
 from sert_tpu_torch.parallel.sharding import (batch_rows, shard_state,
                                               sharded_axis, state_shardings)
@@ -101,9 +102,10 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     (``make_train_step``: the fused step, K5 + K7, or the row-sparse lazy
     one) on its own state; on a pure-TP mesh with ``fused_update="on"``,
     the fused step per entity block (``train.fused.make_fused_train_step``
-    with the mesh; "on" elsewhere on a mesh raises); otherwise the dense
-    step on this rank's blocks. ``sparse_update="on"`` on a mesh larger
-    than one rank raises, as the reference's gate refuses a mesh."""
+    with this rank's ``model_stitch``; "on" elsewhere on a mesh raises);
+    otherwise the dense step on this rank's blocks. ``sparse_update="on"``
+    on a mesh larger than one rank raises, as the reference's gate refuses
+    a mesh."""
     check_optimizer_model_fit(model_cfg, train_cfg)
     one_rank = mesh.size == 1 and "on" in (train_cfg.fused_update,
                                            train_cfg.sparse_update)
@@ -112,7 +114,9 @@ def make_sharded_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         step = make_train_step(model_cfg, train_cfg, noise=noise,
                                device=mesh.device)
     elif fused.fused_tp_enabled(model_cfg, train_cfg, mesh):
-        step = fused.make_fused_train_step(model_cfg, train_cfg, mesh=mesh)
+        step = fused.make_fused_train_step(
+            model_cfg, train_cfg, stitch=model_stitch(
+                mesh, model_cfg.num_entities // mesh.shape["model"]))
     elif mesh.size > 1 and train_cfg.sparse_update == "on":
         raise ValueError(
             "sparse_update='on' needs mesh_shape=(1, 1): the row-sparse "

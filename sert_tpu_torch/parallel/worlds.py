@@ -288,17 +288,30 @@ def timed_collectives(sync):
         dist.all_reduce = orig
 
 
-def _diff_stats(got: torch.Tensor, want: torch.Tensor, rtol: float
+def _diff_stats(got: torch.Tensor, want: torch.Tensor, base: torch.Tensor
                 ) -> list:
-    """[sum of squared differences, sum of squares of ``want``, largest
-    absolute difference, elements whose difference exceeds ``rtol`` times
-    the largest magnitude of ``want``, elements], the sums in fp64."""
-    a, b = got.double(), want.to(got.device).double()
-    diff = (a - b).abs()
-    limit = rtol * float(b.abs().max()) if b.numel() else 0.0
-    return [float((diff ** 2).sum()), float((b ** 2).sum()),
+    """How far ``got`` lies from ``want``, two results of one step from
+    ``base``, measured on the step's change (Delta = result - base) beyond
+    what the rounding of the stored results explains: two roundings put
+    the stored values at most one storage step of ``want`` further apart
+    than the exact ones, so each element's difference counts by its
+    excess over that step. Returns [sum of squared excesses of Delta_got -
+    Delta_want (= got - want), sum of squares of Delta_want, the same sum
+    of excesses for a step that left the leaf as it was (got = base),
+    largest absolute difference, elements more than one step apart,
+    elements], the sums in fp64."""
+    w = want.to(got.device)
+    step = (torch.nextafter(w.abs(), torch.full_like(w, float("inf")))
+            - w.abs()).double()
+    b = w.double()
+    diff = (got.double() - b).abs()
+    excess = (diff - step).clamp_min(0.0)
+    moved = b - base.to(got.device).double()
+    skipped = (moved.abs() - step).clamp_min(0.0)
+    return [float((excess ** 2).sum()), float((moved ** 2).sum()),
+            float((skipped ** 2).sum()),
             float(diff.max()) if diff.numel() else 0.0,
-            int((diff > limit).sum()), diff.numel()]
+            int((excess > 0).sum()), diff.numel()]
 
 
 def _copy_state(state):
@@ -319,11 +332,12 @@ def fused_tp_card(spec) -> dict:
     collectives (:func:`timed_collectives`), launches, and peak device
     memory (the state's, without the copy, and the micro-step's own).
     Also, for every param and slot this rank holds, :func:`_diff_stats`
-    at ``spec["rtol"]`` of "on" against "off" after each micro-step, and
-    after the first against ``spec["one_card"]`` (``.npy`` paths by leaf
-    name of the one-card state then; this rank's block sliced out);
-    whether each leaf is sharded, its block's shape, and a hash of each
-    replicated leaf's bytes (every rank's must be equal)."""
+    of "on" against "off" after each micro-step (the change from the state
+    before it), and after the first against ``spec["one_card"]`` (``.npy``
+    paths by leaf name of the one-card state then; this rank's block
+    sliced out; the change from the initial state); whether each leaf is
+    sharded, its block's shape, and a hash of each replicated leaf's bytes
+    (every rank's must be equal)."""
     import hashlib
     cfg, tcfg = spec["cfg"], spec["tcfg"]
     dev = torch.device(spec.get("device", "cuda"))
@@ -342,11 +356,10 @@ def fused_tp_card(spec) -> dict:
                 "collective_s": 0.0, "collective_calls": 0,
                 "peak_mem_bytes": 0} for m in steps}
     vs_off, vs_one = [], None
-    rtol = spec["rtol"]
     for i, b in enumerate(batches):
         sync()
         resident = torch.cuda.memory_allocated(dev) if cuda else 0
-        before = _copy_state(state)
+        start_state, before = _copy_state(state), _copy_state(state)
         for mode, st in (("off", before), ("on", state)):
             run = runs[mode]
             sync()
@@ -369,7 +382,8 @@ def fused_tp_card(spec) -> dict:
                     run["peak_mem_bytes"], resident
                     + torch.cuda.max_memory_allocated(dev) - start)
         on, off = tensor_leaves(state), tensor_leaves(before)
-        vs_off.append({k: _diff_stats(t, off[k], rtol)
+        base = tensor_leaves(start_state)
+        vs_off.append({k: _diff_stats(t, off[k], base[k])
                        for k, t in on.items()})
         del before, off
         if i == 0:
@@ -380,7 +394,8 @@ def fused_tp_card(spec) -> dict:
                     lo, hi = block(full.shape[axes[k]], mesh)
                     full = full[(slice(None),) * axes[k] + (slice(lo, hi),)]
                 vs_one[k] = _diff_stats(t, torch.from_numpy(
-                    np.ascontiguousarray(full)), rtol)
+                    np.ascontiguousarray(full)), base[k])
+        del start_state, base
     on = tensor_leaves(state)
     return {"rank": world_rank(), **runs, "vs_off": vs_off,
             "vs_one_card": vs_one,
@@ -409,7 +424,7 @@ def train_loop(spec) -> dict:
         return write(*args, **kw)
 
     def counted_fused(*args, **kw):
-        built.append(kw.get("mesh") is not None)
+        built.append(kw.get("stitch") is not None)
         return make_fused(*args, **kw)
 
     ckpt._write, fused.make_fused_train_step = counted, counted_fused

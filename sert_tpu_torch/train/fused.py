@@ -25,7 +25,7 @@ TPU limit and is not ported: the kernels' own limits take its place
 applicable here.
 
 On a pure-TP mesh (data axis 1, ``fused_tp_applicable`` :83,
-``fused_tp_enabled`` :99, ``make_fused_train_step(mesh=)``; "on" only)
+``fused_tp_enabled`` :99, ``make_fused_train_step(stitch=)``; "on" only)
 every rank holds the whole batch, so the dW of its block of the entity
 matrix is the complete gradient of those columns: K5 runs on the block,
 the ranks stitch the lse and the gold logit over ``model``, and K7
@@ -37,15 +37,15 @@ removes, so "on" raises there.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from sert_tpu_torch.models import loglinear, lse
 from sert_tpu_torch.models.common import use_fused
 from sert_tpu_torch.ops.xent import (ADAGRAD_EPS, OPTIMIZERS, SLOTS,
-                                     kernel_limits, sharded_xent_apply,
-                                     xent_loss_apply)
+                                     Stitch, kernel_limits,
+                                     sharded_xent_apply, xent_loss_apply)
 from sert_tpu_torch.train.step import (TrainState, has_schedule,
                                        make_optimizer, micro_step_calls)
 from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
@@ -174,34 +174,32 @@ def fused_enabled(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
 
 def make_fused_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                          mesh=None):
+                          stitch: Optional[Stitch] = None):
     """The fused step, with the dense ``train.step.make_train_step``'s
     contract: ``step(state, batch) -> (state, metrics)`` updating the
     params and the optimizer state in place, ``steps_per_call > 1`` a
     Python loop over the stacked batch's micro-steps, metrics the last
     micro-step's (loss and grad_norm as device tensors).
 
-    With ``mesh`` (a pure-TP ``parallel.mesh.Mesh``; ``fused_tp_applicable``
-    must hold) the state is this rank's: its blocks of the entity matrix,
-    of its slots and of ``proj_b``, the other leaves whole, and the batch
-    is the whole batch. Metrics are global and alike on every rank."""
+    With ``stitch`` (this rank's entity block on a pure-TP mesh, whose
+    blocks it joins: ``parallel.fused_loss.model_stitch``;
+    ``fused_tp_applicable`` must hold) the state is this rank's: its
+    blocks of the entity matrix, of its slots and of ``proj_b``, the other
+    leaves whole, and the batch is the whole batch. Metrics are global and
+    alike on every rank."""
     cfg, opt_name = model_cfg, train_cfg.optimizer
     loglin = cfg.model == "loglinear"
     E = cfg.num_entities
-    stitch = None
-    if mesh is None:
+    if stitch is None:
         if not fused_applicable(model_cfg, train_cfg):
             raise ValueError("fused step built for an inapplicable config; "
                              "see fused_applicable")
     else:
-        shape = (mesh.shape["data"], mesh.shape["model"])
-        if not fused_tp_applicable(model_cfg, train_cfg, mesh_shape=shape):
+        if not fused_tp_applicable(model_cfg, train_cfg,
+                                   mesh_shape=(1, stitch.parts)):
             raise ValueError("mesh fused step built for an inapplicable "
                              "config; see fused_tp_applicable")
-        # parallel/ imports this module.
-        from sert_tpu_torch.parallel.fused_loss import model_stitch
-        E //= mesh.shape["model"]
-        stitch = model_stitch(mesh, E)
+        E //= stitch.parts
     opt = make_optimizer(train_cfg)          # the stock small-leaf update
     mat_key, layout = ("proj_w", "de") if loglin else ("entity_emb", "ed")
     head_keys = (("word_emb",) if loglin

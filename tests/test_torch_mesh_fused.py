@@ -482,14 +482,48 @@ def _card_cfgs():
 
 def test_card_world_check_on_cpu_ranks():
     """The chip phase's check (parallel.dryrun.check_fused_card_world) on
-    CPU ranks at a small width, bf16 compute: for each optimizer, "on"
-    within 1e-4 of "off" from the same state and of one rank, replicas
-    bit-equal, blocks of E / 4."""
+    CPU ranks at a small width, bf16 compute: for each optimizer, each
+    step's change under "on" within 1e-4 of that under "off" from the same
+    state, and the first within the check's bf16 limit of one rank's;
+    replicas bit-equal, blocks of E / 4."""
     cfg, tcfg = _card_cfgs()
     report = dryrun.check_fused_card_world(cfg, tcfg, n=4, steps=2,
                                            device="cpu")
     assert report["ok"], report
     assert sorted(report["optimizers"]) == ["adagrad", "adam", "sgd"]
+
+
+def test_card_world_check_holds_the_change():
+    """The check's measure (worlds._diff_stats, dryrun._leaf_parity) on an
+    sgd-sized step, which moves each element of a leaf of scale 1/16 by
+    3e-7, some 50 storage steps: the step against itself, or one storage
+    step from it, reads 0, a skipped update ~1 and one of the wrong sign
+    ~2, where the leaf-relative norm of the difference reads ~1e-5 for
+    both and would pass them."""
+    from sert_tpu_torch.parallel import worlds
+    g = torch.Generator().manual_seed(0)
+    base = torch.randn(4096, generator=g) / 16
+    want = base - 3e-7 * torch.randn(4096, generator=g).sign()
+
+    def read(got):
+        stats = [{"w": worlds._diff_stats(got, want, base)}]
+        return dryrun._leaf_parity(stats, "w", False)
+
+    same = read(want.clone())
+    rounded = read(torch.nextafter(want, torch.full_like(want, 1.0)))
+    skipped, flipped = read(base.clone()), read(2 * base - want)
+    assert same["rel_norm"] == rounded["rel_norm"] == 0.0 and same["moved"]
+    assert rounded["max_abs"] > 0 and rounded["over_one_step"] == 0
+    assert skipped["rel_norm"] == pytest.approx(skipped["skipped"])
+    assert 0.95 < skipped["rel_norm"] <= 1.0
+    assert skipped["skipped"] >= dryrun.FUSED_TP_MIN_SKIPPED
+    assert flipped["rel_norm"] == pytest.approx(2.0, rel=0.05)
+    assert skipped["over_one_step"] == flipped["over_one_step"] == 4096
+    for got in (base, 2 * base - want):
+        assert float(torch.norm(got - want) / torch.norm(want)) < 2e-5
+    unmoved = dryrun._leaf_parity(
+        [{"w": worlds._diff_stats(base, base, base)}], "w", False)
+    assert not unmoved["moved"]
 
 
 @pytest.mark.gpu
