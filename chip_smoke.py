@@ -84,19 +84,25 @@ Phases (each prints one line or more; any failure exits non-zero):
      and the clients' queries/s, a batched POST and a GET, /healthz (the
      72 extras), POST /entities and a duplicate name (400);
   9. xent_kernels: K5 (the full-softmax forward) and K6 (its backward)
-     against xent_loss_plain + autograd on the same inputs: "de" fp32 at
-     cerc's B=1024, d=256, E=3500 and at w3c's d=128, E=1100 with a ragged
-     B=1000; "ed" bf16 at B=4096, d=128, E=131072 and at E=131071 (a tail
-     tile); "de" bf16 once; fp32 "de" at B=4096, E=300, d=256 (K6's dW
-     sweep at its most batch slices); each case's K5 chunks and blocks and
-     K6 slices and blocks, and two K6 backward calls bit for bit at cerc's
-     shape and at the split one; K5 alone at the log-linear normalizer's
-     shape
-     (64 queries x 16 terms, "de", fp32, d=256); and K5/K6 timed alone at
-     lse_full's flagship shape (B=4096, E=1M, d=128, bf16, "ed"), the
-     forward held against an lse the plain version computes in entity
-     chunks; errors of loss, lse, dpooled, dW and db with their
-     tolerances, CUDA-event times of kernel and plain;
+     against xent_loss_plain + autograd on the same inputs, fp32 compute
+     on csrc/xent.cu's mma.sync sweep and bf16 on csrc/xent_wgmma.cu's
+     wgmma sweep: "de" fp32 at cerc's B=1024, d=256, E=3500 and at w3c's
+     d=128, E=1100 with a ragged B=1000; "ed" bf16 at B=4096, d=128,
+     E=131072, at E=131071 (a tail tile) and at d=256; "de" bf16 at cerc's
+     shape and at the log-linear A/B's E=500k, d=256, B=1024; fp32 "de" at
+     B=4096, E=300, d=256 (K6's dW sweep at its most batch slices); each
+     case's plan (chunks, slices, blocks), and two K6 backward calls bit
+     for bit at cerc's shape, the split one and lse_full's 128k; K6 fed an
+     outside lse on a ragged B=1000 with a third of the labels -1 at
+     E=131071, both layouts, bf16; K5 alone at the log-linear
+     normalizer's shape (64 queries x 16 terms, "de", fp32, d=256); and
+     K5/K6 at lse_full's flagship shape (B=4096, E=1M, d=128, bf16, "ed"),
+     the forward held against an lse the plain version computes in
+     entity chunks and K6 fed that lse against the plain version chunk by
+     chunk; errors of loss, lse, dpooled, dW and db with their tolerances,
+     CUDA-event times of kernel and plain, each bound with its
+     exponentials, and beside the bf16 cases cuBLAS's one product of the
+     same operands (product_ms);
  10. xent_apply_kernels: K7 (the full-softmax backward with adam, adagrad
      or sgd applied to W and its slots in place) against
      xent_loss_apply_plain on the same inputs, from seeded non-zero
@@ -143,7 +149,8 @@ Phases (each prints one line or more; any failure exits non-zero):
      plain version (within 1e-3 relative);
  13. train_lse_full: the flagship's width with model="lse_full" (V=250k,
      E=1M, d=128, B=4096, bf16, adam) for 16 steps of the training
-     fixture, through K5/K6 every step;
+     fixture, through K5/K6 every step, every launch on the bf16 route
+     (the wgmma sweep);
  14. fused_ab (run last): the reference's fused-step A/B at its width
      (log-linear, E=500k, V=60k, d=256, B=1024, bf16 compute, fp32 params,
      steps_per_call=8) for adam, adagrad and sgd, fused_update off and on
@@ -287,6 +294,15 @@ TRAIN_LOG_EVERY = 16
 # of about 14 at E = 1M), which a kernel that dropped entity tiles fails.
 XENT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 XENT_SUM_RTOL = 1e-4
+# K6's bf16 gradients where they hold exp(z - lse) terms alone (dW's and
+# db's entities that no label names, dpooled's rows labelled -1), relative
+# to the plain version's largest value there. XENT_TOL's scale is the
+# one-hot term, about 1e4 times that part at E = 1M, so a K6 that dropped or
+# mis-scaled exp(z - lse) would pass it. This limit is about 5x the largest
+# reading on the H100 (8.1e-4, dW at E 500k "de" d 256), and fails K6 fed
+# lse + 0.01, each of those terms 1 % small (phase_xent_kernels checks that
+# it does).
+XENT_SOFTMAX_TOL = 4e-3
 # The first steps of the fused and the plain log-linear runs: both are fp32
 # products of the same operands, summed in another order, carried through
 # that many adam steps.
@@ -1808,47 +1824,138 @@ def _xent_outputs(fn, pooled, W, b, labels, layout, dtype, iters,
 
 
 def _xent_work(B, E, d, pooled, W, b, labels):
-    """(K5 flops, K5 bytes, K6 flops, K6 bytes): one [B, d] x [d, E]
-    product in K5, three in K6 (z again, dW, dpooled); inputs read once,
-    outputs written once."""
+    """(K5 flops, K5 bytes, K5 exponentials, K6 flops, K6 bytes, K6
+    exponentials): one [B, d] x [d, E] product in K5, three in K6 (z again,
+    dW, dpooled); inputs read once, outputs written once; an exponential
+    of every logit, B * E in each of K5 and K6 (the function's, however
+    many z passes a design takes), on the SMs' special-function units, as
+    K1/K2's."""
     ins = nbytes(pooled, W, b, labels)
-    return (2 * B * E * d, ins + 4 * B, 6 * B * E * d,
-            ins + 8 * B + nbytes(pooled, W, b))
+    return (2 * B * E * d, ins + 4 * B, B * E, 6 * B * E * d,
+            ins + 8 * B + nbytes(pooled, W, b), B * E)
+
+
+def _masked_err(got, want, keep, axis: int = 0):
+    """(max |got - want|, max |want|) over the slices of ``axis`` that the
+    boolean ``keep`` marks."""
+    index = [slice(None)] * got.dim()
+    index[axis] = keep
+    a, w = got[tuple(index)].float(), want[tuple(index)].float()
+    return (a - w).abs().max().item(), w.abs().max().item()
+
+
+def _unnamed(labels, E):
+    """The entities [E] of a label-free column: no row's label names them."""
+    import torch
+    named = torch.zeros(E, dtype=torch.bool, device=labels.device)
+    named[labels[labels >= 0].long()] = True
+    return ~named
+
+
+def _softmax_errs(got, want, labels, layout) -> dict:
+    """{output: (max |kernel - plain|, max |plain|)} of K6's (dpooled, dW,
+    db) where they hold exp(z - lse) terms alone: dW's and db's entities
+    that no label names, dpooled's rows labelled -1 (where there are)."""
+    free = _unnamed(labels, want[2].shape[0])
+    errs = {"dW": _masked_err(got[1], want[1], free, int(layout == "de")),
+            "db": _masked_err(got[2], want[2], free)}
+    if bool((labels < 0).any()):
+        errs["dpooled"] = _masked_err(got[0], want[0], labels < 0)
+    return errs
+
+
+def _softmax_part(label, got, want, labels, layout) -> None:
+    """:func:`_softmax_errs` printed and held to XENT_SOFTMAX_TOL."""
+    for name, (err, scale) in _softmax_errs(got, want, labels,
+                                            layout).items():
+        say("xent_kernels", case=label, output=name, part="softmax",
+            max_abs_err=err, max_plain=scale, rel=err / scale,
+            tol=XENT_SOFTMAX_TOL)
+        if not err <= XENT_SOFTMAX_TOL * scale:
+            raise AssertionError(f"{label}: {name}'s softmax part error "
+                                 f"{err} > {XENT_SOFTMAX_TOL} * {scale}")
+
+
+def _product_ms(pooled, W, layout, iters) -> float:
+    """CUDA-event ms of cuBLAS's [B, d] x [d, E] product of the same bf16
+    operands (torch.matmul into a bf16 [B, chunk] buffer, E in chunks of
+    2^17): one z pass's products, the tensor cores' yardstick beside K5
+    and K6. The port never calls it."""
+    import torch
+    P, Wb = pooled.bfloat16(), W.bfloat16()
+    E = W.shape[1] if layout == "de" else W.shape[0]
+    step = min(E, 1 << 17)
+    out = torch.empty((P.shape[0], step), dtype=torch.bfloat16,
+                      device=P.device)
+
+    def run():
+        for lo in range(0, E, step):
+            hi = min(E, lo + step)
+            w = Wb[:, lo:hi] if layout == "de" else Wb[lo:hi].T
+            torch.matmul(P, w, out=out[:, :hi - lo])
+
+    return cuda_ms(run, iters=iters, warmup=1)
+
+
+def _wgmma_plan_text(B, E, d) -> str:
+    """The bf16 sweep's plan (ops.xent._wgmma_plan) in one word."""
+    from sert_tpu_torch.ops import xent
+    fwd, dw = xent._wgmma_plan(B, E, d)
+    return (f"fwd/dp:{fwd.n_x}x{fwd.parts}chunks_of_{fwd.per}x"
+            f"{fwd.y_rows}rows={fwd.blocks}blocks,"
+            f"dw:{dw.n_x}x{dw.parts}slices_of_{dw.per}x{dw.y_rows}rows="
+            f"{dw.blocks}blocks")
 
 
 def phase_xent_kernels() -> dict:
-    """K5 and K6 against xent_loss_plain + autograd on the same inputs.
-    Returns the kernel records of the cerc case (the log-linear training
-    path's variant), with errors maxed over every case."""
+    """K5 and K6 against xent_loss_plain + autograd on the same inputs, in
+    fp32 compute (csrc/xent.cu's mma.sync sweep) and in bf16 (csrc/
+    xent_wgmma.cu's wgmma sweep; its gradients also on their softmax
+    part, XENT_SOFTMAX_TOL, with a control). Returns the kernel records:
+    the times of the lse_full_128k case (bf16, the lse_full training
+    path's route), the fp32 route's times at cerc's shape (the log-linear
+    training path's) beside them, errors maxed over every case."""
     import torch
     from sert_tpu_torch.ops import xent
-    src = "sert_tpu_torch/csrc/xent.cu"
+    src, src32 = ("sert_tpu_torch/csrc/xent_wgmma.cu",
+                  "sert_tpu_torch/csrc/xent.cu")
     records = {
         "xent_fwd": dict(name="xent_fwd", route="cuda", source=src,
+                         fp32_source=src32,
                          replaces="sert_tpu/ops/xent.py:152", launches=0,
                          max_abs_err=0.0, library_ms=None),
         "xent_bwd": dict(name="xent_bwd", route="cuda", source=src,
+                         fp32_source=src32,
                          replaces="sert_tpu/ops/xent.py:219", launches=0,
                          max_abs_err=0.0, library_ms=None)}
-    # split_max: K6's dW sweep at its most slices (32 over 5 entity tiles);
-    # w3c_ragged's last slice ends in a partial batch tile.
+    # split_max: the fp32 dW sweep at its most slices (32 over 5 entity
+    # tiles); w3c_ragged's last slice ends in a partial batch tile; the bf16
+    # cases: lse_full's width, its entity tail, d 256 in "ed" and "de" (the
+    # log-linear A/B's width, E 500k).
     cases = [("cerc", 1024, 3500, 256, "de", "float32"),
              ("w3c_ragged", 1000, 1100, 128, "de", "float32"),
              ("lse_full_128k", 4096, 131072, 128, "ed", "bfloat16"),
              ("lse_full_tail", 4096, 131071, 128, "ed", "bfloat16"),
              ("cerc_bf16", 1024, 3500, 256, "de", "bfloat16"),
-             ("split_max", 4096, 300, 256, "de", "float32")]
-    bit_equal = ("cerc", "split_max")
+             ("split_max", 4096, 300, 256, "de", "float32"),
+             ("lse_full_128k_d256", 4096, 131072, 256, "ed", "bfloat16"),
+             ("ll_500k", 1024, 500_000, 256, "de", "bfloat16")]
+    bit_equal = ("cerc", "split_max", "lse_full_128k")
     for i, (label, B, E, d, layout, dtype) in enumerate(cases):
         x = _xent_case(B, E, d, layout, 100 + i)
         iters = 3 if E > 100_000 else 10
-        per, slices = xent._dw_splits(B, E)
-        chunk_tiles, chunks = xent._dp_chunks(B, E)
-        # K5 and K6's dpooled sweep share the chunk plan.
-        say("xent_kernels", case=label, fwd_chunks=chunks,
-            fwd_blocks=chunks * -(-B // 64), dw_slices=slices,
-            dw_btiles_per_slice=per, dw_blocks=slices * -(-E // 64),
-            dp_blocks=chunks * -(-B // 64), dp_tiles_per_block=chunk_tiles)
+        if dtype == "bfloat16":
+            say("xent_kernels", case=label, route=src,
+                plan=_wgmma_plan_text(B, E, d))
+        else:
+            per, slices = xent._dw_splits(B, E)
+            chunk_tiles, chunks = xent._dp_chunks(B, E)
+            # K5 and K6's dpooled sweep share the chunk plan.
+            say("xent_kernels", case=label, route=src32, fwd_chunks=chunks,
+                fwd_blocks=chunks * -(-B // 64), dw_slices=slices,
+                dw_btiles_per_slice=per, dw_blocks=slices * -(-E // 64),
+                dp_blocks=chunks * -(-B // 64),
+                dp_tiles_per_block=chunk_tiles)
         k_ = _xent_outputs(xent.xent_loss, *x, layout, dtype, iters,
                            repeat=label in bit_equal)
         p_ = _xent_outputs(xent.xent_loss_plain, *x, layout, dtype, iters)
@@ -1868,29 +1975,88 @@ def phase_xent_kernels() -> dict:
                 tol=f"{rtol}*max|plain|", bound=tol)
             if err > tol:
                 raise AssertionError(f"{label}: {key} error {err} > {tol}")
-        f_flops, f_bytes, b_flops, b_bytes = _xent_work(B, E, d, *x)
-        # K5 and K6 run their fp32 products as 3xTF32 on the tensor cores;
-        # their bounds on the CUDA cores are kept beside.
-        fb = bound(f_flops, f_bytes, _product_type(dtype))
-        fb_cores = bound(f_flops, f_bytes, dtype)["bound_ms"]
-        bb = bound(b_flops, b_bytes, _product_type(dtype))
-        bb_cores = bound(b_flops, b_bytes, dtype)["bound_ms"]
+        if dtype == "bfloat16":
+            grads = ("dpooled", "dW", "db")
+            _softmax_part(label, [k_[key] for key in grads],
+                          [p_[key] for key in grads], x[3], layout)
+        f_flops, f_bytes, f_exps, b_flops, b_bytes, b_exps = _xent_work(
+            B, E, d, *x)
+        # fp32 products run as 3xTF32 on the tensor cores; their bounds on
+        # the CUDA cores are kept beside.
+        fb = bound(f_flops, f_bytes, _product_type(dtype), exps=f_exps)
+        fb_cores = bound(f_flops, f_bytes, dtype, exps=f_exps)["bound_ms"]
+        bb = bound(b_flops, b_bytes, _product_type(dtype), exps=b_exps)
+        bb_cores = bound(b_flops, b_bytes, dtype, exps=b_exps)["bound_ms"]
+        product = (_product_ms(x[0], x[1], layout, iters)
+                   if dtype == "bfloat16" else None)
         say("xent_kernels", case=label, fwd_ms=k_["fwd_ms"],
             fwd_plain_ms=p_["fwd_ms"], fwd_bound_ms=fb["bound_ms"],
             fwd_bound_cuda_cores_ms=fb_cores, bwd_ms=k_["bwd_ms"],
             bwd_plain_ms=p_["bwd_ms"], bwd_bound_ms=bb["bound_ms"],
-            bwd_bound_cuda_cores_ms=bb_cores, bound_by=fb["bound_by"])
+            bwd_bound_cuda_cores_ms=bb_cores, bound_by=fb["bound_by"],
+            product_ms=product)
         fwd, bwd = records["xent_fwd"], records["xent_bwd"]
         fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["loss"],
                                  errs["lse"])
         bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["dpooled"],
                                  errs["dW"], errs["db"])
-        if i == 0:
+        if label == "lse_full_128k":
             fwd.update(ms=k_["fwd_ms"], plain_ms=p_["fwd_ms"], **fb,
-                       bound_cuda_cores_ms=fb_cores)
+                       bound_cuda_cores_ms=fb_cores, product_ms=product)
             bwd.update(ms=k_["bwd_ms"], plain_ms=p_["bwd_ms"], **bb,
-                       bound_cuda_cores_ms=bb_cores)
+                       bound_cuda_cores_ms=bb_cores, product_ms=product)
+        elif label == "cerc":
+            fwd.update(fp32_ms=k_["fwd_ms"], fp32_plain_ms=p_["fwd_ms"],
+                       fp32_bound_ms=fb["bound_ms"])
+            bwd.update(fp32_ms=k_["bwd_ms"], fp32_plain_ms=p_["bwd_ms"],
+                       fp32_bound_ms=bb["bound_ms"])
         del k_, p_, x
+        torch.cuda.empty_cache()
+
+    # K6 fed an lse from outside with a third of the labels -1 (a shard's
+    # rows whose gold entity another shard holds) on a ragged B and the
+    # entity tail, in bf16, each layout.
+    B, E, d = 1000, 131071, 128
+    for j, layout in enumerate(("ed", "de")):
+        pooled, W, b, labels = _xent_case(B, E, d, layout, 250 + j)
+        lse = xent.xent_lse_plain(pooled, W, b, layout, "bfloat16") + 0.7
+        labels = torch.where(torch.arange(B, device="cuda") % 3 == 0,
+                             torch.full_like(labels, -1), labels)
+        got = xent.xent_bwd(pooled, W, b, lse, labels, layout, "bfloat16")
+        want = xent.xent_bwd_plain(pooled, W, b, lse, labels, layout,
+                                   "bfloat16")
+        for name, a, w in zip(("dpooled", "dW", "db"), got, want):
+            err = (a - w).abs().max().item()
+            tol = XENT_TOL["bfloat16"] * w.abs().max().item()
+            say("xent_kernels", case="ragged_offshard", B=B, E=E, d=d,
+                layout=layout, dtype="bfloat16", labels_minus_one=int(
+                    (labels < 0).sum()), output=name, max_abs_err=err,
+                tol=f"{XENT_TOL['bfloat16']}*max|plain|", bound=tol)
+            if not bool(torch.isfinite(a).all()) or err > tol:
+                raise AssertionError(f"ragged_offshard {layout}: {name} "
+                                     f"error {err} > {tol}")
+            records["xent_bwd"]["max_abs_err"] = max(
+                records["xent_bwd"]["max_abs_err"], err)
+        _softmax_part(f"ragged_offshard_{layout}", got, want, labels, layout)
+        # The control: K6 fed lse + shift scales every exp(z - lse) by
+        # e^-shift. XENT_TOL's measure (xent_tol_rel) passes the small
+        # shifts; XENT_SOFTMAX_TOL must fail each.
+        for shift in (30.0, 0.05, 0.01):
+            bad = xent.xent_bwd(pooled, W, b, lse + shift, labels, layout,
+                                "bfloat16")
+            rel = {name: err / scale for name, (err, scale) in
+                   _softmax_errs(bad, want, labels, layout).items()}
+            whole = max((a - w).abs().max().item() / w.abs().max().item()
+                        for a, w in zip(bad, want))
+            say("xent_kernels", case=f"control_lse_plus_{shift}",
+                layout=layout, softmax_part_rel=json.dumps(rel).replace(
+                    " ", ""), xent_tol_rel=whole,
+                fails_softmax_tol=min(rel.values()) > XENT_SOFTMAX_TOL)
+            if min(rel.values()) <= XENT_SOFTMAX_TOL:
+                raise AssertionError(f"XENT_SOFTMAX_TOL passes K6 fed lse + "
+                                     f"{shift}: {rel}")
+            del bad
+        del got, want, pooled, W
         torch.cuda.empty_cache()
 
     # K5 alone at the normalizer's shape: 64 queries x 16 terms, fp32.
@@ -1910,18 +2076,19 @@ def phase_xent_kernels() -> dict:
     records["xent_fwd"]["max_abs_err"] = max(
         records["xent_fwd"]["max_abs_err"], err)
 
-    # K5/K6 alone at lse_full's flagship shape; the plain forward in chunks
-    # of entities (the whole [B, E] fp32 logits would be 16 GB).
+    # K5/K6 at lse_full's flagship shape; the plain versions in chunks of
+    # entities (the whole [B, E] fp32 logits would be 16 GB): the lse, then
+    # K6 fed that lse (xent_bwd) against xent_bwd_plain chunk by chunk.
     B, E, d = B_TRAIN, 1_000_000, D
     pooled, W, b, labels = _xent_case(B, E, d, "ed", 300)
     got = xent.xent_lse(pooled, W, b, "ed", "bfloat16")
+    step = 1 << 16
 
     def plain_lse():
         out = torch.full((B,), -float("inf"), device="cuda")
-        for lo in range(0, E, 1 << 16):
-            z = xent._logits_plain(pooled, W[lo:lo + (1 << 16)],
-                                   b[lo:lo + (1 << 16)], "ed",
-                                   torch.bfloat16)
+        for lo in range(0, E, step):
+            z = xent._logits_plain(pooled, W[lo:lo + step], b[lo:lo + step],
+                                   "ed", torch.bfloat16)
             out = torch.logaddexp(out, torch.logsumexp(z, dim=-1))
         return out
 
@@ -1932,23 +2099,68 @@ def phase_xent_kernels() -> dict:
         fwd_ms = cuda_ms(lambda: xent.xent_loss(pooled, W, b, labels, "ed",
                                                 "bfloat16"), iters=3)
         plain_ms = cuda_ms(plain_lse, iters=3, warmup=1)
+    if err > tol:
+        raise AssertionError(f"flagship lse error {err} > {tol}")
+    records["xent_fwd"]["max_abs_err"] = max(
+        records["xent_fwd"]["max_abs_err"], err)
+    dpooled, dW, db = xent.xent_bwd(pooled, W, b, want, labels, "ed",
+                                    "bfloat16")
+    errs = {"dpooled": 0.0, "dW": 0.0, "db": 0.0}
+    scale = dict(errs)
+    soft = {"dW": [0.0, 0.0], "db": [0.0, 0.0]}   # softmax part: err, max
+    free = _unnamed(labels, E)
+    want_dp = torch.zeros_like(dpooled)
+    for lo in range(0, E, step):
+        hi = min(E, lo + step)
+        loc = labels - lo
+        lab = torch.where((loc >= 0) & (loc < hi - lo), loc,
+                          torch.full_like(loc, -1))
+        p_dp, p_dw, p_db = xent.xent_bwd_plain(pooled, W[lo:hi], b[lo:hi],
+                                               want, lab, "ed", "bfloat16")
+        want_dp += p_dp
+        for name, a, w in (("dW", dW[lo:hi], p_dw), ("db", db[lo:hi], p_db)):
+            errs[name] = max(errs[name], (a - w).abs().max().item())
+            scale[name] = max(scale[name], w.abs().max().item())
+            e_s, m_s = _masked_err(a, w, free[lo:hi])
+            soft[name] = [max(soft[name][0], e_s), max(soft[name][1], m_s)]
+        del p_dp, p_dw, p_db
+    for name, (err_s, max_s) in soft.items():
+        say("xent_kernels", case="lse_full_flagship", output=name,
+            part="softmax", max_abs_err=err_s, max_plain=max_s,
+            rel=err_s / max_s, tol=XENT_SOFTMAX_TOL)
+        if not err_s <= XENT_SOFTMAX_TOL * max_s:
+            raise AssertionError(f"flagship {name}'s softmax part error "
+                                 f"{err_s} > {XENT_SOFTMAX_TOL} * {max_s}")
+    errs["dpooled"] = (dpooled - want_dp).abs().max().item()
+    scale["dpooled"] = want_dp.abs().max().item()
+    for name in errs:
+        tol6 = XENT_TOL["bfloat16"] * scale[name]
+        say("xent_kernels", case="lse_full_flagship", output=name,
+            max_abs_err=errs[name], tol=f"{XENT_TOL['bfloat16']}*max|plain|",
+            bound=tol6)
+        if not math.isfinite(errs[name]) or errs[name] > tol6:
+            raise AssertionError(f"flagship {name} error {errs[name]} > "
+                                 f"{tol6}")
+    records["xent_bwd"]["max_abs_err"] = max(
+        records["xent_bwd"]["max_abs_err"], *errs.values())
+    del dpooled, dW, db, want_dp
     p, w = pooled.clone().requires_grad_(True), W.clone().requires_grad_(True)
     mean = xent.xent_loss(p, w, b, labels, "ed", "bfloat16") / B
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(mean, [p, w],
                                                  retain_graph=True),
                      iters=3, warmup=1)
-    f_flops, f_bytes, b_flops, b_bytes = _xent_work(B, E, d, pooled, W, b,
-                                                    labels)
-    chunks = xent._dp_chunks(B, E)[1]
+    f_flops, f_bytes, f_exps, b_flops, b_bytes, b_exps = _xent_work(
+        B, E, d, pooled, W, b, labels)
     say("xent_kernels", case="lse_full_flagship", B=B, E=E, d=d,
-        layout="ed", dtype="bfloat16", fwd_chunks=chunks,
-        fwd_blocks=chunks * -(-B // 64), lse_max_abs_err=err, tol=tol,
-        fwd_ms=fwd_ms, fwd_plain_chunked_ms=plain_ms,
-        fwd_bound_ms=bound(f_flops, f_bytes, "bfloat16")["bound_ms"],
+        layout="ed", dtype="bfloat16", plan=_wgmma_plan_text(B, E, d),
+        lse_max_abs_err=err, tol=tol, fwd_ms=fwd_ms,
+        fwd_plain_chunked_ms=plain_ms,
+        fwd_bound_ms=bound(f_flops, f_bytes, "bfloat16",
+                           exps=f_exps)["bound_ms"],
         bwd_ms=bwd_ms,
-        bwd_bound_ms=bound(b_flops, b_bytes, "bfloat16")["bound_ms"])
-    if err > tol:
-        raise AssertionError(f"flagship lse error {err} > {tol}")
+        bwd_bound_ms=bound(b_flops, b_bytes, "bfloat16",
+                           exps=b_exps)["bound_ms"],
+        product_ms=_product_ms(pooled, W, "ed", 3))
     del p, w, mean, pooled, W, b, labels
     torch.cuda.empty_cache()
     return records
@@ -2086,6 +2298,7 @@ def phase_xent_apply_kernels() -> dict:
     from sert_tpu_torch.ops import xent
     rec = dict(name="xent_bwd_apply", route="cuda",
                source="sert_tpu_torch/csrc/xent.cu",
+               bf16_dpooled_source="sert_tpu_torch/csrc/xent_wgmma.cu",
                replaces="sert_tpu/ops/xent.py:468", launches=0,
                max_abs_err=0.0, library_ms=None)
     f32, bf = torch.float32, torch.bfloat16
@@ -2524,18 +2737,24 @@ def phase_train_lse_full(root: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     xent.fwd_launches = xent.bwd_launches = xent.apply_launches = 0
+    xent.fwd_wgmma_launches = xent.bwd_wgmma_launches = 0
     state, _ = pipeline.train_from_dir(recipe, data_dir, run_dir,
                                        resume=False, device="cuda")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {"xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches,
                 "xent_bwd_apply": xent.apply_launches}
+    # bf16 compute: every K5 and K6 launch took the wgmma sweep
+    # (csrc/xent_wgmma.cu).
+    wgmma = (xent.fwd_wgmma_launches, xent.bwd_wgmma_launches)
     steps, losses, mid_sps = _train_log(run_dir)
     say("train_lse_full", fixture_s=t1 - t0, train_s=t2 - t1,
         steps=state.step, losses=json.dumps(losses),
         mid_run_steps_per_sec=json.dumps(mid_sps),
         peak_mem_bytes=torch.cuda.max_memory_allocated(),
-        launches=json.dumps(launches).replace(" ", ""))
+        launches=json.dumps(launches).replace(" ", ""),
+        compute_dtype=recipe.model.compute_dtype,
+        wgmma_route_launches=f"{wgmma[0]},{wgmma[1]}")
     if state.step != LSE_FULL_STEPS:
         raise AssertionError(f"{state.step} steps, not {LSE_FULL_STEPS}")
     _check_falling(losses)
@@ -2543,6 +2762,10 @@ def phase_train_lse_full(root: str) -> dict:
                     "xent_bwd_apply": 0}:
         raise AssertionError(f"K5/K6/K7 launched {launches} times for "
                              f"{state.step} steps")
+    if recipe.model.compute_dtype != "bfloat16" or wgmma != (state.step,
+                                                              state.step):
+        raise AssertionError(f"K5/K6 took the wgmma sweep {wgmma} times "
+                             f"of {state.step} steps")
     del state
     torch.cuda.empty_cache()
     return launches

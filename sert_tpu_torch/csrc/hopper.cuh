@@ -1,8 +1,8 @@
 // Hopper's asynchronous pieces for sm_90a, as inline PTX: mbarriers, TMA
 // tile loads into 128-byte-swizzled shared memory, wgmma descriptors and
 // the bf16 wgmma instructions, warpgroup register rebalancing. Used by the
-// warp-specialized sweeps of K1/K2 (sampled_lse.cu) and K3
-// (score_binmax.cu), with the host side's tensor maps.
+// warp-specialized sweeps of K1/K2 (sampled_lse.cu), K3 (score_binmax.cu)
+// and K5/K6 in bf16 (xent_wgmma.cu), with the host side's tensor maps.
 //
 // Layout conventions. A tile of rows x (128 bytes) is loaded by one TMA box
 // with CU_TENSOR_MAP_SWIZZLE_128B: row r lands at byte 128 r, and its 16-byte
@@ -12,9 +12,10 @@
 //   K-major (the product's depth is the contiguous axis): start address of
 //     the rows and 16-element depth step (32 bytes on within the row), stride
 //     byte offset 1024 (8 rows); the leading byte offset is unused;
-//   MN-major (the output's columns are contiguous): leading byte offset =
-//     the stride between sub-tiles (64 output columns each), stride byte
-//     offset 1024 (the next 8 rows of depth).
+//   MN-major (the output's rows, for A, or columns, for B, are contiguous):
+//     leading byte offset = the stride between sub-tiles (64 output rows or
+//     columns each), stride byte offset 1024 (the next 8 rows of depth), a
+//     16-deep step 2048 bytes on.
 #pragma once
 
 #include <cuda.h>
@@ -132,7 +133,9 @@ template <int N>
 struct Wgmma;
 
 template <> struct Wgmma<64> {
-  // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
+  // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory,
+  // K-major, or MN-major where TA / TB is 1.
+  template <int TA = 0, int TB = 0>
   static __device__ inline void ss(float (&d)[32], uint64_t a, uint64_t b,
                                  int accumulate) {
     asm volatile(
@@ -140,17 +143,18 @@ template <> struct Wgmma<64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
   // d[64 x 64] += A[64 x 16] . B[16 x 64], A bf16 pairs in registers (the
-  // accumulator layout), B MN-major in shared memory.
+  // accumulator layout), B in shared memory, MN-major (TB = 1) or K-major.
+  template <int TB = 1>
   static __device__ inline void rs(float (&d)[32], const uint32_t (&a)[4],
                                  uint64_t b) {
     asm volatile(
@@ -158,19 +162,20 @@ template <> struct Wgmma<64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };
 
 template <> struct Wgmma<128> {
-  // d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory.
+  // d[64 x 128] (+)= A[64 x 16] . B[16 x 128], as Wgmma<64>::ss.
+  template <int TA = 0, int TB = 0>
   static __device__ inline void ss(float (&d)[64], uint64_t a, uint64_t b,
                                  int accumulate) {
     asm volatile(
@@ -180,7 +185,7 @@ template <> struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -192,10 +197,10 @@ template <> struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
   }
-  // d[64 x 128] += A[64 x 16] . B[16 x 128], A bf16 pairs in registers (the
-  // accumulator layout), B MN-major in shared memory.
+  // d[64 x 128] += A[64 x 16] . B[16 x 128], as Wgmma<64>::rs.
+  template <int TB = 1>
   static __device__ inline void rs(float (&d)[64], const uint32_t (&a)[4],
                                  uint64_t b) {
     asm volatile(
@@ -205,7 +210,7 @@ template <> struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -217,13 +222,13 @@ template <> struct Wgmma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };
 
 template <> struct Wgmma<256> {
-  // d[64 x 256] += A[64 x 16] . B[16 x 256], A bf16 pairs in registers (the
-  // accumulator layout), B MN-major in shared memory.
+  // d[64 x 256] += A[64 x 16] . B[16 x 256], as Wgmma<64>::rs.
+  template <int TB = 1>
   static __device__ inline void rs(float (&d)[128], const uint32_t (&a)[4],
                                  uint64_t b) {
     asm volatile(
@@ -237,7 +242,7 @@ template <> struct Wgmma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -260,7 +265,7 @@ template <> struct Wgmma<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };
 
@@ -292,15 +297,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a row-major [rows, cols] matrix of T at `ptr`: boxes of
-// box_rows x 128 bytes, 128-byte swizzle, zeros past its edges.
+// The tensor map of a row-major [rows, cols] matrix of T at `ptr`, rows
+// `ld` elements apart (cols where ld is 0): boxes of box_rows x 128 bytes,
+// 128-byte swizzle, zeros past its edges.
 template <typename T>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
-                     int box_rows) {
+                     int box_rows, long long ld = 0) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols) * sizeof(T)};
+  const cuuint64_t strides[1] = {cuuint64_t(ld > 0 ? ld : cols) * sizeof(T)};
   const cuuint32_t box[2] = {cuuint32_t(128 / sizeof(T)),
                              cuuint32_t(box_rows)};
   const cuuint32_t step[2] = {1, 1};

@@ -19,7 +19,10 @@
 //       sum G^2 for the grad-norm metric.
 // All three are modes of one sweep kernel (xent_sweep_kernel below), and
 // the [B, E] logits never reach device memory: a block holds one 64 x 64
-// tile of them, in registers and shared memory.
+// tile of them, in registers and shared memory. The wrapper (ops/xent.py)
+// sends K5 and K6 here in fp32 compute; in bf16 compute they run the
+// warp-specialized TMA + wgmma sweep of xent_wgmma.cu. K7 runs here in
+// either.
 //
 // W is read in its storage form, never copied, padded or transposed: its
 // layout is "de" ([d, E], the log-linear proj_w: entities contiguous) or
@@ -55,8 +58,9 @@
 // dpooled sweep, then K6's dW sweep whose epilogue applies the update to the
 // block's own tile of W, so dW is never stored; where the entity tiles are
 // too few to fill the card the dW sweep is split over the batch too, and
-// the update moves into the kernel that sums the slices. wgmma, TMA and one
-// merged sweep are later work.
+// the update moves into the kernel that sums the slices. K7 on
+// xent_wgmma.cu's sweep (its update as an epilogue of the dW mode), and an
+// fp32 mode there, are later work.
 //
 // Determinism: no float atomics. The dW sweeps split the batch tiles into
 // slices by a plan that depends on the shapes alone (ops/xent.py
@@ -811,9 +815,10 @@ int launch_bwd(const void* P, const void* W, const void* bias,
   return int(cudaGetLastError());
 }
 
-// K7's launches: the dpooled sweep first (it reads W, which the update
-// overwrites), then the update sweep, then, with S > 1 slices, the ordered
-// sum of the slices that applies the update.
+// K7's launches: in fp32 compute the dpooled sweep first (it reads W,
+// which the update overwrites; in bf16 compute the wrapper runs K6's, of
+// xent_wgmma.cu, before this call), then the update sweep, then, with
+// S > 1 slices, the ordered sum of the slices that applies the update.
 template <typename T, typename WT>
 int launch_apply(const void* P, void* W, const void* bias, const void* lse,
                  const void* lab, void* s1, void* s2, void* db, void* part,
@@ -823,12 +828,9 @@ int launch_apply(const void* P, void* W, const void* bias, const void* lse,
                  float lr, float gscale, float bc1, float bc2,
                  cudaStream_t stream) {
   const size_t smem = SweepLayout<T>::total;
-  auto dp_k = xent_sweep_kernel<T, WT, DPOOL>;
   auto up_k = xent_sweep_kernel<T, WT, UPDATE>;
-  for (auto k : {dp_k, up_k}) {
-    const cudaError_t err = prepare_sweep(k, smem);
-    if (err != cudaSuccess) return int(err);
-  }
+  cudaError_t err = prepare_sweep(up_k, smem);
+  if (err != cudaSuccess) return int(err);
   const T* p = static_cast<const T*>(P);
   WT* w = static_cast<WT*>(W);
   const float* b = static_cast<const float*>(bias);
@@ -836,11 +838,16 @@ int launch_apply(const void* P, void* W, const void* bias, const void* lse,
   const int* lb = static_cast<const int*>(lab);
   const Update<WT> u{w, static_cast<WT*>(s1), static_cast<WT*>(s2),
                      static_cast<float*>(gsq), opt, lr, gscale, bc1, bc2};
-  dp_k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
-      p, w, b, ls, lb, nullptr, static_cast<float*>(part), nullptr, B, E, d,
-      dp, sj, sk, tiles_per_chunk, Update<WT>{});
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
+  if constexpr (sizeof(T) == 4) {
+    auto dp_k = xent_sweep_kernel<T, WT, DPOOL>;
+    err = prepare_sweep(dp_k, smem);
+    if (err != cudaSuccess) return int(err);
+    dp_k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
+        p, w, b, ls, lb, nullptr, static_cast<float*>(part), nullptr, B, E,
+        d, dp, sj, sk, tiles_per_chunk, Update<WT>{});
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
   const int n_etiles = (E + TILE - 1) / TILE;
   up_k<<<dim3(n_etiles, n_slices), THREADS, smem, stream>>>(
       p, w, b, ls, lb, nullptr, static_cast<float*>(scratch),
@@ -855,33 +862,32 @@ int launch_apply(const void* P, void* W, const void* bias, const void* lse,
 
 }  // namespace
 
-// P [B, dp] in the compute type (bf16 when `use_bf16` is nonzero, else
-// fp32), dp a multiple of 128 bytes (32 fp32, 64 bf16) and <= 256, rows
-// 16-byte aligned, zero past d; W in its storage type (bf16 when `w_bf16` is
-// nonzero, else fp32) with W(j, k) at W[j * sj + k * sk] for entities j < E
-// and features k < d; bias [E] fp32. K5 writes m_out / s_out [n_chunks, B];
-// chunk c covers entity tiles [c * tiles_per_chunk, ...) of 64. The Python
-// wrapper checks every shape and type. Returns the cudaError_t.
+// K5 in fp32 compute (bf16 compute runs xent_wgmma.cu's sweep). P [B, dp]
+// fp32, dp a multiple of 32 and <= 256, rows 16-byte aligned, zero past d;
+// W in its storage type (bf16 when `w_bf16` is nonzero, else fp32) with
+// W(j, k) at W[j * sj + k * sk] for entities j < E and features k < d;
+// bias [E] fp32. K5 writes m_out / s_out [n_chunks, B]; chunk c covers
+// entity tiles [c * tiles_per_chunk, ...) of 64. The Python wrapper checks
+// every shape and type. Returns the cudaError_t.
 extern "C" int sert_xent_fwd(const void* P, const void* W, const void* bias,
                              void* m_out, void* s_out, int B, int E, int d,
                              int dp, long long sj, long long sk,
-                             int tiles_per_chunk, int n_chunks, int use_bf16,
-                             int w_bf16, void* stream) {
+                             int tiles_per_chunk, int n_chunks, int w_bf16,
+                             void* stream) {
   const cudaStream_t st = cudaStream_t(stream);
-  auto go = [&](auto t, auto wt) {
-    return launch_fwd<decltype(t), decltype(wt)>(
+  auto go = [&](auto wt) {
+    return launch_fwd<float, decltype(wt)>(
         P, W, bias, m_out, s_out, B, E, d, dp, sj, sk, tiles_per_chunk,
         n_chunks, st);
   };
-  if (use_bf16) return w_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.0f);
-  return w_bf16 ? go(0.0f, bf16()) : go(0.0f, 0.0f);
+  return w_bf16 ? go(bf16()) : go(0.0f);
 }
 
-// K6: as K5, plus lse [B] fp32, labels [B] int32 (-1: no gold entity) and
-// g, one fp32 scalar on the device. Writes dW fp32 with W's shape and
-// strides, db [E] fp32 (both scaled by g) and the unscaled dpooled partials
-// part [n_chunks, Bp, dp] fp32 (Bp = B rounded up to 64), which the caller
-// sums over the chunk axis. The dW sweep splits the batch tiles into
+// K6 in fp32 compute: as K5, plus lse [B] fp32, labels [B] int32 (-1: no
+// gold entity) and g, one fp32 scalar on the device. Writes dW fp32 with
+// W's shape and strides, db [E] fp32 (both scaled by g) and the unscaled
+// dpooled partials part [n_chunks, Bp, dp] fp32 (Bp = B rounded up to
+// 64), which the caller sums over the chunk axis. The dW sweep splits the batch tiles into
 // n_slices slices of btiles_per_slice; with more than one, `scratch` holds
 // n_slices * Ep * (dp + 1) floats of partials (Ep = E rounded up to 64),
 // else it is unused.
@@ -891,15 +897,14 @@ extern "C" int sert_xent_bwd(const void* P, const void* W, const void* bias,
                              int B, int E, int d, int dp, long long sj,
                              long long sk, int tiles_per_chunk, int n_chunks,
                              int btiles_per_slice, int n_slices,
-                             int use_bf16, int w_bf16, void* stream) {
+                             int w_bf16, void* stream) {
   const cudaStream_t st = cudaStream_t(stream);
-  auto go = [&](auto t, auto wt) {
-    return launch_bwd<decltype(t), decltype(wt)>(
+  auto go = [&](auto wt) {
+    return launch_bwd<float, decltype(wt)>(
         P, W, bias, lse, lab, g, dW, db, part, scratch, B, E, d, dp, sj, sk,
         tiles_per_chunk, n_chunks, btiles_per_slice, n_slices, st);
   };
-  if (use_bf16) return w_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.0f);
-  return w_bf16 ? go(0.0f, bf16()) : go(0.0f, 0.0f);
+  return w_bf16 ? go(bf16()) : go(0.0f);
 }
 
 // K7: as K6, with W updated in place instead of dW written. `opt` is 0
@@ -911,6 +916,8 @@ extern "C" int sert_xent_bwd(const void* P, const void* W, const void* bias,
 // Writes db [E] unscaled, the unscaled dpooled partials part
 // [n_chunks, Bp, dp] (summed by the caller) and gsq [ceil(E / 64)], each
 // entity tile's sum of (gscale * dW)^2. The plans and `scratch` are K6's.
+// In bf16 compute (use_bf16 nonzero) `part` is unused and no dpooled sweep
+// runs here: the wrapper runs K6's, xent_wgmma.cu's, before this call.
 extern "C" int sert_xent_bwd_apply(const void* P, void* W, const void* bias,
                                    const void* lse, const void* lab,
                                    void* s1, void* s2, void* db, void* part,

@@ -43,8 +43,11 @@ _SIGNATURES = {
     "sert_gather_rescore_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "sert_sampled_lse_fwd": [_P] * 7 + [_I] * 7 + [_P],
     "sert_sampled_lse_bwd": [_P] * 10 + [_I] * 9 + [_P],
-    "sert_xent_fwd": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 4 + [_P],
-    "sert_xent_bwd": [_P] * 10 + [_I] * 4 + [_L] * 2 + [_I] * 6 + [_P],
+    "sert_xent_fwd": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_I] * 3 + [_P],
+    "sert_xent_bwd": [_P] * 10 + [_I] * 4 + [_L] * 2 + [_I] * 5 + [_P],
+    "sert_xent_wgmma_fwd": [_P] * 5 + [_I] * 4 + [_L] + [_I] * 4 + [_P],
+    "sert_xent_wgmma_bwd": [_P] * 10 + [_I] * 4 + [_L] + [_I] * 6 + [_P],
+    "sert_xent_wgmma_dpooled": [_P] * 6 + [_I] * 4 + [_L] + [_I] * 4 + [_P],
     "sert_xent_bwd_apply": ([_P] * 11 + [_I] * 4 + [_L] * 2 + [_I] * 5
                             + [_F] * 4 + [_I] * 2 + [_P]),
 }

@@ -1,7 +1,7 @@
 """K5 + K6 + K7: softmax cross-entropy over the whole entity axis
-(``csrc/xent.cu``), port of ``sert_tpu/ops/xent.py`` (``xent_loss`` :293,
-``_fwd_partials`` :270, ``_bwd_calls`` :364, ``xent_loss_apply`` :615,
-``xent_bwd_apply`` :525).
+(``csrc/xent.cu``, ``csrc/xent_wgmma.cu``), port of
+``sert_tpu/ops/xent.py`` (``xent_loss`` :293, ``_fwd_partials`` :270,
+``_bwd_calls`` :364, ``xent_loss_apply`` :615, ``xent_bwd_apply`` :525).
 
     z_bj = pooled_b . W(j) + b_j
     loss = sum_b [ logsumexp_j z_bj - z_{b, y_b} ]
@@ -10,11 +10,14 @@
 log-linear ``proj_w``) or "ed" = [E, d] (the LSE ``entity_emb``). On CUDA
 tensors :func:`xent_loss` is a ``torch.autograd.Function`` whose forward
 launches K5 (per-chunk (max, sumexp), merged here) and whose backward
-launches K6 (dpooled, dW in W's layout, db): all of them modes of one sweep
-kernel, planned here from the shapes alone; the [B, E] logits never reach
-device memory, and W is read in place, in its own dtype, never copied or
-transposed. :func:`xent_lse` is the forward alone (the log-linear query
-normalizer). On CPU tensors both are their plain versions
+launches K6 (dpooled, dW in W's layout, db), planned here from the shapes
+alone; the [B, E] logits never reach device memory. The compute dtype picks
+the sweep: bf16 runs the three modes of the warp-specialized TMA + wgmma
+sweep of ``csrc/xent_wgmma.cu`` on a bf16 operand of W made once a forward
+(:func:`_w_operand`; W itself where it is one already), fp32 the mma.sync
+sweep of ``csrc/xent.cu``, which reads W in place, in its own dtype, never
+copied or transposed. :func:`xent_lse` is the forward alone (the log-linear
+query normalizer). On CPU tensors both are their plain versions
 (:func:`xent_loss_plain`, :func:`xent_lse_plain`), which are also the
 kernels' oracle on the card. Both round where the reference does: pooled and
 W to the compute dtype, fp32 products and softmax, the gold logit a separate
@@ -22,11 +25,12 @@ fp32 sum of compute-dtype-rounded products, and p = softmax - onehot rounded
 to the compute dtype before the dW and dpooled products.
 
 :func:`xent_loss_apply` is the optimizer-in-backward step's loss: K5, then
-K7, which is K6's dpooled sweep and then its dW sweep with adam, adagrad
-or sgd applied to W (and its optimizer slots) where K6 would store dW (or,
-where the dW sweep is split over the batch, in the ordered sum of its
-slices), so dW never reaches device memory; its plain version is
-:func:`xent_loss_apply_plain`.
+K7, which is K6's dpooled sweep (the wgmma one in bf16 compute, so that
+K6 and K7 agree bit for bit) and then the mma.sync sweep's dW sweep with
+adam, adagrad or sgd applied to W (and its optimizer slots) where K6
+would store dW (or, where the dW sweep is split over the batch, in the
+ordered sum of its slices), so dW never reaches device memory; its plain
+version is :func:`xent_loss_apply_plain`.
 
 On a mesh each rank holds a block of the entity axis:
 :func:`sharded_xent_loss` (K5, then K6, per block) and, where every rank
@@ -37,15 +41,18 @@ block; ``make_sharded_xent_apply`` :818), their blocks joined by a
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sert_tpu_torch.ops import _build
-from sert_tpu_torch.ops.sampled_lse import (DIM_MULTIPLE, MAX_DIM,
+from sert_tpu_torch.ops.sampled_lse import (DIM_MULTIPLE, MAX_DIM, X_ROWS,
                                             _compute_dtype, _operand,
-                                            _operand_fp32, _RoundGrad)
+                                            _operand_fp32, _RoundGrad,
+                                            _split, _sum_parts, _ytile)
 from sert_tpu_torch.utils import debug
 
 LAYOUTS = ("de", "ed")
@@ -58,10 +65,13 @@ SLOTS = {"adam": ("m", "v"), "adagrad": ("acc",), "sgd": ()}
 ADAM_B1, ADAM_B2, ADAM_EPS, ADAGRAD_EPS = 0.9, 0.999, 1e-8, 1e-7
 
 # Kernel launches since the last reset (chip_smoke.py shows the training and
-# scoring paths went through the kernels with them): K5, K6 and K7.
+# scoring paths went through the kernels with them): K5, K6 and K7; and of
+# K5 and K6, those that took the bf16 route (the wgmma sweep).
 fwd_launches = 0
 bwd_launches = 0
 apply_launches = 0
+fwd_wgmma_launches = 0
+bwd_wgmma_launches = 0
 
 
 def _logits_plain(pooled, W, b, layout, ct):
@@ -162,9 +172,10 @@ def kernel_limits(B: int, E: int, d: int):
     return None
 
 
-# The sweeps of K5, K6 and K7 hold two blocks an SM of an H100 (their
-# shared memory and registers); each splits its loop axis into parts so
-# that the grid is at most one round of such blocks.
+# The mma.sync sweep (csrc/xent.cu: K5 and K6 in fp32 compute, K7) holds two
+# blocks an SM of an H100 (its shared memory and registers); each of its
+# sweeps splits its loop axis into parts so that the grid is at most one
+# round of such blocks.
 K6_BLOCKS = 2 * 132
 
 
@@ -201,36 +212,89 @@ def _dw_scratch_numel(B: int, E: int, dp: int) -> int:
     return S * -(-E // TILE) * TILE * (dp + 1) if S > 1 else 0
 
 
-def _backward_sweeps(B, E, dp, dev):
-    """The plans and buffers of the backward's two sweeps, K6's and K7's:
-    ((entity tiles per chunk, chunks) of the dpooled sweep, (batch tiles
-    per slice, slices) of the dW sweep, the dpooled partials [chunks, Bp,
-    dp] (Bp = B rounded up to 64), the dW sweep's scratch or None)."""
+def _backward_sweeps(B, E, dp, dev, dpooled=True):
+    """The plans and buffers of the mma.sync sweep's backward, K6's and
+    K7's: ((entity tiles per chunk, chunks) of the dpooled sweep, (batch
+    tiles per slice, slices) of the dW sweep, the dpooled partials
+    [chunks, Bp, dp] (Bp = B rounded up to 64; None without ``dpooled``),
+    the dW sweep's scratch or None)."""
     per, n_chunks = _dp_chunks(B, E)
-    part = torch.empty((n_chunks, -(-B // TILE) * TILE, dp),
-                       dtype=torch.float32, device=dev)
+    part = (torch.empty((n_chunks, -(-B // TILE) * TILE, dp),
+                        dtype=torch.float32, device=dev) if dpooled else None)
     n = _dw_scratch_numel(B, E, dp)
     scratch = (torch.empty((n,), dtype=torch.float32, device=dev) if n
                else None)
     return (per, n_chunks), _dw_splits(B, E), part, scratch
 
 
-def _fwd(P, W, b, B, E, d, dp, strides, ct):
-    """Launch K5 on P [B, dp] and merge its chunks: lse [B] fp32."""
-    global fwd_launches
+@functools.lru_cache(maxsize=None)
+def _wgmma_plan(B: int, E: int, d: int):
+    """(K5's and the dpooled sweep's plan, the dW sweep's plan) of the bf16
+    sweep (``csrc/xent_wgmma.cu``), as ``sampled_lse.Sweep``s: K5 / dpooled
+    hold batch tiles of 128 rows and stream W's entity tiles in chunks; dW
+    holds entity tiles of 128 and streams P's batch tiles in slices, many
+    only where the entity tiles are few. Each is K1/K2's split
+    (``sampled_lse._split``): the fewest parts whose blocks, one an SM,
+    finish soonest. A function of the shapes alone (never of the card or
+    of timing), so that a run and its resume take the same sums."""
+    dp = _sweep_width(d, torch.bfloat16)
+    yr = _ytile(torch.bfloat16, dp)
+    return (_split(-(-B // X_ROWS), -(-E // yr), yr),
+            _split(-(-E // X_ROWS), -(-B // yr), yr))
+
+
+def _wgmma_scratch_numel(B: int, E: int, d: int) -> int:
+    """fp32 values of the bf16 dW sweep's slice partials ([S, Ex, dp], then
+    the db partials [S, Ex]; Ex = E rounded up to 128), or 0 with one
+    slice, where the sweep writes dW itself."""
+    S = _wgmma_plan(B, E, d)[1].parts
+    return (S * -(-E // X_ROWS) * X_ROWS * (_sweep_width(d, torch.bfloat16)
+                                             + 1) if S > 1 else 0)
+
+
+def _w_operand(W: torch.Tensor) -> torch.Tensor:
+    """W (contiguous, "de" or "ed") as the bf16 sweep reads it through TMA:
+    bf16, rows a whole number of 16 bytes apart, 16-byte aligned, zeros in
+    any padding columns. A bf16 W that is one already is taken as it is;
+    an fp32 W is cast once (the rounding xent_loss_plain applies), which
+    reads fp32 W once and writes a bf16 copy (256 MB at E 1M, d 128) that
+    the backward reuses."""
+    Wb = W.to(torch.bfloat16)
+    pad = -Wb.shape[1] % 8
+    if pad:
+        Wb = F.pad(Wb, (0, pad))
+    return Wb if Wb.data_ptr() % 16 == 0 else Wb.clone()
+
+
+def _fwd(P, W, Wb, b, geometry, ct):
+    """Launch K5 on P [B, dp] and merge its chunks: lse [B] fp32. bf16
+    compute runs the wgmma sweep on W's bf16 operand ``Wb``
+    (:func:`_w_operand`), fp32 compute the mma.sync sweep on W itself."""
+    global fwd_launches, fwd_wgmma_launches
+    B, E, d, dp, strides, layout = geometry
     dev = P.device
-    per, n_chunks = _dp_chunks(B, E)
+    if ct == torch.bfloat16:
+        plan = _wgmma_plan(B, E, d)[0]
+        per, n_chunks = plan.per, plan.parts
+    else:
+        per, n_chunks = _dp_chunks(B, E)
     m = torch.empty((n_chunks, B), dtype=torch.float32, device=dev)
     s = torch.empty_like(m)
     with torch.cuda.device(dev):
-        err = _build.kernel("sert_xent_fwd")(
-            P.data_ptr(), W.data_ptr(), b.data_ptr(), m.data_ptr(),
-            s.data_ptr(), B, E, d, dp, strides[0], strides[1], per,
-            n_chunks, int(ct == torch.bfloat16),
-            int(W.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if ct == torch.bfloat16:
+            err = _build.kernel("sert_xent_wgmma_fwd")(
+                P.data_ptr(), Wb.data_ptr(), b.data_ptr(), m.data_ptr(),
+                s.data_ptr(), B, E, d, dp, Wb.shape[1], int(layout == "de"),
+                per, n_chunks, plan.y_rows, stream)
+        else:
+            err = _build.kernel("sert_xent_fwd")(
+                P.data_ptr(), W.data_ptr(), b.data_ptr(), m.data_ptr(),
+                s.data_ptr(), B, E, d, dp, strides[0], strides[1], per,
+                n_chunks, int(W.dtype == torch.bfloat16), stream)
     _build.check(err, "xent forward (K5)")
     fwd_launches += 1
+    fwd_wgmma_launches += ct == torch.bfloat16
     debug.kernel_outputs("xent_fwd", m, s)
     M = m.amax(dim=0)
     return M + torch.log(torch.sum(s * torch.exp(m - M[None, :]), dim=0))
@@ -241,53 +305,79 @@ def _cuda_only(pooled: torch.Tensor) -> None:
         raise ValueError(f"xent runs on cpu or cuda, not {pooled.device}")
 
 
+def _geometry(pooled, W, b, labels, layout, ct):
+    """:func:`_check`'s (B, E, d, dp, strides), then the layout."""
+    return (*_check(pooled, W, b, labels, layout, ct), layout)
+
+
 def _loss_forward(pooled, W, b, labels, layout, ct):
     """K5 and the gold logit: (loss sum, the backward's operands (P, W, fp32
-    bias, int32 labels, lse [B]), geometry (B, E, d, dp, strides)). P is
-    padded here, once, to the sweeps' width dp, and K6 or K7 reads it as
-    it is."""
-    B, E, d, dp, strides = _check(pooled, W, b, labels, layout, ct)
-    P = _operand(pooled.detach(), ct, dp)
+    bias, int32 labels, lse [B], W's bf16 operand or None in fp32
+    compute), geometry (B, E, d, dp, strides, layout)). P is padded here,
+    once, to the sweeps' width dp, and W's bf16 operand made once
+    (:func:`_w_operand`); K6 or K7 reads them as they are."""
+    geometry = _geometry(pooled, W, b, labels, layout, ct)
+    d = geometry[2]
+    P = _operand(pooled.detach(), ct, geometry[3])
     Wd = W.detach()
+    Wb = _w_operand(Wd) if ct == torch.bfloat16 else None
     bf = b.detach().float().contiguous()
     lab = labels.to(torch.int32).contiguous()
-    lse = _fwd(P, Wd, bf, B, E, d, dp, strides, ct)
+    lse = _fwd(P, Wd, Wb, bf, geometry, ct)
     # The gold logit: one gather of W's gold rows, an fp32 sum of
     # compute-dtype-rounded products (the reference's xent.py:347-355).
     idx = labels.long()
     w_gold = Wd[:, idx].T if layout == "de" else Wd[idx]
     z_gold = (torch.sum(P[:, :d].float() * w_gold.to(ct).float(), dim=1)
               + bf[idx])
-    return (torch.sum(lse - z_gold), (P, Wd, bf, lab, lse),
-            (B, E, d, dp, strides))
+    return torch.sum(lse - z_gold), (P, Wd, bf, lab, lse, Wb), geometry
 
 
 def _bwd(saved, geometry, g, ct):
     """Launch K6 on :func:`_loss_forward`'s operands and geometry (or the
     sharded loss's: lse [B] may come from outside, a label -1 is a row
     whose gold entity another shard holds): (dpooled [B, d], dW in W's
-    layout, db [E]), fp32, each times the fp32 scalar ``g`` [1]."""
-    global bwd_launches
-    P, W, bf, lab, lse = saved
-    B, E, d, dp, strides = geometry
+    layout, db [E]), fp32, each times the fp32 scalar ``g`` [1]. bf16
+    compute runs the wgmma sweep's dW and dpooled modes on W's bf16
+    operand, fp32 compute the mma.sync sweep's on W itself."""
+    global bwd_launches, bwd_wgmma_launches
+    P, W, bf, lab, lse, Wb = saved
+    B, E, d, dp, strides, layout = geometry
     dev = P.device
-    (per, n_chunks), (bper, n_slices), part, scratch = _backward_sweeps(
-        B, E, dp, dev)
     dW = torch.empty(W.shape, dtype=torch.float32, device=dev)
     db = torch.empty((E,), dtype=torch.float32, device=dev)
+    if ct == torch.bfloat16:
+        fwd, dw = _wgmma_plan(B, E, d)
+        part = torch.empty((fwd.parts, B, dp), dtype=torch.float32,
+                           device=dev)
+        n = _wgmma_scratch_numel(B, E, d)
+        scratch = (torch.empty((n,), dtype=torch.float32, device=dev) if n
+                   else None)
+    else:
+        (per, n_chunks), (bper, n_slices), part, scratch = _backward_sweeps(
+            B, E, dp, dev)
     with torch.cuda.device(dev):
-        err = _build.kernel("sert_xent_bwd")(
-            P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
-            lab.data_ptr(), g.data_ptr(), dW.data_ptr(), db.data_ptr(),
-            part.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), B, E, d, dp,
-            strides[0], strides[1], per, n_chunks, bper, n_slices,
-            int(ct == torch.bfloat16), int(W.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sp = None if scratch is None else scratch.data_ptr()
+        if ct == torch.bfloat16:
+            err = _build.kernel("sert_xent_wgmma_bwd")(
+                P.data_ptr(), Wb.data_ptr(), bf.data_ptr(), lse.data_ptr(),
+                lab.data_ptr(), g.data_ptr(), dW.data_ptr(), db.data_ptr(),
+                part.data_ptr(), sp, B, E, d, dp, Wb.shape[1],
+                int(layout == "de"), fwd.per, fwd.parts, dw.per, dw.parts,
+                fwd.y_rows, stream)
+        else:
+            err = _build.kernel("sert_xent_bwd")(
+                P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
+                lab.data_ptr(), g.data_ptr(), dW.data_ptr(), db.data_ptr(),
+                part.data_ptr(), sp, B, E, d, dp, strides[0], strides[1],
+                per, n_chunks, bper, n_slices,
+                int(W.dtype == torch.bfloat16), stream)
     _build.check(err, "xent backward (K6)")
     bwd_launches += 1
+    bwd_wgmma_launches += ct == torch.bfloat16
     debug.kernel_outputs("xent_bwd", dW, db)
-    return part.sum(dim=0)[:B, :d] * g, dW, db
+    return _sum_parts(part)[:B, :d] * g, dW, db
 
 
 class _XentLoss(torch.autograd.Function):
@@ -337,9 +427,10 @@ def xent_lse(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         return xent_lse_plain(pooled, W, b, layout, dtype)
     _cuda_only(pooled)
     ct = _compute_dtype(dtype)
-    B, E, d, dp, strides = _check(pooled, W, b, None, layout, ct)
-    return _fwd(_operand(pooled, ct, dp), W, b.float().contiguous(), B, E, d,
-                dp, strides, ct)
+    geometry = _geometry(pooled, W, b, None, layout, ct)
+    Wb = _w_operand(W) if ct == torch.bfloat16 else None
+    return _fwd(_operand(pooled, ct, geometry[3]), W, Wb,
+                b.float().contiguous(), geometry, ct)
 
 
 # ------- the backward fed an outside lse, and the entity-sharded loss -------
@@ -396,11 +487,12 @@ def xent_bwd(pooled: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         return xent_bwd_plain(pooled, W, b, lse, labels, layout, dtype)
     _cuda_only(pooled)
     ct = _compute_dtype(dtype)
-    geometry = _check(pooled, W, b, labels, layout, ct)
+    geometry = _geometry(pooled, W, b, labels, layout, ct)
     saved = (_operand(pooled.detach(), ct, geometry[3]), W.detach(),
              b.detach().float().contiguous(),
              labels.to(torch.int32).contiguous(),
-             lse.detach().float().contiguous())
+             lse.detach().float().contiguous(),
+             _w_operand(W.detach()) if ct == torch.bfloat16 else None)
     one = torch.ones((1,), dtype=torch.float32, device=pooled.device)
     return _bwd(saved, geometry, one, ct)
 
@@ -427,9 +519,9 @@ def _block_forward(pooled, W, b, labels, stitch, layout, dtype, fused):
     the blocks, then the rescaled sum) and the global gold logit (from the
     block holding the label). Returns (lse [B], z_gold [B], the backward's
     operands, geometry): with ``fused`` K6's or K7's operands (P, W, fp32
-    bias, int32 labels of the block, -1 off it, lse) and ``_check``'s
-    geometry, else (pooled, W, b, int64 labels of the block, lse) and
-    None. Nothing here is differentiable."""
+    bias, int32 labels of the block, -1 off it, lse, W's bf16 operand or
+    None) and :func:`_loss_forward`'s geometry, else (pooled, W, b, int64
+    labels of the block, lse) and None. Nothing here is differentiable."""
     ct = _compute_dtype(dtype)
     El = W.shape[1] if layout == "de" else W.shape[0]
     lab = labels.long() - stitch.offset
@@ -438,11 +530,11 @@ def _block_forward(pooled, W, b, labels, stitch, layout, dtype, fused):
     lab_k = torch.where(own, idx, torch.full_like(idx, -1))
     Wd = W.detach()
     if fused:
-        geometry = _check(pooled, W, b, labels, layout, ct)
-        B, E, d, dp, strides = geometry
-        P = _operand(pooled.detach(), ct, dp)
+        geometry = _geometry(pooled, W, b, labels, layout, ct)
+        P = _operand(pooled.detach(), ct, geometry[3])
+        Wb = _w_operand(Wd) if ct == torch.bfloat16 else None
         bf = b.detach().float().contiguous()
-        lse_l = _fwd(P, Wd, bf, B, E, d, dp, strides, ct)
+        lse_l = _fwd(P, Wd, Wb, bf, geometry, ct)
     else:
         _check_layout(layout)
         geometry = None
@@ -462,7 +554,7 @@ def _block_forward(pooled, W, b, labels, stitch, layout, dtype, fused):
     lse, z_gold = M + torch.log(sums[0]), sums[1]
     if fused:
         saved = (P, Wd, bf, lab_k.to(torch.int32).contiguous(),
-                 lse.contiguous())
+                 lse.contiguous(), Wb)
     else:
         saved = (pooled.detach(), Wd, b.detach(), lab_k, lse)
     return lse, z_gold, saved, geometry
@@ -582,35 +674,60 @@ def xent_loss_apply_plain(pooled: torch.Tensor, W: torch.Tensor,
     return (loss.detach(), W, opt_tree, db * gscale, dpooled * gscale, gsq)
 
 
+def _wgmma_dpooled(saved, geometry, stream):
+    """K6's dpooled sweep on the bf16 route alone, on :func:`_loss_forward`'s
+    operands and geometry: K7's dpooled in bf16 compute, so that K6 and K7
+    give the same dpooled bit for bit. Returns its unscaled partials
+    [chunks, B, dp]."""
+    P, _, bf, lab, lse, Wb = saved
+    B, E, d, dp, _, layout = geometry
+    plan = _wgmma_plan(B, E, d)[0]
+    part = torch.empty((plan.parts, B, dp), dtype=torch.float32,
+                       device=P.device)
+    err = _build.kernel("sert_xent_wgmma_dpooled")(
+        P.data_ptr(), Wb.data_ptr(), bf.data_ptr(), lse.data_ptr(),
+        lab.data_ptr(), part.data_ptr(), B, E, d, dp, Wb.shape[1],
+        int(layout == "de"), plan.per, plan.parts, plan.y_rows, stream)
+    _build.check(err, "xent backward with the optimizer update (K7)")
+    return part
+
+
 def _bwd_apply(saved, geometry, slots, opt, lr, count, gscale, ct):
     """Launch K7 on :func:`_loss_forward`'s operands and geometry: K6's
     dpooled sweep, then its dW sweep with the update in place of the dW
     store (and, with S > 1 slices, the update in the ordered sum of the
-    slices), on K6's plans. Updates W and the slots in place; returns
-    (db * gscale, dpooled * gscale, gsq)."""
+    slices), on K6's plans. The update runs on the mma.sync sweep in
+    either compute dtype; the dpooled sweep is K6's own, the wgmma one in
+    bf16 (:func:`_wgmma_dpooled`, launched first: it reads W before the
+    update). Updates W and the slots in place; returns (db * gscale,
+    dpooled * gscale, gsq)."""
     global apply_launches
-    P, W, bf, lab, lse = saved
-    B, E, d, dp, strides = geometry
+    P, W, bf, lab, lse = saved[:5]
+    B, E, d, dp, strides = geometry[:5]
     dev = P.device
+    bf16 = ct == torch.bfloat16
     (per, n_chunks), (bper, n_slices), part, scratch = _backward_sweeps(
-        B, E, dp, dev)
+        B, E, dp, dev, dpooled=not bf16)
     db = torch.empty((E,), dtype=torch.float32, device=dev)
     gsq = torch.empty((-(-E // TILE),), dtype=torch.float32, device=dev)
     bc1, bc2 = _bias_corr(count) if opt == "adam" else (1.0, 1.0)
     s1, s2 = ([s.data_ptr() for s in slots] + [None, None])[:2]
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if bf16:
+            part = _wgmma_dpooled(saved, geometry, stream)
         err = _build.kernel("sert_xent_bwd_apply")(
             P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
-            lab.data_ptr(), s1, s2, db.data_ptr(), part.data_ptr(),
-            gsq.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            lab.data_ptr(), s1, s2, db.data_ptr(),
+            None if bf16 else part.data_ptr(), gsq.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             B, E, d, dp, strides[0], strides[1], per, n_chunks, bper,
             n_slices, OPTIMIZERS.index(opt), lr, gscale, bc1, bc2,
-            int(ct == torch.bfloat16), int(W.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            int(bf16), int(W.dtype == torch.bfloat16), stream)
     _build.check(err, "xent backward with the optimizer update (K7)")
     apply_launches += 1
     debug.kernel_outputs("xent_bwd_apply", W, db, gsq)
-    return (db * gscale, part.sum(dim=0)[:B, :d] * gscale, torch.sum(gsq))
+    return (db * gscale, _sum_parts(part)[:B, :d] * gscale, torch.sum(gsq))
 
 
 @torch.no_grad()

@@ -27,6 +27,17 @@ from sert_tpu_torch.utils.config import ModelConfig
 # Ops whose output is uninitialized memory until something writes it.
 _UNINITIALIZED = ("empty", "empty_like", "empty_strided", "new_empty",
                   "new_empty_strided")
+
+
+def _is_view(func) -> bool:
+    """An op whose every output aliases an input it does not write (detach,
+    alias, view, slice, t, ...): it makes no new values. checkify's
+    float_checks check only the primitives that can make a NaN, none of
+    them data movement; a view of a NaN made elsewhere is that op's."""
+    returns = func._schema.returns
+    return bool(returns) and all(
+        r.alias_info is not None and not r.alias_info.is_write
+        for r in returns)
 _DIVISIONS = ("div", "floor_divide", "remainder", "fmod")
 
 
@@ -76,7 +87,8 @@ class CheckError:
 
 class _FloatChecks(TorchDispatchMode):
     """checkify.float_checks as a dispatch mode: a NaN in any floating
-    output, and integer division by zero. Records device bools; nothing
+    output of an op that makes values (not of a view, nor of uninitialized
+    memory), and integer division by zero. Records device bools; nothing
     syncs while the checked function runs."""
 
     def __init__(self):
@@ -117,7 +129,8 @@ class _FloatChecks(TorchDispatchMode):
                 raise FloatingPointError(
                     f"division by zero in {func}") from e
             raise
-        if func.overloadpacket.__name__ not in _UNINITIALIZED:
+        if (func.overloadpacket.__name__ not in _UNINITIALIZED
+                and not _is_view(func)):
             self.record(str(func), _pytree.tree_leaves(out))
         return out
 

@@ -194,7 +194,10 @@ def test_each_sweep_takes_its_plan(launches, B, E, d, layout, dtype):
     """K5's grid is _dp_chunks; K6's and K7's dpooled sweeps the same plan,
     their dW sweeps _dw_splits with scratch only where S > 1; every launch
     reads the one P padded in the forward; at most one round of
-    K6_BLOCKS a sweep."""
+    K6_BLOCKS a sweep. bf16 compute sends K5 and K6, and K7's dpooled
+    sweep, to the wgmma sweep's entry points (their plan:
+    tests/test_torch_xent_wgmma.py); K7's update stays on the mma.sync
+    sweep."""
     rng = np.random.default_rng(0)
     ct = xent._compute_dtype(dtype)
     pooled = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32))
@@ -218,16 +221,21 @@ def test_each_sweep_takes_its_plan(launches, B, E, d, layout, dtype):
     xent._bwd_apply(saved, geometry, slots, "adam", 1e-3, 0, 1.0 / B, ct)
 
     names = [n for n, _ in launches]
-    assert names == ["sert_xent_fwd", "sert_xent_bwd", "sert_xent_fwd",
-                     "sert_xent_bwd_apply"]
-    fwd, bwd, _, apply = (a for _, a in launches)
-    assert fwd[5:9] == (B, E, d, dp) and fwd[11:13] == (per, chunks)
-    assert bwd[10:14] == (B, E, d, dp)
-    assert bwd[16:20] == (per, chunks, bper, slices)
-    assert (bwd[9] is None) == (slices == 1)
+    bf16 = dtype == "bfloat16"
+    k5, k6 = (("sert_xent_wgmma_fwd", "sert_xent_wgmma_bwd") if bf16
+              else ("sert_xent_fwd", "sert_xent_bwd"))
+    assert names == [k5, k6, k5] + ["sert_xent_wgmma_dpooled"] * bf16 + [
+        "sert_xent_bwd_apply"]
+    fwd, bwd, apply = launches[0][1], launches[1][1], launches[-1][1]
+    assert fwd[5:9] == (B, E, d, dp) and bwd[10:14] == (B, E, d, dp)
+    if dtype == "float32":
+        assert fwd[11:13] == (per, chunks)
+        assert bwd[16:20] == (per, chunks, bper, slices)
+        assert (bwd[9] is None) == (slices == 1)
     assert apply[11:15] == (B, E, d, dp)
     assert apply[17:21] == (per, chunks, bper, slices)
     assert (apply[10] is None) == (slices == 1)
+    assert (apply[8] is None) == bf16            # K7's own dpooled sweep
     assert apply[5] is not None and apply[6] is not None   # adam's m, v
 
 

@@ -581,6 +581,10 @@ def test_lazy_steps_are_bit_equal_on_the_card(cuda):
 # the same rounded operands in either dtype.
 XENT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 XENT_SUM_RTOL = 1e-4
+# K6's bf16 gradients where they hold exp(z - lse) terms alone, relative to
+# the plain version's largest value there (chip_smoke.py's
+# XENT_SOFTMAX_TOL): XENT_TOL's scale is the one-hot term, which hides them.
+XENT_SOFTMAX_TOL = 4e-3
 
 
 def _xent_inputs(dev, B, E, d, layout, w_dtype=torch.float32, seed=0):
@@ -598,6 +602,25 @@ def _xent_run(fn, pooled, W, b, labels, layout, dtype):
     loss = fn(p, w, bb, labels, layout, dtype)
     grads = torch.autograd.grad(loss / pooled.shape[0], [p, w, bb])
     return [loss.detach(), *grads]
+
+
+def _softmax_part_rel(got, want, labels, layout):
+    """{output: max |got - want| / max |want|} of (dpooled, dW, db) over
+    the entries with no one-hot term: dW's and db's entities that no label
+    names, dpooled's rows labelled -1 (where there are any)."""
+    named = torch.zeros(want[2].shape[0], dtype=torch.bool,
+                        device=labels.device)
+    named[labels[labels >= 0].long()] = True
+    parts = {"dW": (got[1], want[1], ~named, int(layout == "de")),
+             "db": (got[2], want[2], ~named, 0)}
+    if bool((labels < 0).any()):
+        parts["dpooled"] = (got[0], want[0], labels < 0, 0)
+    rel = {}
+    for name, (a, w, keep, axis) in parts.items():
+        a, w = a.float().transpose(0, axis), w.float().transpose(0, axis)
+        a, w = a[keep], w[keep]
+        rel[name] = ((a - w).abs().max() / w.abs().max()).item()
+    return rel
 
 
 @pytest.mark.gpu
@@ -684,6 +707,58 @@ class TestXentOnCard:
         assert got.shape == want.shape == (B,)
         err = (got - want).abs().max().item()
         assert err <= XENT_SUM_RTOL * want.abs().max().item()
+
+    # The bf16 route (csrc/xent_wgmma.cu) at full width: the log-linear
+    # A/B's "de" (E 500k, d 256), d 256 in "ed", lse_full's 128k; every
+    # launch on the wgmma sweep, two backward calls bit for bit.
+    @pytest.mark.parametrize("B,E,d,layout", [(1024, 500_000, 256, "de"),
+                                              (4096, 131072, 256, "ed"),
+                                              (4096, 131072, 128, "ed")])
+    def test_wgmma_route_at_full_width(self, cuda, B, E, d, layout):
+        x = _xent_inputs(cuda, B, E, d, layout, seed=5)
+        n = (xent.fwd_wgmma_launches, xent.bwd_wgmma_launches)
+        got = _xent_run(xent.xent_loss, *x, layout, "bfloat16")
+        again = _xent_run(xent.xent_loss, *x, layout, "bfloat16")
+        assert (xent.fwd_wgmma_launches, xent.bwd_wgmma_launches) == (
+            n[0] + 2, n[1] + 2)
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+        want = _xent_run(xent.xent_loss_plain, *x, layout, "bfloat16")
+        for name, a, b in zip(("loss", "dpooled", "dW", "db"), got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            rtol = XENT_SUM_RTOL if name == "loss" else XENT_TOL["bfloat16"]
+            assert err <= rtol * b.abs().max().item(), name
+        rel = _softmax_part_rel(got[1:], want[1:], x[3], layout)
+        assert max(rel.values()) <= XENT_SOFTMAX_TOL, rel
+
+    # K6's bf16 route fed an lse from outside, a ragged B, labels of -1 and
+    # the entity tail, with W stored in fp32 (cast once) and in bf16.
+    @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("layout", ["ed", "de"])
+    def test_wgmma_k6_ragged_with_off_shard_labels(self, cuda, layout,
+                                                   w_dtype):
+        B, E, d = 1000, 131071, 128
+        pooled, W, b, labels = _xent_inputs(cuda, B, E, d, layout, w_dtype,
+                                            seed=6)
+        lse = xent.xent_lse_plain(pooled, W, b, layout, "bfloat16") + 0.7
+        labels = torch.where(torch.arange(B, device=cuda) % 3 == 0,
+                             torch.full_like(labels, -1), labels)
+        n = xent.bwd_wgmma_launches
+        got = xent.xent_bwd(pooled, W, b, lse, labels, layout, "bfloat16")
+        assert xent.bwd_wgmma_launches == n + 1
+        want = xent.xent_bwd_plain(pooled, W, b, lse, labels, layout,
+                                   "bfloat16")
+        for name, a, w in zip(("dpooled", "dW", "db"), got, want):
+            assert a.shape == w.shape, name
+            err = (a - w).abs().max().item()
+            assert err <= XENT_TOL["bfloat16"] * w.abs().max().item(), name
+        rel = _softmax_part_rel(got, want, labels, layout)
+        assert max(rel.values()) <= XENT_SOFTMAX_TOL, rel
+        # The control: lse + 0.01 scales every exp(z - lse) by e^-0.01,
+        # which XENT_SOFTMAX_TOL sees on each output.
+        bad = xent.xent_bwd(pooled, W, b, lse + 0.01, labels, layout,
+                            "bfloat16")
+        rel = _softmax_part_rel(bad, want, labels, layout)
+        assert len(rel) == 3 and min(rel.values()) > XENT_SOFTMAX_TOL, rel
 
     def test_wrapper_refuses_what_the_kernels_do_not_take(self, cuda):
         pooled, W, b, labels = _xent_inputs(cuda, 8, 16, 16, "ed")

@@ -96,7 +96,10 @@ class TestDebug:
 
     def test_checked_names_a_kernel_at_its_boundary(self):
         """A kernel writes through a pointer, unseen by the dispatcher: its
-        wrapper's kernel_outputs names it."""
+        wrapper's kernel_outputs names it. The uninitialized buffer (empty)
+        and the views that reach its memory (numpy's detach) make no
+        values, so nothing is checked before the kernel's outputs, whatever
+        the buffer held."""
         def wrapper():
             out = torch.empty(4)            # uninitialized: not checked
             out.numpy()[:] = [1.0, np.nan, 2.0, 3.0]   # "the kernel"
@@ -104,12 +107,23 @@ class TestDebug:
             return out.sum()
         err, _ = debug.checked(wrapper)()
         assert err.get() == "nan generated by kernel xent_fwd"
+        assert err._checks[0][0] == "nan generated by kernel xent_fwd"
         padded = torch.zeros(2, 6)
         padded[:, 4:] = torch.nan           # the sweep's padding columns
         err, _ = debug.checked(
             lambda: debug.kernel_outputs("k", padded, cols=4))()
         assert err.get() is None
         debug.kernel_outputs("no mode", torch.tensor([np.nan]))  # no-op
+
+    def test_checked_leaves_views_to_the_op_that_made_the_nan(self):
+        """As checkify's float_checks, which check no data movement: a
+        view of a NaN made outside is not flagged, an op that computes
+        from it is."""
+        x = torch.tensor([1.0, np.nan, 2.0])
+        err, _ = debug.checked(lambda t: t.detach()[1:].view(2, 1).t())(x)
+        assert err.get() is None
+        err, _ = debug.checked(lambda t: t.detach()[1:] * 2)(x)
+        assert err.get() == "nan generated by aten.mul.Tensor"
 
     def test_assert_all_finite(self):
         debug.assert_all_finite({"a": torch.ones(3)})
