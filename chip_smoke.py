@@ -108,12 +108,14 @@ Phases (each prints one line or more; any failure exits non-zero):
      xent_loss_apply_plain on the same inputs, from seeded non-zero
      moments, for each optimizer: "de" fp32 at w3c's B=1024 and a ragged
      B=1000 (E=1100, d=128) and at cerc's (B=1024, E=3500, d=256); "de"
-     bf16 at the reference's fused-step width (B=1024, E=500k, d=256);
-     "ed" bf16 at B=4096, E=131072 and 131071; bf16 storage once; each
-     case's dW-sweep slices (the update in the sweep with one, in the
-     ordered sum of the slices with more); errors of the loss, gsq, db,
-     dpooled, W' and the slots with their tolerances, two K7 calls bit for
-     bit at w3c's and cerc's shapes (slices) and at E=131071 (one slice),
+     bf16 at cerc's shape and at the reference's fused-step width (B=1024,
+     E=500k, d=256); "ed" bf16 at B=4096, E=131072 and 131071; bf16
+     storage once; each case's dW-sweep slices (the update in the sweep
+     with one, in the ordered sum of the slices with more; bf16 on the
+     wgmma sweep's plan); errors of the loss, gsq, db, dpooled, W' and the
+     slots with their tolerances, two K7 calls bit for bit at w3c's, cerc's
+     and cerc_bf16's shapes (slices) and at E=500k and 131071 (one slice),
+     each bf16 case's sgd update against W - lr (K6's dW) bit for bit,
      CUDA-event times of K7 alone and of the plain backward + update;
  11. train_loglinear: cerc_expert_finding as the recipe stands (V from the
      CERC stand-in, E=3500, d=256, B=1024, fp32, adam + cosine, 5 epochs)
@@ -2290,6 +2292,28 @@ def _apply_bound(x, dtype):
             bound(flops, moved, dtype)["bound_ms"])
 
 
+def _k7_is_k6_dw(x, layout) -> bool:
+    """One dW: whether K7's sgd update of W (bf16 compute) on inputs ``x``
+    is W - lr (K6's dW at g = gscale), in _update_plain's order, bit for
+    bit."""
+    import torch
+    from sert_tpu_torch.ops import xent
+    pooled, W, b, labels, _ = x
+    gscale = 1.0 / pooled.shape[0]
+    with torch.no_grad():
+        _, saved, geometry = xent._loss_forward(pooled, W, b, labels,
+                                                layout, torch.bfloat16)
+        g = torch.full((1,), gscale, device=W.device)
+        dW = xent._bwd(saved, geometry, g, torch.bfloat16)[1]
+        del saved
+        want = W.clone()
+        xent._update_plain(want, [], dW, "sgd", APPLY_LR, 0, 1.0)
+        del dW
+    got = _apply_outputs(xent.xent_loss_apply, x, "sgd", layout,
+                         "bfloat16")["W"]
+    return bool(torch.equal(got, want))
+
+
 def phase_xent_apply_kernels() -> dict:
     """K7 against xent_loss_apply_plain on the same inputs, for each
     optimizer. Returns the kernel record of the w3c adam case (the fused
@@ -2298,28 +2322,36 @@ def phase_xent_apply_kernels() -> dict:
     from sert_tpu_torch.ops import xent
     rec = dict(name="xent_bwd_apply", route="cuda",
                source="sert_tpu_torch/csrc/xent.cu",
-               bf16_dpooled_source="sert_tpu_torch/csrc/xent_wgmma.cu",
+               bf16_source="sert_tpu_torch/csrc/xent_wgmma.cu",
                replaces="sert_tpu/ops/xent.py:468", launches=0,
                max_abs_err=0.0, library_ms=None)
     f32, bf = torch.float32, torch.bfloat16
     cases = [("w3c", 1024, 1100, 128, "de", "float32", f32),
              ("w3c_ragged", 1000, 1100, 128, "de", "float32", f32),
              ("cerc", 1024, 3500, 256, "de", "float32", f32),
+             ("cerc_bf16", 1024, 3500, 256, "de", "bfloat16", f32),
              ("ll_500k", 1024, 500_000, 256, "de", "bfloat16", f32),
              ("lse_full_128k", 4096, 131072, 128, "ed", "bfloat16", f32),
              ("lse_full_tail", 4096, 131071, 128, "ed", "bfloat16", f32)]
     # Two calls bit for bit: the update in the sum of the slices (w3c 8,
-    # cerc 4) and in the sweep's epilogue (one slice, a one-entity tail).
-    bit_equal = ("w3c", "cerc", "lse_full_tail")
+    # cerc 4, cerc_bf16 4) and in the sweep's epilogue (one slice: ll_500k,
+    # and a one-entity tail).
+    bit_equal = ("w3c", "cerc", "cerc_bf16", "ll_500k", "lse_full_tail")
     runs = [(c, opt) for c in cases for opt in xent.OPTIMIZERS]
     runs.append((("bf16_storage", 4096, 131072, 128, "ed", "bfloat16", bf),
                  "adam"))
     for i, ((label, B, E, d, layout, dtype, w_dtype), opt) in enumerate(runs):
         x = _apply_case(B, E, d, layout, opt, 400 + i, w_dtype)
-        per, slices = xent._dw_splits(B, E)
-        say("xent_apply_kernels", case=label, opt=opt, dw_slices=slices,
-            dw_btiles_per_slice=per, dw_blocks=slices * -(-E // 64),
-            dp_blocks=xent._dp_chunks(B, E)[1] * -(-B // 64))
+        if dtype == "bfloat16":          # the wgmma sweep's plans
+            fwd, dw = xent._wgmma_plan(B, E, d)
+            say("xent_apply_kernels", case=label, opt=opt,
+                dw_slices=dw.parts, dw_btiles_per_slice=dw.per,
+                dw_blocks=dw.blocks, dp_blocks=fwd.blocks)
+        else:
+            per, slices = xent._dw_splits(B, E)
+            say("xent_apply_kernels", case=label, opt=opt, dw_slices=slices,
+                dw_btiles_per_slice=per, dw_blocks=slices * -(-E // 64),
+                dp_blocks=xent._dp_chunks(B, E)[1] * -(-B // 64))
         got = _apply_outputs(xent.xent_loss_apply, x, opt, layout, dtype)
         if label in bit_equal:
             again = _apply_outputs(xent.xent_loss_apply, x, opt, layout,
@@ -2335,6 +2367,13 @@ def phase_xent_apply_kernels() -> dict:
                                                  layout=layout, dtype=dtype,
                                                  storage=str(w_dtype)[6:]))
         del got
+        if dtype == "bfloat16" and opt == "sgd":
+            same = _k7_is_k6_dw(x, layout)
+            say("xent_apply_kernels", case=label, opt=opt,
+                k7_update_is_w_minus_lr_k6_dw_bit_for_bit=same)
+            if not same:
+                raise AssertionError(f"{label}: K7's sgd update is not "
+                                     f"W - lr (K6's dW)")
         iters = 3 if E > 100_000 else 10
         ms, plain_ms = _apply_times(x, opt, layout, dtype, iters)
         bnd, cores = _apply_bound(x, dtype)
@@ -2548,6 +2587,7 @@ def phase_fused_ab() -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             xent.apply_launches = xent.bwd_launches = 0
+            xent.apply_wgmma_launches = 0
             step(state, batch)                              # warm
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2557,10 +2597,13 @@ def phase_fused_ab() -> dict:
             ms = (time.perf_counter() - t0) * 1e3 / (AB_CALLS * n)
             want = (AB_CALLS + 1) * n
             used = {"on": (want, 0), "off": (0, want)}[mode]
-            if (xent.apply_launches, xent.bwd_launches) != used:
+            # bf16 compute: every K7 on the wgmma sweep.
+            if ((xent.apply_launches, xent.bwd_launches) != used
+                    or xent.apply_wgmma_launches != used[0]):
                 raise AssertionError(
                     f"{opt} {mode}: K7/K6 launched {xent.apply_launches}/"
-                    f"{xent.bwd_launches} times, not {used}")
+                    f"{xent.bwd_launches} times ({xent.apply_wgmma_launches}"
+                    f" K7 on the wgmma sweep), not {used}")
             if not math.isfinite(loss):
                 raise AssertionError(f"{opt} {mode}: loss {loss}")
             got[mode].append((ms, torch.cuda.max_memory_allocated(), loss))

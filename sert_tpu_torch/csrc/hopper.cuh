@@ -299,12 +299,17 @@ EncodeTiled encode_tiled() {
 
 // The tensor map of a row-major [rows, cols] matrix of T at `ptr`, rows
 // `ld` elements apart (cols where ld is 0): boxes of box_rows x 128 bytes,
-// 128-byte swizzle, zeros past its edges.
+// 128-byte swizzle, zeros past its edges. The encoder checks `ptr` against
+// the calling thread's context, which a thread that has made no runtime call
+// yet may lack (an autograd worker whose first CUDA work is a kernel here:
+// the encoder then refuses a valid address), so the runtime binds one first.
 template <typename T>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
                      int box_rows, long long ld = 0) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
+  const cudaError_t bound = cudaFree(nullptr);
+  if (bound != cudaSuccess) return bound;
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
   const cuuint64_t strides[1] = {cuuint64_t(ld > 0 ? ld : cols) * sizeof(T)};
   const cuuint32_t box[2] = {cuuint32_t(128 / sizeof(T)),

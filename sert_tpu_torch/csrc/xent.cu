@@ -20,9 +20,9 @@
 // All three are modes of one sweep kernel (xent_sweep_kernel below), and
 // the [B, E] logits never reach device memory: a block holds one 64 x 64
 // tile of them, in registers and shared memory. The wrapper (ops/xent.py)
-// sends K5 and K6 here in fp32 compute; in bf16 compute they run the
-// warp-specialized TMA + wgmma sweep of xent_wgmma.cu. K7 runs here in
-// either.
+// sends K5, K6 and K7 here in fp32 compute; in bf16 compute they run the
+// warp-specialized TMA + wgmma sweep of xent_wgmma.cu, K7's update on its
+// dW mode through the same arithmetic (update.cuh).
 //
 // W is read in its storage form, never copied, padded or transposed: its
 // layout is "de" ([d, E], the log-linear proj_w: entities contiguous) or
@@ -53,14 +53,15 @@
 // cp.async / register ring that overlaps the products, keeps its
 // accumulators in registers and runs fp32 products on the tensor cores as
 // 3xTF32; each sweep splits its loop axis by a plan that fills one round of
-// two blocks an SM (ops/xent.py _dw_splits, _dp_chunks). K5 is the z pass
+// two blocks an SM (ops/xent.py _dw_splits, _dp_chunks), the dpooled
+// sweep's chunks cut to DP_MAX_TILES there (a tensor-core sum drifts from
+// the exact one in proportion to its length). K5 is the z pass
 // alone, with a running (max, sumexp) of each row in registers. K7 is K6's
 // dpooled sweep, then K6's dW sweep whose epilogue applies the update to the
 // block's own tile of W, so dW is never stored; where the entity tiles are
 // too few to fill the card the dW sweep is split over the batch too, and
-// the update moves into the kernel that sums the slices. K7 on
-// xent_wgmma.cu's sweep (its update as an epilogue of the dW mode), and an
-// fp32 mode there, are later work.
+// the update moves into the kernel that sums the slices. An fp32 mode of
+// xent_wgmma.cu's sweep, for K5-K7 in fp32 compute, is later work.
 //
 // Determinism: no float atomics. The dW sweeps split the batch tiles into
 // slices by a plan that depends on the shapes alone (ops/xent.py
@@ -82,94 +83,9 @@
 
 #include "mma_sync.cuh"
 #include "tile_mm.cuh"
+#include "update.cuh"
 
 namespace {
-
-// K7's optimizers, in the order of ops/xent.py's OPTIMIZERS; their
-// constants are baked in as the reference bakes them (xent_bwd_apply :552).
-enum Opt : int { ADAM = 0, ADAGRAD = 1, SGD = 2 };
-// 1 - b1 and 1 - b2 are taken in double and rounded to fp32 once, as the
-// reference's Python floats are (not 1.0f - 0.9f, which is 2.2e-8 off).
-constexpr float B1 = 0.9f, B1C = 0.1f, B2 = 0.999f, B2C = 0.001f;
-constexpr float ADAM_EPS = 1e-8f, ADAGRAD_EPS = 1e-7f;
-
-__device__ inline float to_f32(float x) { return x; }
-__device__ inline float to_f32(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ inline T from_f32(float x);
-template <> __device__ inline float from_f32<float>(float x) { return x; }
-template <> __device__ inline bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// K7's update: W itself (written in place), its slots s1, s2 ((m, v) for
-// adam, (acc, -) for adagrad, unused for sgd, each shaped and typed as W),
-// the per-entity-tile sums of G^2, and the update's constants.
-template <typename WT>
-struct Update {
-  WT* w;
-  WT* s1;
-  WT* s2;
-  float* gsq;
-  int opt;
-  float lr, gscale, bc1, bc2;
-};
-
-// W's element and its slots' (those the optimizer has), in fp32.
-struct Elem {
-  float w, s1, s2;
-};
-template <typename WT>
-__device__ inline Elem load_elem(const Update<WT>& u, long long at) {
-  Elem e{to_f32(u.w[at]), 0.0f, 0.0f};
-  if (u.opt != SGD) e.s1 = to_f32(u.s1[at]);
-  if (u.opt == ADAM) e.s2 = to_f32(u.s2[at]);
-  return e;
-}
-
-// The update of W's element `at` (loaded as e) from its gradient g, in
-// place, in fp32 from the stored values, in the reference's order
-// (_bwd_update_kernel :501-522) with round-to-nearest intrinsics (no
-// contraction); results stored in W's type. Returns sq + g^2.
-template <typename WT>
-__device__ inline float store_update(const Update<WT>& u, long long at,
-                                     float g, Elem e, float sq) {
-  sq = __fadd_rn(sq, __fmul_rn(g, g));
-  float upd;
-  if (u.opt == ADAM) {
-    const float m2 = __fadd_rn(__fmul_rn(B1, e.s1), __fmul_rn(B1C, g));
-    const float v2 = __fadd_rn(__fmul_rn(B2, e.s2),
-                               __fmul_rn(__fmul_rn(B2C, g), g));
-    upd = __fdiv_rn(__fmul_rn(u.lr, __fdiv_rn(m2, u.bc1)),
-                    __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, u.bc2)), ADAM_EPS));
-    u.s1[at] = from_f32<WT>(m2);
-    u.s2[at] = from_f32<WT>(v2);
-  } else if (u.opt == ADAGRAD) {
-    const float a2 = __fadd_rn(e.s1, __fmul_rn(g, g));
-    upd = __fmul_rn(__fmul_rn(u.lr, g),
-                    a2 > 0.0f ? __frsqrt_rn(__fadd_rn(a2, ADAGRAD_EPS))
-                              : 0.0f);
-    u.s1[at] = from_f32<WT>(a2);
-  } else {
-    upd = __fmul_rn(u.lr, g);
-  }
-  u.w[at] = from_f32<WT>(__fsub_rn(e.w, upd));
-  return sq;
-}
-
-// The block's sum of one value a thread in a fixed order (lanes, then warps
-// in turn), in thread 0; `red` is NW floats of shared memory, one a warp.
-template <int NW = WARPS>
-__device__ inline float block_sum(float x, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
-  __syncthreads();
-  float s = 0.0f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < NW; ++w) s += red[w];
-  return s;
-}
 
 // ---- The sweep: K5, K6 and K7 on the tensor cores --------------------------
 // Every launch of K5, K6 and K7 but the slice sums is xent_sweep_kernel, in
@@ -650,7 +566,7 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
       out2[x0 + tid] = MODE == DW ? gs * dbacc[tid] : dbacc[tid];
     if constexpr (MODE == UPDATE) {
       // rl (X's labels) is unused by the dW sweeps.
-      const float total = block_sum(sq, reinterpret_cast<float*>(rl));
+      const float total = block_sum<WARPS>(sq, reinterpret_cast<float*>(rl));
       if (tid == 0) up.gsq[blockIdx.x] = total;
     }
   }
@@ -916,8 +832,9 @@ extern "C" int sert_xent_bwd(const void* P, const void* W, const void* bias,
 // Writes db [E] unscaled, the unscaled dpooled partials part
 // [n_chunks, Bp, dp] (summed by the caller) and gsq [ceil(E / 64)], each
 // entity tile's sum of (gscale * dW)^2. The plans and `scratch` are K6's.
-// In bf16 compute (use_bf16 nonzero) `part` is unused and no dpooled sweep
-// runs here: the wrapper runs K6's, xent_wgmma.cu's, before this call.
+// With use_bf16 nonzero (bf16 products) `part` is unused and no dpooled
+// sweep runs here; ops/xent.py sends K7 in bf16 compute to xent_wgmma.cu
+// (sert_xent_wgmma_apply) and calls this with use_bf16 = 0 only.
 extern "C" int sert_xent_bwd_apply(const void* P, void* W, const void* bias,
                                    const void* lse, const void* lab,
                                    void* s1, void* s2, void* db, void* part,

@@ -1,10 +1,12 @@
-// K5 + K6 in bf16 compute: the full-softmax forward partials and backward
-// as three modes of one warp-specialized TMA + wgmma sweep, for sm_90a.
+// K5 + K6 + K7 in bf16 compute: the full-softmax forward partials, the
+// backward, and the backward with the optimizer applied, as four modes of
+// one warp-specialized TMA + wgmma sweep, for sm_90a.
 //
 // Replaces, for bf16 compute, the Pallas kernels of sert_tpu/ops/xent.py
-// _fwd_kernel :152 (launched by _fwd_partials :270) and _bwd_kernel :219
-// (launched by _bwd_calls :364). fp32 compute and K7 stay on xent.cu's
-// mma.sync sweep. With z[b, j] = P[b] . W(j) + bias[j] over entities j < E:
+// _fwd_kernel :152 (launched by _fwd_partials :270), _bwd_kernel :219
+// (launched by _bwd_calls :364) and _bwd_update_kernel :468 (launched by
+// xent_bwd_apply :525). fp32 compute stays on xent.cu's mma.sync sweep.
+// With z[b, j] = P[b] . W(j) + bias[j] over entities j < E:
 //   K5: per (batch row, entity chunk) the running (max, sumexp) of z; the
 //       caller merges the chunks into lse[b];
 //   K6: p = exp(z - lse[b]) - onehot(label[b]) (no onehot for a label of
@@ -12,6 +14,13 @@
 //       (scaled by g in the wrapper), with p rounded to bf16 before both
 //       products and db summed from the unrounded p (the reference's cast
 //       points). Rows past B contribute nothing.
+//   K7: K6's dpooled, then K6's dW sweep with adam, adagrad or sgd applied
+//       to W and its slots in place from G = gscale dW where K6 would store
+//       dW, so dW never reaches device memory; db unscaled and one sum of
+//       G^2 an entity tile. Its accumulators are K6's, bit for bit (the same
+//       plan, tiles, order and products), and its update is xent.cu's
+//       (update.cuh), so K6 and K7 give one dW and fp32 and bf16 compute one
+//       update.
 // The [B, E] logits never reach device memory, nor shared memory: every
 // tile of them lives in the accumulator registers of the warpgroup that
 // made it.
@@ -30,7 +39,7 @@
 // tile: at 128-row batch tiles that is B / 128 = 32 reads of W a pass at the
 // flagship, 8.2 GB, 2.4 ms, more than K5's whole bound.
 //
-// The design: K1/K2's sweep (sampled_lse.cu), its three modes here. A block
+// The design: K1/K2's sweep (sampled_lse.cu), its modes here. A block
 // keeps a resident tile X of 128 rows in shared memory and streams the tiles
 // Y of the other operand through a ring of four stages:
 //   FWD (K5)  X = a batch tile of P, Y = the entity tiles of one chunk of W:
@@ -38,7 +47,14 @@
 //   DP (K6)   the same tiles: p from z, acc += p Y (dpooled partials);
 //   DW (K6)   X = an entity tile of W, Y = the batch tiles of one slice of P:
 //             z^T = X Y^T, p^T from it, acc += p^T Y (dW) and the row sums of
-//             p^T (db).
+//             p^T (db);
+//   APPLY (K7) DW's loop; with one slice its epilogue stages G = gscale acc
+//             through the ring's shared memory (free once the loop is done)
+//             in W's layout and updates the tile of W and its slots, each
+//             feature's run of 128 entities ("de") or each entity's row
+//             ("ed") read and written whole; with S > 1 slices it writes
+//             DW's partials and a second kernel sums them in slice order
+//             and applies the same update.
 // One producer warp issues the TMA loads into the ring with full / empty
 // mbarriers (128-byte swizzle; TMA zero-fills past B, past E and past d, so
 // 0 * NaN never reaches a product) and stages each tile's vectors beside it:
@@ -76,6 +92,20 @@
 // the next tile's products before folding this tile's (two z arrays, which
 // spill). Overlapping them without spilling is the next lever.
 //
+// K7's update bounds it at the log-linear A/B's width in fp32 storage:
+// adam reads and writes W, m and v once, 3.07 GB, 0.92 ms at 3.35 TB/s,
+// beside its three products (0.27 ms each). One block runs on each SM, so a
+// tile's epilogue does not overlap the next tile's products (PERF.md §6
+// gives what it adds); a persistent grid whose producer loads the next
+// tile meanwhile is the lever.
+//
+// K7 updates W in place, and with bf16 storage the sweep's operand is W
+// itself (ops/xent.py _w_operand). That is safe because: DP, which reads all
+// of W, is launched first on the same stream; with one slice a block writes
+// only its own resident entity tile X, which no other block reads; with
+// S > 1 the update runs only in the reduce kernel, after every slice block
+// has finished.
+//
 // Determinism: no float atomics. The plan is a function of the shapes
 // alone: it splits the entity tiles into chunks (FWD, DP) and the batch
 // tiles into slices (DW, where the entity tiles are too few to fill the
@@ -91,6 +121,7 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "update.cuh"
 
 namespace {
 
@@ -100,7 +131,7 @@ constexpr float L2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float MASKED2 = -1e30f * L2E;
 
-enum Mode : int { FWD = 0, DP = 1, DW = 2 };
+enum Mode : int { FWD = 0, DP = 1, DW = 2, APPLY = 3 };
 
 // One block's geometry at kernel width KW (dp rounded up to 64, 128 or 256):
 // the Y tile's rows BN, the ring's stages, and the byte offsets of the
@@ -290,6 +321,57 @@ __device__ inline void probs(float (&z)[BN / 2], const float* yv,
   }
 }
 
+// ---- K7's update in the epilogue -----------------------------------------
+constexpr int CONSUMERS = 256;     // the two consumer warpgroups' threads
+
+// The consumers' barrier (the producer warpgroup has exited by then).
+__device__ inline void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// G's tile in shared memory in W's layout, its row strides padded so that
+// the accumulator fragments' stores and the update's reads miss each
+// other's banks: "de" [KW features][XR + 4 entities], "ed" [XR entities][KW
+// + 8 features].
+constexpr int LDE = XR + 4;
+template <int KW>
+constexpr int LDD = KW + 8;
+template <int KW, bool DE>
+constexpr uint32_t G_BYTES = (DE ? KW * LDE : XR * LDD<KW>) * 4;
+
+// The update of the block's entity tile (entities x0.., features < d) from
+// G in shared memory, by consumer thread t: "de" walks each feature's run
+// of XR entities, "ed" each entity's row of features, so that W and its
+// slots are read and written in whole runs. U elements' loads are in
+// flight before any store (a store may alias a later element's load, so the
+// compiler would not hoist the loads itself). Returns t's sum of G^2.
+template <int KW, bool DE, typename WT>
+__device__ inline float apply_tile(const float* Gs, const Update<WT>& up,
+                                   int x0, int E, int d, int t) {
+  constexpr int U = 8, N = KW * XR;
+  float sq = 0.0f;
+  for (int i0 = t; i0 < N; i0 += U * CONSUMERS) {
+    long long at[U];
+    float gv[U];
+    Elem e[U];
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int i = i0 + q * CONSUMERS;
+      const int r = DE ? i % XR : i / KW, k = DE ? i / XR : i % KW;
+      at[q] = -1;
+      if (k < d && x0 + r < E) {
+        at[q] = DE ? (long long)k * E + x0 + r : (long long)(x0 + r) * d + k;
+        gv[q] = Gs[DE ? k * LDE + r : r * LDD<KW> + k];
+        e[q] = load_elem(up, at[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < U; ++q)
+      if (at[q] >= 0) sq = store_update(up, at[q], gv[q], e[q], sq);
+  }
+  return sq;
+}
+
 // ---- The sweep ---------------------------------------------------------------
 // Grid (X tiles of 128 rows, parts); part y covers Y tiles [y per, (y + 1)
 // per) of BN rows. tx / ty: the maps of X and Y (P's boxes of 128 or BN
@@ -298,8 +380,11 @@ __device__ inline void probs(float (&z)[BN / 2], const float* yv,
 // units) / sumexp [parts, B]; DP the dpooled partials out [parts, B, dp]; DW
 // with one slice dW = g acc into out (W's layout, [E, d] or [d, E]) and
 // db = g sum p into out2 [E], with S slices the unscaled partials into out
-// [S, Ex, dp] (Ex = the entity tiles x 128) and out2 [S, Ex].
-template <int KW, int MODE, bool DE>
+// [S, Ex, dp] (Ex = the entity tiles x 128) and out2 [S, Ex]. APPLY: with
+// one slice W and its slots updated in place through up, db unscaled into
+// out2 [E] and the tile's sum of G^2 into up.gsq[blockIdx.x]; with S
+// slices DW's partials.
+template <int KW, int MODE, bool DE, typename WT = float>
 __global__ void __launch_bounds__(THREADS_WS, 1)
 xent_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                   const __grid_constant__ CUtensorMap ty,
@@ -307,10 +392,11 @@ xent_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                   const float* __restrict__ lse, const int* __restrict__ lab,
                   const float* __restrict__ g, float* __restrict__ out,
                   float* __restrict__ out2, int B, int E, int d, int dp,
-                  int per) {
+                  int per, Update<WT> up) {
   using G = Geom<KW>;
   constexpr int BN = G::BN, NST = G::NST;
-  constexpr bool XE = MODE == DW;     // X is an entity tile of W
+  constexpr bool XE = MODE == DW || MODE == APPLY;   // X: an entity tile
+  static_assert(G_BYTES<KW, DE> <= G::XVEC, "G's tile fits X and the ring");
   constexpr bool X_COLS = XE && DE, Y_COLS = !XE && DE;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
@@ -454,14 +540,16 @@ xent_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   } else {
     const int S = gridDim.y;
     const size_t Ex = size_t(gridDim.x) * XR;
-    const float gs = S == 1 ? *g : 1.0f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
       rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
-      const int row = x0 + xr + 8 * h;
-      if (row >= nx) continue;
-      if (S > 1) {                  // slice s's partials, unscaled
+    }
+    if (S > 1) {                    // slice s's partials, unscaled
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = x0 + xr + 8 * h;
+        if (row >= nx) continue;
         float* o = out + (size_t(blockIdx.y) * Ex + row) * dp;
 #pragma unroll
         for (int j = 0; j < KW / 8; ++j) {
@@ -471,28 +559,75 @@ xent_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                 make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         }
         if (tq == 0) out2[size_t(blockIdx.y) * Ex + row] = rsum[h];
-        continue;
       }
+    } else if constexpr (MODE == DW) {
       // One slice: dW = g acc in W's layout, db = g sum p.
+      const float gs = *g;
 #pragma unroll
-      for (int j = 0; j < KW / 8; ++j) {
-        const int col = 8 * j + 2 * tq;
-        const float v0 = gs * acc[4 * j + 2 * h];
-        const float v1 = gs * acc[4 * j + 2 * h + 1];
-        if constexpr (DE) {
-          if (col < d) out[size_t(col) * E + row] = v0;
-          if (col + 1 < d) out[size_t(col + 1) * E + row] = v1;
-        } else {
-          float* o = out + size_t(row) * d + col;
-          if ((d & 1) == 0 && col + 1 < d) {
-            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      for (int h = 0; h < 2; ++h) {
+        const int row = x0 + xr + 8 * h;
+        if (row >= nx) continue;
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j) {
+          const int col = 8 * j + 2 * tq;
+          const float v0 = gs * acc[4 * j + 2 * h];
+          const float v1 = gs * acc[4 * j + 2 * h + 1];
+          if constexpr (DE) {
+            if (col < d) out[size_t(col) * E + row] = v0;
+            if (col + 1 < d) out[size_t(col + 1) * E + row] = v1;
           } else {
-            if (col < d) o[0] = v0;
-            if (col + 1 < d) o[1] = v1;
+            float* o = out + size_t(row) * d + col;
+            if ((d & 1) == 0 && col + 1 < d) {
+              *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+            } else {
+              if (col < d) o[0] = v0;
+              if (col + 1 < d) o[1] = v1;
+            }
           }
         }
+        if (tq == 0) out2[row] = gs * rsum[h];
       }
-      if (tq == 0) out2[row] = gs * rsum[h];
+    } else {
+      // One slice, APPLY: db unscaled; G = gscale acc (rounded as xent.cu
+      // rounds it) into shared memory in W's layout, once every product
+      // has read the ring and X; then the tile's update and its sum of G^2
+      // over the consumer warps in a fixed order.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = x0 + xr + 8 * h;
+        if (tq == 0 && row < nx) out2[row] = rsum[h];
+      }
+      float* Gs = reinterpret_cast<float*>(smem);
+      consumers_sync();
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = xr + 8 * h, k = 8 * j + 2 * tq;
+          const float v0 = __fmul_rn(acc[4 * j + 2 * h], up.gscale);
+          const float v1 = __fmul_rn(acc[4 * j + 2 * h + 1], up.gscale);
+          if constexpr (DE) {
+            Gs[k * LDE + r] = v0;
+            Gs[(k + 1) * LDE + r] = v1;
+          } else {
+            *reinterpret_cast<float2*>(Gs + r * LDD<KW> + k) =
+                make_float2(v0, v1);
+          }
+        }
+      consumers_sync();
+      const int t = tid - 128;
+      float sq = apply_tile<KW, DE>(Gs, up, x0, E, d, t);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      float* red = reinterpret_cast<float*>(smem + G::YVEC);
+      if (lane == 0) red[t / 32] = sq;
+      consumers_sync();
+      if (t == 0) {
+        float total = 0.0f;
+        for (int w = 0; w < CONSUMERS / 32; ++w) total += red[w];
+        up.gsq[blockIdx.x] = total;
+      }
     }
   }
 }
@@ -527,6 +662,57 @@ xent_wgmma_reduce_kernel(const float* __restrict__ part,
   }
 }
 
+// K7's sum of S > 1 slices, with the update: one block an entity tile of XR
+// sums the tile's S partials of each element in slice order, as
+// xent_wgmma_reduce_kernel does (so G = gscale sum is K6's dW at g =
+// gscale, bit for bit), applies the update from G in place in W's layout,
+// and writes db unscaled and the tile's sum of G^2. RA_THREADS threads a
+// block, each with U elements' loads in flight before it stores any (as
+// apply_tile).
+constexpr int RA_THREADS = 1024;
+template <typename WT>
+__global__ void __launch_bounds__(RA_THREADS)
+xent_wgmma_reduce_apply_kernel(const float* __restrict__ part,
+                               const float* __restrict__ dbpart,
+                               float* __restrict__ db, int E, int d, int dp,
+                               int Ex, int S, int de, Update<WT> up) {
+  constexpr int U = 4;
+  __shared__ float red[RA_THREADS / 32];
+  const int j0 = blockIdx.x * XR, n = XR * d;
+  const size_t slice = size_t(Ex) * dp;
+  float sq = 0.0f;
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * RA_THREADS) {
+    long long at[U];
+    float gv[U];
+    Elem e[U];
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int i = i0 + q * RA_THREADS;
+      const int r = de ? i % XR : i / d, k = de ? i / XR : i % d;
+      at[q] = -1;
+      if (i < n && j0 + r < E) {
+        const float* src = part + size_t(j0 + r) * dp + k;
+        float acc = 0.0f;
+        for (int s = 0; s < S; ++s) acc += src[s * slice];
+        at[q] = de ? (long long)k * E + j0 + r : (long long)(j0 + r) * d + k;
+        gv[q] = __fmul_rn(acc, up.gscale);
+        e[q] = load_elem(up, at[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < U; ++q)
+      if (at[q] >= 0) sq = store_update(up, at[q], gv[q], e[q], sq);
+  }
+  const int t = threadIdx.x;
+  if (t < XR && j0 + t < E) {
+    float acc = 0.0f;
+    for (int s = 0; s < S; ++s) acc += dbpart[size_t(s) * Ex + j0 + t];
+    db[j0 + t] = acc;
+  }
+  const float total = block_sum<RA_THREADS / 32>(sq, red);
+  if (t == 0) up.gsq[blockIdx.x] = total;
+}
+
 // ---- Host side -----------------------------------------------------------------
 // The pointers of one launch: P [B, dp] and W's bf16 operand ("ed" [E, d],
 // "de" [d, E], rows ldw elements apart), the vectors, and the mode's
@@ -544,12 +730,12 @@ struct Args {
   long long ldw;
 };
 
-template <int KW, int MODE, bool DE>
+template <int KW, int MODE, bool DE, typename WT>
 cudaError_t launch(const Args& a, int per, int parts, int ytile,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const Update<WT>& up) {
   using G = Geom<KW>;
   if (ytile != G::BN) return cudaErrorInvalidValue;   // the plan's Y tile
-  constexpr bool XE = MODE == DW;
+  constexpr bool XE = MODE == DW || MODE == APPLY;
   CUtensorMap tp, tw;
   cudaError_t err = make_map<__nv_bfloat16>(&tp, a.P, a.B, a.dp,
                                             XE ? G::BN : XR);
@@ -558,29 +744,46 @@ cudaError_t launch(const Args& a, int per, int parts, int ytile,
            : make_map<__nv_bfloat16>(&tw, a.W, a.E, a.d, XE ? XR : G::BN,
                                      a.ldw);
   if (err != cudaSuccess) return err;
-  auto kernel = xent_wgmma_kernel<KW, MODE, DE>;
+  auto kernel = xent_wgmma_kernel<KW, MODE, DE, WT>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::TOTAL));
   if (err != cudaSuccess) return err;
   const int nx = XE ? a.E : a.B;
   kernel<<<dim3((nx + XR - 1) / XR, parts), THREADS_WS, G::TOTAL, stream>>>(
       XE ? tw : tp, XE ? tp : tw, a.bias, a.lse, a.lab, a.g, a.out, a.out2,
-      a.B, a.E, a.d, a.dp, per);
+      a.B, a.E, a.d, a.dp, per, up);
   return cudaGetLastError();
 }
 
-// The kernel width for the padded d (64, 128 or 256) and W's layout.
-template <int MODE>
+// The kernel width for the padded d (64, 128 or 256) and W's layout; `up`
+// is APPLY's update (W's storage type WT), unused by the other modes.
+template <int MODE, typename WT = float>
 cudaError_t launch_mode(const Args& a, bool de, int per, int parts,
-                        int ytile, cudaStream_t stream) {
+                        int ytile, cudaStream_t stream,
+                        const Update<WT>& up = Update<WT>{}) {
   if (a.dp <= 64)
-    return de ? launch<64, MODE, true>(a, per, parts, ytile, stream)
-              : launch<64, MODE, false>(a, per, parts, ytile, stream);
+    return de ? launch<64, MODE, true>(a, per, parts, ytile, stream, up)
+              : launch<64, MODE, false>(a, per, parts, ytile, stream, up);
   if (a.dp <= 128)
-    return de ? launch<128, MODE, true>(a, per, parts, ytile, stream)
-              : launch<128, MODE, false>(a, per, parts, ytile, stream);
-  return de ? launch<256, MODE, true>(a, per, parts, ytile, stream)
-            : launch<256, MODE, false>(a, per, parts, ytile, stream);
+    return de ? launch<128, MODE, true>(a, per, parts, ytile, stream, up)
+              : launch<128, MODE, false>(a, per, parts, ytile, stream, up);
+  return de ? launch<256, MODE, true>(a, per, parts, ytile, stream, up)
+            : launch<256, MODE, false>(a, per, parts, ytile, stream, up);
+}
+
+// K7's launches after its dpooled: the APPLY sweep and, with S > 1 slices,
+// the ordered sum of its partials (a.out) that applies the update.
+template <typename WT>
+cudaError_t launch_apply(const Args& a, bool de, int per, int n_slices,
+                         int ytile, float* db, const Update<WT>& up,
+                         cudaStream_t stream) {
+  cudaError_t err =
+      launch_mode<APPLY, WT>(a, de, per, n_slices, ytile, stream, up);
+  if (err != cudaSuccess || n_slices == 1) return err;
+  const int Ex = (a.E + XR - 1) / XR * XR;
+  xent_wgmma_reduce_apply_kernel<WT><<<Ex / XR, RA_THREADS, 0, stream>>>(
+      a.out, a.out2, db, a.E, a.d, a.dp, Ex, n_slices, int(de), up);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -650,8 +853,9 @@ extern "C" int sert_xent_wgmma_bwd(const void* P, const void* W,
 }
 
 // K6's dpooled sweep alone, as sert_xent_wgmma_bwd runs it: K7's dpooled in
-// bf16 compute (K7's update sweep is xent.cu's), so that K6 and K7 give
-// the same dpooled bit for bit, as they did when both ran xent.cu's.
+// bf16 compute, launched before sert_xent_wgmma_apply (it reads all of W,
+// which the update overwrites), so that K6 and K7 give the same dpooled bit
+// for bit.
 extern "C" int sert_xent_wgmma_dpooled(const void* P, const void* W,
                                        const void* bias, const void* lse,
                                        const void* lab, void* part, int B,
@@ -664,4 +868,45 @@ extern "C" int sert_xent_wgmma_dpooled(const void* P, const void* W,
                ldw};
   return int(launch_mode<DP>(a, de != 0, per, n_chunks, ytile,
                              cudaStream_t(stream)));
+}
+
+// K7 in bf16 compute, after sert_xent_wgmma_dpooled on the same stream: K6's
+// dW sweep with adam (opt 0; s1 = m, s2 = v), adagrad (1; s1 = acc) or sgd
+// (2; no slots) applied to W in place of the dW store. P, W's bf16 operand
+// `Wop`, bias, lse, labels, the plan (per, n_slices, ytile) and `scratch`
+// are sert_xent_wgmma_bwd's dW sweep's; `W` is W itself in its storage
+// type (bf16 when w_bf16 is nonzero, else fp32; it is Wop where W is a bf16
+// operand already), [E, d] ("ed") or [d, E] ("de"), contiguous, and the
+// slots have its shape and type. lr is the learning rate, gscale the
+// factor from the summed loss's dW to the update's gradient, bc1 and bc2
+// adam's bias corrections 1 - 0.9^t and 1 - 0.999^t. Writes db [E]
+// unscaled and gsq [Ex / 128], each entity tile's sum of (gscale dW)^2.
+extern "C" int sert_xent_wgmma_apply(const void* P, const void* Wop,
+                                     void* W, const void* bias,
+                                     const void* lse, const void* lab,
+                                     void* s1, void* s2, void* db, void* gsq,
+                                     void* scratch, int B, int E, int d,
+                                     int dp, long long ldw, int de, int per,
+                                     int n_slices, int ytile, int opt,
+                                     float lr, float gscale, float bc1,
+                                     float bc2, int w_bf16, void* stream) {
+  const int Ex = (E + XR - 1) / XR * XR;
+  float* sp = static_cast<float*>(scratch);
+  const bool split = n_slices > 1;
+  const Args a{P, Wop, static_cast<const float*>(bias),
+               static_cast<const float*>(lse), static_cast<const int*>(lab),
+               nullptr, split ? sp : nullptr,
+               split ? sp + size_t(n_slices) * Ex * dp
+                     : static_cast<float*>(db),
+               B, E, d, dp, ldw};
+  auto go = [&](auto wt) {
+    using WT = decltype(wt);
+    const Update<WT> u{static_cast<WT*>(W), static_cast<WT*>(s1),
+                       static_cast<WT*>(s2), static_cast<float*>(gsq), opt,
+                       lr, gscale, bc1, bc2};
+    return int(launch_apply<WT>(a, de != 0, per, n_slices, ytile,
+                                static_cast<float*>(db), u,
+                                cudaStream_t(stream)));
+  };
+  return w_bf16 ? go(__nv_bfloat16()) : go(0.0f);
 }

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "sert_xent_wgmma_dpooled": [_P] * 6 + [_I] * 4 + [_L] + [_I] * 4 + [_P],
     "sert_xent_bwd_apply": ([_P] * 11 + [_I] * 4 + [_L] * 2 + [_I] * 5
                             + [_F] * 4 + [_I] * 2 + [_P]),
+    "sert_xent_wgmma_apply": ([_P] * 11 + [_I] * 4 + [_L] + [_I] * 5
+                              + [_F] * 4 + [_I] + [_P]),
 }
 
 _lock = threading.Lock()

@@ -25,12 +25,13 @@ fp32 sum of compute-dtype-rounded products, and p = softmax - onehot rounded
 to the compute dtype before the dW and dpooled products.
 
 :func:`xent_loss_apply` is the optimizer-in-backward step's loss: K5, then
-K7, which is K6's dpooled sweep (the wgmma one in bf16 compute, so that
-K6 and K7 agree bit for bit) and then the mma.sync sweep's dW sweep with
-adam, adagrad or sgd applied to W (and its optimizer slots) where K6
-would store dW (or, where the dW sweep is split over the batch, in the
-ordered sum of its slices), so dW never reaches device memory; its plain
-version is :func:`xent_loss_apply_plain`.
+K7, which is K6's dpooled sweep and then K6's dW sweep with adam, adagrad
+or sgd applied to W (and its optimizer slots) where K6 would store dW
+(or, where the dW sweep is split over the batch, in the ordered sum of
+its slices), so dW never reaches device memory. Each compute dtype takes
+K6's own sweeps (bf16: the wgmma sweep's DP mode, then its APPLY mode;
+fp32: the mma.sync sweep's), so K6 and K7 give the same dpooled and dW
+bit for bit. Its plain version is :func:`xent_loss_apply_plain`.
 
 On a mesh each rank holds a block of the entity axis:
 :func:`sharded_xent_loss` (K5, then K6, per block) and, where every rank
@@ -56,7 +57,9 @@ from sert_tpu_torch.ops.sampled_lse import (DIM_MULTIPLE, MAX_DIM, X_ROWS,
 from sert_tpu_torch.utils import debug
 
 LAYOUTS = ("de", "ed")
-TILE = 64                 # the kernels' entity tile: K7 sums G^2 per tile
+# The mma.sync sweep's tile (K7 there sums G^2 per entity tile of TILE; the
+# wgmma sweep's K7 per tile of X_ROWS).
+TILE = 64
 # K7's optimizers (their index is the kernel's code) and the state slots of
 # each, shaped and typed as W; the constants are baked into the kernel as
 # the reference bakes them (xent_bwd_apply :552-553).
@@ -66,12 +69,13 @@ ADAM_B1, ADAM_B2, ADAM_EPS, ADAGRAD_EPS = 0.9, 0.999, 1e-8, 1e-7
 
 # Kernel launches since the last reset (chip_smoke.py shows the training and
 # scoring paths went through the kernels with them): K5, K6 and K7; and of
-# K5 and K6, those that took the bf16 route (the wgmma sweep).
+# each, those that took the bf16 route (the wgmma sweep).
 fwd_launches = 0
 bwd_launches = 0
 apply_launches = 0
 fwd_wgmma_launches = 0
 bwd_wgmma_launches = 0
+apply_wgmma_launches = 0
 
 
 def _logits_plain(pooled, W, b, layout, ct):
@@ -172,11 +176,19 @@ def kernel_limits(B: int, E: int, d: int):
     return None
 
 
-# The mma.sync sweep (csrc/xent.cu: K5 and K6 in fp32 compute, K7) holds two
+# The mma.sync sweep (csrc/xent.cu: K5, K6 and K7 in fp32 compute) holds two
 # blocks an SM of an H100 (its shared memory and registers); each of its
 # sweeps splits its loop axis into parts so that the grid is at most one
 # round of such blocks.
 K6_BLOCKS = 2 * 132
+# The longest chunk of the dpooled sweep, in entity tiles. A block sums its
+# chunk into tensor-core accumulators, whose fp32 sums drift from the exact
+# one in proportion to their length: at E 500k, d 256, B 1024 the one-card
+# dpooled read 7.5e-5 (relative norm) from an fp64 one with one-round chunks
+# of 489 tiles, 9.9e-6 at 64, 4.9e-6 at 32 and 2.5e-6 at 16
+# (tools/dpooled_fp64.py on the H100; PERF.md §6). Longer loops take more
+# chunks, which the wrapper sums in fp32.
+DP_MAX_TILES = 32
 
 
 def _k6_split(n_fixed: int, n_loop: int):
@@ -200,8 +212,11 @@ def _dw_splits(B: int, E: int):
 def _dp_chunks(B: int, E: int):
     """(entity tiles per chunk, chunks) of K5 and of the dpooled sweep of
     K6 and K7, whose block (batch tile, chunk) writes one partial that the
-    wrapper merges or sums in order."""
-    return _k6_split(-(-B // TILE), -(-E // TILE))
+    wrapper merges or sums in order: one round's split, its chunks cut to
+    at most DP_MAX_TILES."""
+    n_etiles = -(-E // TILE)
+    per = min(_k6_split(-(-B // TILE), n_etiles)[0], DP_MAX_TILES)
+    return per, -(-n_etiles // per)
 
 
 def _dw_scratch_numel(B: int, E: int, dp: int) -> int:
@@ -212,15 +227,15 @@ def _dw_scratch_numel(B: int, E: int, dp: int) -> int:
     return S * -(-E // TILE) * TILE * (dp + 1) if S > 1 else 0
 
 
-def _backward_sweeps(B, E, dp, dev, dpooled=True):
+def _backward_sweeps(B, E, dp, dev):
     """The plans and buffers of the mma.sync sweep's backward, K6's and
     K7's: ((entity tiles per chunk, chunks) of the dpooled sweep, (batch
     tiles per slice, slices) of the dW sweep, the dpooled partials
-    [chunks, Bp, dp] (Bp = B rounded up to 64; None without ``dpooled``),
-    the dW sweep's scratch or None)."""
+    [chunks, Bp, dp] (Bp = B rounded up to 64), the dW sweep's scratch or
+    None)."""
     per, n_chunks = _dp_chunks(B, E)
-    part = (torch.empty((n_chunks, -(-B // TILE) * TILE, dp),
-                        dtype=torch.float32, device=dev) if dpooled else None)
+    part = torch.empty((n_chunks, -(-B // TILE) * TILE, dp),
+                       dtype=torch.float32, device=dev)
     n = _dw_scratch_numel(B, E, dp)
     scratch = (torch.empty((n,), dtype=torch.float32, device=dev) if n
                else None)
@@ -696,36 +711,53 @@ def _bwd_apply(saved, geometry, slots, opt, lr, count, gscale, ct):
     """Launch K7 on :func:`_loss_forward`'s operands and geometry: K6's
     dpooled sweep, then its dW sweep with the update in place of the dW
     store (and, with S > 1 slices, the update in the ordered sum of the
-    slices), on K6's plans. The update runs on the mma.sync sweep in
-    either compute dtype; the dpooled sweep is K6's own, the wgmma one in
-    bf16 (:func:`_wgmma_dpooled`, launched first: it reads W before the
-    update). Updates W and the slots in place; returns (db * gscale,
-    dpooled * gscale, gsq)."""
-    global apply_launches
-    P, W, bf, lab, lse = saved[:5]
-    B, E, d, dp, strides = geometry[:5]
+    slices), on K6's plans and K6's sweeps. bf16 compute runs the wgmma
+    sweep (:func:`_wgmma_dpooled`, then ``sert_xent_wgmma_apply``, which
+    reads W's bf16 operand and updates W itself), fp32 compute the mma.sync
+    sweep (``sert_xent_bwd_apply``); the dpooled sweep goes first either
+    way, since it reads all of W before the update. Updates W and the
+    slots in place; returns (db * gscale, dpooled * gscale, gsq)."""
+    global apply_launches, apply_wgmma_launches
+    P, W, bf, lab, lse, Wb = saved
+    B, E, d, dp, strides, layout = geometry
     dev = P.device
     bf16 = ct == torch.bfloat16
-    (per, n_chunks), (bper, n_slices), part, scratch = _backward_sweeps(
-        B, E, dp, dev, dpooled=not bf16)
     db = torch.empty((E,), dtype=torch.float32, device=dev)
-    gsq = torch.empty((-(-E // TILE),), dtype=torch.float32, device=dev)
     bc1, bc2 = _bias_corr(count) if opt == "adam" else (1.0, 1.0)
     s1, s2 = ([s.data_ptr() for s in slots] + [None, None])[:2]
+    code, w_bf16 = OPTIMIZERS.index(opt), int(W.dtype == torch.bfloat16)
+    if bf16:
+        dw = _wgmma_plan(B, E, d)[1]
+        n = _wgmma_scratch_numel(B, E, d)
+        scratch = (torch.empty((n,), dtype=torch.float32, device=dev) if n
+                   else None)
+        gsq = torch.empty((dw.n_x,), dtype=torch.float32, device=dev)
+    else:
+        (per, n_chunks), (bper, n_slices), part, scratch = _backward_sweeps(
+            B, E, dp, dev)
+        gsq = torch.empty((-(-E // TILE),), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if bf16:
             part = _wgmma_dpooled(saved, geometry, stream)
-        err = _build.kernel("sert_xent_bwd_apply")(
-            P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
-            lab.data_ptr(), s1, s2, db.data_ptr(),
-            None if bf16 else part.data_ptr(), gsq.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            B, E, d, dp, strides[0], strides[1], per, n_chunks, bper,
-            n_slices, OPTIMIZERS.index(opt), lr, gscale, bc1, bc2,
-            int(bf16), int(W.dtype == torch.bfloat16), stream)
+            err = _build.kernel("sert_xent_wgmma_apply")(
+                P.data_ptr(), Wb.data_ptr(), W.data_ptr(), bf.data_ptr(),
+                lse.data_ptr(), lab.data_ptr(), s1, s2, db.data_ptr(),
+                gsq.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B, E, d,
+                dp, Wb.shape[1], int(layout == "de"), dw.per, dw.parts,
+                dw.y_rows, code, lr, gscale, bc1, bc2, w_bf16, stream)
+        else:
+            err = _build.kernel("sert_xent_bwd_apply")(
+                P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
+                lab.data_ptr(), s1, s2, db.data_ptr(), part.data_ptr(),
+                gsq.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                B, E, d, dp, strides[0], strides[1], per, n_chunks, bper,
+                n_slices, code, lr, gscale, bc1, bc2, 0, w_bf16, stream)
     _build.check(err, "xent backward with the optimizer update (K7)")
     apply_launches += 1
+    apply_wgmma_launches += bf16
     debug.kernel_outputs("xent_bwd_apply", W, db, gsq)
     return (db * gscale, _sum_parts(part)[:B, :d] * gscale, torch.sum(gsq))
 

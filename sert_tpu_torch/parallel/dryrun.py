@@ -388,19 +388,17 @@ def _leaf_parity(stats, leaf: str, sharded: bool) -> dict:
 # difference of "on"'s and "off"'s changes from one state, beyond
 # rounding, allowed relative to the norm of "off"'s change; and the same
 # against one card's first step, by compute dtype. The mesh sums dpooled
-# over its blocks in another order than one card's K7 sums it over every
-# entity, and the head's backward amplifies that where a word's gradient
-# cancels (bf16 also rounds dpooled and K7's p - y): the word table's
+# over its blocks, one card over every entity, each block's sum in other
+# chunks (bf16 also rounds dpooled and K7's p - y), so the word table's
 # change, and adam's first m and v (the gradient itself), differ by more
-# than the entity blocks' do. In bf16 compute "off" takes dW from K6's
-# wgmma sweep (csrc/xent_wgmma.cu) and "on" updates from K7's mma.sync dW
-# (csrc/xent.cu), so the two also differ by the rounding of those products.
-# Readings at the chip phase's width over seeds 0-3 (tools/fused_tp_seeds.py,
-# PERF.md §6): against "off" 5.6e-5 to 5.9e-5 (adam's proj_w), 1.7x under
-# FUSED_TP_RTOL; against one card at most 7.9e-4 in bf16 (adam's word
-# table), 2.5x under, and 1.2e-4 in fp32 (seed 0), 4.2x under. K7's update
-# in the epilogue of the wgmma sweep's dW mode (ROADMAP Queue 2b item 1)
-# gives "on" and "off" the same dW again, and with it the margin.
+# than the entity blocks' do. "on" and "off" take their dW from the same
+# sweep in either compute dtype (K7's update runs on K6's dW mode), so
+# they differ by the update's arithmetic only. Readings at the chip
+# phase's width over seeds 0-3 (tools/fused_tp_seeds.py, PERF.md §6):
+# against "off" at most 3.9e-6 (adam's proj_w; adagrad 4.3e-10, sgd 0) in
+# bf16 and fp32, 25x under FUSED_TP_RTOL; against one card at most 7.9e-4
+# in bf16 (adam's word table), 2.5x under, and 4.9e-6 in fp32 (1.3e-4
+# before the fp32 dpooled sweep's chunks were cut to ops.xent.DP_MAX_TILES).
 FUSED_TP_OPTS = ("adam", "adagrad", "sgd")
 FUSED_TP_RTOL = 1e-4
 FUSED_TP_ONE_CARD_RTOL = {"float32": 5e-4, "bfloat16": 2e-3}

@@ -108,17 +108,24 @@ def test_k6_plans_fill_one_round_and_stop_splitting_when_tiles_do():
     for E in (131_072, 500_000, 1_000_000):
         assert xent._dw_splits(4096, E)[1] == 1        # dW written directly
     assert xent._dp_chunks(1024, 3500) == (4, 14)      # 224 blocks
-    assert xent._dp_chunks(4096, 1_000_000) == (3907, 4)
+    # Past one round's chunk of DP_MAX_TILES, the chunks are cut to it.
+    assert xent._dp_chunks(4096, 1_000_000) == (xent.DP_MAX_TILES, 489)
+    assert xent._dp_chunks(1024, 500_000) == (xent.DP_MAX_TILES, 245)
     for B, E in ((1024, 3500), (1000, 1100), (4096, 300), (4096, 131071)):
         for plan, fixed in ((xent._dw_splits, -(-E // 64)),
                             (xent._dp_chunks, -(-B // 64))):
-            assert fixed * plan(B, E)[1] <= max(fixed, xent.K6_BLOCKS)
+            per, parts = plan(B, E)
+            assert (fixed * parts <= max(fixed, xent.K6_BLOCKS)
+                    or (plan is xent._dp_chunks
+                        and per == xent.DP_MAX_TILES))
 
 
 @pytest.mark.parametrize("B,E", [(1024, 3500), (1000, 1100), (4096, 300),
-                                 (4096, 131071), (64, 130)])
+                                 (4096, 131071), (64, 130), (1024, 500_000),
+                                 (1024, 125_000)])
 def test_dp_chunks_cover_every_entity_tile_once(B, E):
     per, chunks = xent._dp_chunks(B, E)
+    assert per <= xent.DP_MAX_TILES
     n_etiles = -(-E // 64)
     covered = [t for c in range(chunks)
                for t in range(c * per, min((c + 1) * per, n_etiles))]
@@ -194,10 +201,9 @@ def test_each_sweep_takes_its_plan(launches, B, E, d, layout, dtype):
     """K5's grid is _dp_chunks; K6's and K7's dpooled sweeps the same plan,
     their dW sweeps _dw_splits with scratch only where S > 1; every launch
     reads the one P padded in the forward; at most one round of
-    K6_BLOCKS a sweep. bf16 compute sends K5 and K6, and K7's dpooled
-    sweep, to the wgmma sweep's entry points (their plan:
-    tests/test_torch_xent_wgmma.py); K7's update stays on the mma.sync
-    sweep."""
+    K6_BLOCKS a sweep. bf16 compute sends K5, K6 and K7 (its dpooled
+    sweep, then its update on the dW sweep's plan) to the wgmma sweep's
+    entry points (their plan: tests/test_torch_xent_wgmma.py)."""
     rng = np.random.default_rng(0)
     ct = xent._compute_dtype(dtype)
     pooled = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32))
@@ -224,19 +230,26 @@ def test_each_sweep_takes_its_plan(launches, B, E, d, layout, dtype):
     bf16 = dtype == "bfloat16"
     k5, k6 = (("sert_xent_wgmma_fwd", "sert_xent_wgmma_bwd") if bf16
               else ("sert_xent_fwd", "sert_xent_bwd"))
-    assert names == [k5, k6, k5] + ["sert_xent_wgmma_dpooled"] * bf16 + [
-        "sert_xent_bwd_apply"]
+    assert names == [k5, k6, k5] + (
+        ["sert_xent_wgmma_dpooled", "sert_xent_wgmma_apply"] if bf16
+        else ["sert_xent_bwd_apply"])
     fwd, bwd, apply = launches[0][1], launches[1][1], launches[-1][1]
     assert fwd[5:9] == (B, E, d, dp) and bwd[10:14] == (B, E, d, dp)
     if dtype == "float32":
         assert fwd[11:13] == (per, chunks)
         assert bwd[16:20] == (per, chunks, bper, slices)
         assert (bwd[9] is None) == (slices == 1)
-    assert apply[11:15] == (B, E, d, dp)
-    assert apply[17:21] == (per, chunks, bper, slices)
-    assert (apply[10] is None) == (slices == 1)
-    assert (apply[8] is None) == bf16            # K7's own dpooled sweep
-    assert apply[5] is not None and apply[6] is not None   # adam's m, v
+        assert apply[11:15] == (B, E, d, dp)
+        assert apply[17:21] == (per, chunks, bper, slices)
+        assert (apply[10] is None) == (slices == 1)
+        assert apply[8] is not None              # K7's own dpooled sweep
+        assert apply[5] is not None and apply[6] is not None  # adam's m, v
+    else:
+        dw = xent._wgmma_plan(B, E, d)[1]
+        assert apply[11:15] == (B, E, d, dp)
+        assert apply[17:20] == (dw.per, dw.parts, dw.y_rows)
+        assert (apply[10] is None) == (dw.parts == 1)
+        assert apply[6] is not None and apply[7] is not None  # adam's m, v
 
 
 @pytest.mark.parametrize("layout", ["de", "ed"])

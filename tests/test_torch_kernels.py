@@ -760,6 +760,36 @@ class TestXentOnCard:
         rel = _softmax_part_rel(bad, want, labels, layout)
         assert len(rel) == 3 and min(rel.values()) > XENT_SOFTMAX_TOL, rel
 
+    def test_k6_as_the_autograd_threads_first_cuda_work(self, cuda):
+        """K6 launched from a fresh autograd worker whose first CUDA work
+        it is, its buffers taken from the allocator's cache (a plain loss
+        was built before): the tensor maps' encoder needs the thread's
+        context bound first. A process of its own, so that the worker is
+        fresh."""
+        import subprocess
+        import sys
+        from pathlib import Path
+        code = (
+            "import torch\n"
+            "from sert_tpu_torch.ops import xent\n"
+            "g = torch.Generator(device='cuda').manual_seed(0)\n"
+            "B, E, d = 4096, 131072, 128\n"
+            "x = (0.5 * torch.randn(B, d, generator=g, device='cuda'),\n"
+            "     torch.randn(E, d, generator=g, device='cuda') * 0.1,\n"
+            "     0.1 * torch.randn(E, generator=g, device='cuda'))\n"
+            "y = torch.randint(0, E, (B,), generator=g, device='cuda')\n"
+            "p, w, b = (t.clone().requires_grad_(True) for t in x)\n"
+            "loss = xent.xent_loss(p, w, b, y, 'ed', 'bfloat16')\n"
+            "plain = xent.xent_loss_plain(*(t.clone().requires_grad_(True)\n"
+            "                               for t in x), y, 'ed', 'bfloat16')\n"
+            "torch.autograd.grad(loss, [p, w, b])\n"
+            "torch.cuda.synchronize()\n"
+            "print('ok')\n")
+        proc = subprocess.run([sys.executable, "-c", code],
+                              cwd=Path(__file__).resolve().parents[1],
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
     def test_wrapper_refuses_what_the_kernels_do_not_take(self, cuda):
         pooled, W, b, labels = _xent_inputs(cuda, 8, 16, 16, "ed")
         with pytest.raises(ValueError, match="d <= 256"):
@@ -894,6 +924,28 @@ def _check_apply(got, want, dtype):
             name, (a - b).abs().max().item())
 
 
+def _k7_softmax_rel(got, want, x, opt, layout):
+    """{output: max |got - want| / max |want|} of K7's softmax part, as
+    _softmax_part_rel takes K6's: db on the entities no label names and,
+    for adam on fp32 slots, the gradient G = (m' - 0.9 m) / 0.1 read back
+    from the first moment there."""
+    labels, tree = x[3], x[4]
+    named = torch.zeros(want["db"].shape[0], dtype=torch.bool,
+                        device=labels.device)
+    named[labels.long()] = True
+    parts = {"db": (got["db"], want["db"], 0)}
+    if opt == "adam" and tree["m"].dtype == torch.float32:
+        parts["G"] = ((got["m"] - 0.9 * tree["m"]) / 0.1,
+                      (want["m"] - 0.9 * tree["m"]) / 0.1,
+                      int(layout == "de"))
+    rel = {}
+    for name, (a, w, axis) in parts.items():
+        a = a.float().transpose(0, axis)[~named]
+        w = w.float().transpose(0, axis)[~named]
+        rel[name] = ((a - w).abs().max() / w.abs().max()).item()
+    return rel
+
+
 @pytest.mark.gpu
 class TestXentApplyOnCard:
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -936,7 +988,9 @@ class TestXentApplyOnCard:
         (4096, 131071, 128, "ed", "bfloat16", 1)])
     def test_slices_match_plain(self, cuda, B, E, d, layout, dtype, slices,
                                 opt):
-        assert xent._dw_splits(B, E)[1] == slices
+        # bf16 K7 runs the wgmma sweep's dW plan, fp32 the mma.sync one's.
+        assert (xent._wgmma_plan(B, E, d)[1].parts if dtype == "bfloat16"
+                else xent._dw_splits(B, E)[1]) == slices
         x = _apply_inputs(cuda, B, E, d, layout, opt)
         got = _apply_run(xent.xent_loss_apply, x, opt, layout, dtype)
         want = _apply_run(xent.xent_loss_apply_plain, x, opt, layout, dtype)
@@ -944,13 +998,62 @@ class TestXentApplyOnCard:
 
     @pytest.mark.parametrize("B,E,d,layout,dtype", [
         (1024, 3500, 256, "de", "float32"),       # 4 slices
-        (4096, 131071, 128, "ed", "bfloat16")])   # one slice
+        (4096, 131071, 128, "ed", "bfloat16"),    # one slice
+        (1024, 3500, 256, "de", "bfloat16"),      # 4 slices of the wgmma plan
+        (256, 20_000, 128, "de", "bfloat16")])    # its one slice
     def test_two_calls_are_bit_equal(self, cuda, B, E, d, layout, dtype):
         x = _apply_inputs(cuda, B, E, d, layout, "adam")
         a = _apply_run(xent.xent_loss_apply, x, "adam", layout, dtype)
         b = _apply_run(xent.xent_loss_apply, x, "adam", layout, dtype)
         assert set(a) == {"loss", "gsq", "db", "dpooled", "W", "m", "v"}
         assert all(torch.equal(a[k], b[k]) for k in a)
+
+    # K7 in bf16 compute: the wgmma sweep's DP mode, then its APPLY mode,
+    # the update in the epilogue (one slice) or in the ordered sum of the
+    # slices (S > 1: cerc's shape in bf16, and 8), fp32 and bf16 storage.
+    @pytest.mark.parametrize("opt", ["adam", "adagrad", "sgd"])
+    @pytest.mark.parametrize("B,E,d,layout,w_dtype,slices", [
+        (1024, 3500, 256, "de", torch.float32, 4),
+        (1024, 3500, 256, "ed", torch.float32, 4),
+        (256, 20_000, 128, "de", torch.float32, 1),
+        (256, 20_001, 64, "ed", torch.float32, 1),
+        (1000, 1100, 128, "ed", torch.bfloat16, 8),
+        (256, 20_000, 128, "de", torch.bfloat16, 1)])
+    def test_bf16_on_the_wgmma_sweep_matches_plain(self, cuda, B, E, d,
+                                                   layout, w_dtype, slices,
+                                                   opt):
+        assert xent._wgmma_plan(B, E, d)[1].parts == slices
+        x = _apply_inputs(cuda, B, E, d, layout, opt, w_dtype)
+        n = (xent.apply_launches, xent.apply_wgmma_launches)
+        got = _apply_run(xent.xent_loss_apply, x, opt, layout, "bfloat16")
+        assert (xent.apply_launches, xent.apply_wgmma_launches) == (
+            n[0] + 1, n[1] + 1)
+        want = _apply_run(xent.xent_loss_apply_plain, x, opt, layout,
+                          "bfloat16")
+        _check_apply(got, want, "bfloat16")
+        for name, rel in _k7_softmax_rel(got, want, x, opt, layout).items():
+            assert rel <= XENT_SOFTMAX_TOL, (name, rel)
+
+    # One dW: K7's sgd update is W - lr (K6's dW at g = gscale), in
+    # _update_plain's order, bit for bit, from the epilogue (one slice) and
+    # from the sum of the slices (4), in both layouts.
+    @pytest.mark.parametrize("layout", ["de", "ed"])
+    @pytest.mark.parametrize("B,E,d", [(1024, 3500, 256), (256, 20_000, 128)])
+    def test_bf16_sgd_update_is_k6_dw_bit_for_bit(self, cuda, B, E, d,
+                                                  layout):
+        pooled, W, b, labels, _ = _apply_inputs(cuda, B, E, d, layout, "sgd")
+        gscale = 1.0 / B
+        _, saved, geometry = xent._loss_forward(pooled, W, b, labels, layout,
+                                                torch.bfloat16)
+        g = torch.full((1,), gscale, device=cuda)
+        dW = xent._bwd(saved, geometry, g, torch.bfloat16)[1]
+        want = W.clone()
+        xent._update_plain(want, [], dW, "sgd", APPLY_LR, 0, 1.0)
+        got = W.clone()
+        xent.xent_loss_apply(pooled, got, b, labels, opt="sgd", opt_tree={},
+                             lr=APPLY_LR, count=0, gscale=gscale,
+                             layout=layout, dtype="bfloat16")
+        assert torch.equal(got, want)
 
     def test_fused_step_launches_k5_and_k7_only(self, cuda):
         from sert_tpu_torch.train.step import init_state, make_train_step

@@ -265,8 +265,9 @@ def _imports(path: Path):
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO))
     for p in [*(REPO / "sert_tpu_torch").rglob("*.py"),
-              REPO / "chip_smoke.py", REPO / "tools/profile_torch_serve.py",
-              REPO / "tools/profile_torch_train.py"]))
+              REPO / "chip_smoke.py", *(REPO / "tools").glob("*torch*.py"),
+              REPO / "tools/fused_tp_seeds.py",
+              REPO / "tools/dpooled_fp64.py"]))
 def test_no_source_imports_jax(path):
     """Neither jax nor anything of the reference package, by any import
     statement, anywhere in the file (function bodies included)."""

@@ -1,11 +1,11 @@
-"""The bf16 route of K5/K6 (``csrc/xent_wgmma.cu``) on the CPU: its plan,
+"""The bf16 route of K5/K6/K7 (``csrc/xent_wgmma.cu``) on the CPU: its plan,
 a function of the shapes alone, covers every tile once and is the same for
 a run and its resume; bf16 compute launches the wgmma sweep's entry points
-with that plan and W's bf16 operand (K7's dpooled sweep too), while fp32
-compute and K7's update launch what they launched before the route
-existed; the bf16 operand is the cast that ``xent_loss_plain`` makes.
-The launches are recorded in place of the library, so no card is needed
-(as tests/test_torch_auto.py records them).
+with that plan and W's bf16 operand (K7: its dpooled mode, then its APPLY
+mode on the dW plan, updating W itself), while fp32 compute launches what
+it launched before the route existed; the bf16 operand is the cast that
+``xent_loss_plain`` makes. The launches are recorded in place of the
+library, so no card is needed (as tests/test_torch_auto.py records them).
 """
 
 import contextlib
@@ -150,18 +150,18 @@ def test_bf16_compute_launches_the_wgmma_sweep_with_its_plan(
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fp32_compute_and_k7_update_launch_what_they_did(launches, dtype):
-    """fp32 K5/K6 and K7's update (in either compute dtype) take the
-    mma.sync sweep's entry points with its plans, strides and W in place,
-    as they did before the wgmma route (K5/K6 there now fp32 compute
-    only). In bf16 compute K7's dpooled is K6's wgmma dpooled mode, with
-    K5's plan, launched before the update, and K7's own is skipped."""
+    """fp32 K5/K6/K7 take the mma.sync sweep's entry points with its plans,
+    strides and W in place, as they did before the wgmma route. In bf16
+    compute K7 is K6's wgmma dpooled mode, with K5's plan, then the APPLY
+    mode, and the mma.sync sweep's K7 is not launched."""
     B, E, d, layout = 1000, 1100, 24, "de"
     pooled, W, b, labels = _inputs(B, E, d, layout)
     ct = xent._compute_dtype(dtype)
     dp = xent._sweep_width(d, ct)
     per, chunks = xent._dp_chunks(B, E)
     bper, slices = xent._dw_splits(B, E)
-    n = xent.fwd_wgmma_launches, xent.bwd_wgmma_launches
+    n = (xent.fwd_wgmma_launches, xent.bwd_wgmma_launches,
+         xent.apply_wgmma_launches, xent.apply_launches)
     if dtype == "float32":
         p = pooled.clone().requires_grad_(True)
         loss = xent._XentLoss.apply(p, W, b, labels, layout, dtype)
@@ -169,12 +169,15 @@ def test_fp32_compute_and_k7_update_launch_what_they_did(launches, dtype):
     _, saved, geometry = xent._loss_forward(pooled, W, b, labels, layout, ct)
     slots = [torch.zeros_like(W), torch.zeros_like(W)]
     xent._bwd_apply(saved, geometry, slots, "adam", 1e-3, 0, 1.0 / B, ct)
-    want = (["sert_xent_fwd", "sert_xent_bwd", "sert_xent_fwd"]
-            if dtype == "float32" else
-            ["sert_xent_wgmma_fwd", "sert_xent_wgmma_dpooled"])
-    assert [name for name, _ in launches] == want + ["sert_xent_bwd_apply"]
-    assert (xent.fwd_wgmma_launches, xent.bwd_wgmma_launches) == (
-        n[0] + (dtype == "bfloat16"), n[1])
+    want = (["sert_xent_fwd", "sert_xent_bwd", "sert_xent_fwd",
+             "sert_xent_bwd_apply"] if dtype == "float32" else
+            ["sert_xent_wgmma_fwd", "sert_xent_wgmma_dpooled",
+             "sert_xent_wgmma_apply"])
+    assert [name for name, _ in launches] == want
+    bf16 = dtype == "bfloat16"
+    assert (xent.fwd_wgmma_launches, xent.bwd_wgmma_launches,
+            xent.apply_wgmma_launches, xent.apply_launches) == (
+        n[0] + bf16, n[1], n[2] + bf16, n[3] + 1)
     strides = (1, E)
     for name, a in launches:
         if name == "sert_xent_fwd":
@@ -188,10 +191,72 @@ def test_fp32_compute_and_k7_update_launch_what_they_did(launches, dtype):
             plan = xent._wgmma_plan(B, E, d)[0]
             assert a[6:10] == (B, E, d, dp) and a[11] == 1     # "de"
             assert a[12:15] == (plan.per, plan.parts, plan.y_rows)
+        elif name == "sert_xent_wgmma_apply":
+            dw = xent._wgmma_plan(B, E, d)[1]
+            assert a[2] == W.data_ptr() and a[1] != W.data_ptr()
+            assert a[11:15] == (B, E, d, dp) and a[16] == 1    # "de"
+            assert a[17:19] == (dw.per, dw.parts)
         elif name == "sert_xent_bwd_apply":
             assert a[1] == W.data_ptr()
-            assert (a[8] is None) == (dtype == "bfloat16")
+            assert a[8] is not None
             assert a[11:21] == (B, E, d, dp, *strides, per, chunks, bper,
                                 slices)
             assert a[21] == xent.OPTIMIZERS.index("adam")
-            assert a[26:] == (int(dtype == "bfloat16"), 0, 0)
+            assert a[26:] == (0, 0, 0)
+
+
+# (B, E, d, layout, W's storage) of K7 in bf16 compute: the dW sweep split
+# (cerc's 4 slices; 8; 2) and whole (one slice, a tail tile), in both
+# layouts, fp32 and bf16 storage (bf16 W taken as the operand itself, or
+# padded).
+K7_WIRING = [(1024, 3500, 256, "de", torch.float32),
+             (1000, 1100, 40, "ed", torch.bfloat16),
+             (1024, 20_000, 128, "ed", torch.float32),
+             (300, 20_001, 64, "de", torch.bfloat16),
+             (256, 20_000, 128, "ed", torch.bfloat16)]
+
+
+@pytest.mark.parametrize("opt", ["adam", "adagrad", "sgd"])
+@pytest.mark.parametrize("B,E,d,layout,w_dtype", K7_WIRING)
+def test_bf16_k7_runs_dpooled_then_apply_on_the_dw_plan(
+        launches, monkeypatch, B, E, d, layout, w_dtype, opt):
+    """K7 in bf16 compute: the wgmma DP mode, then APPLY with the dW
+    sweep's plan, W's bf16 operand as the sweep's and W itself as the one
+    it updates, the slots', lr, gscale and the bias corrections, scratch
+    exactly where S > 1, and gsq one value an entity tile of 128."""
+    outputs = {}
+    monkeypatch.setattr(xent.debug, "kernel_outputs",
+                        lambda name, *ts: outputs.setdefault(name, ts))
+    pooled, W, b, labels = _inputs(B, E, d, layout, w_dtype)
+    slots = [torch.zeros_like(W) for _ in xent.SLOTS[opt]]
+    lr, count, gscale = 1e-2, 3, 1.0 / B
+    _, saved, geometry = xent._loss_forward(pooled, W, b, labels, layout,
+                                            torch.bfloat16)
+    n = xent.apply_wgmma_launches
+    xent._bwd_apply(saved, geometry, slots, opt, lr, count, gscale,
+                    torch.bfloat16)
+    assert xent.apply_wgmma_launches == n + 1
+    names = [name for name, _ in launches]
+    assert names == ["sert_xent_wgmma_fwd", "sert_xent_wgmma_dpooled",
+                     "sert_xent_wgmma_apply"]         # DP before APPLY
+    a = launches[-1][1]
+    dw = xent._wgmma_plan(B, E, d)[1]
+    dp = xent._sweep_width(d, torch.bfloat16)
+    Wb = saved[5]
+    assert a[1] == Wb.data_ptr() == launches[1][1][1]
+    assert a[2] == W.data_ptr()
+    assert (a[1] == a[2]) == (w_dtype == torch.bfloat16
+                              and Wb.shape == W.shape)
+    assert a[11:20] == (B, E, d, dp, Wb.shape[1], int(layout == "de"),
+                        dw.per, dw.parts, dw.y_rows)
+    assert (a[10] is None) == (dw.parts == 1)
+    ptrs = [s.data_ptr() for s in slots] + [None, None]
+    assert a[6:8] == tuple(ptrs[:2])
+    bc = xent._bias_corr(count) if opt == "adam" else (1.0, 1.0)
+    assert a[20] == xent.OPTIMIZERS.index(opt)
+    assert a[21:25] == (lr, gscale, *bc)
+    assert a[25] == int(w_dtype == torch.bfloat16)
+    W_out, db, gsq = outputs["xent_bwd_apply"]
+    assert W_out.data_ptr() == W.data_ptr() and db.shape == (E,)
+    assert a[8] == db.data_ptr() and a[9] == gsq.data_ptr()
+    assert gsq.shape == (-(-E // 128),) == (dw.n_x,)
