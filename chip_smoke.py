@@ -1957,7 +1957,8 @@ def phase_xent_kernels() -> dict:
                 fwd_blocks=chunks * -(-B // 64), dw_slices=slices,
                 dw_btiles_per_slice=per, dw_blocks=slices * -(-E // 64),
                 dp_blocks=chunks * -(-B // 64),
-                dp_tiles_per_block=chunk_tiles)
+                dp_tiles_per_block=chunk_tiles,
+                dp_flush_tiles=xent.DP_MAX_TILES)
         k_ = _xent_outputs(xent.xent_loss, *x, layout, dtype, iters,
                            repeat=label in bit_equal)
         p_ = _xent_outputs(xent.xent_loss_plain, *x, layout, dtype, iters)

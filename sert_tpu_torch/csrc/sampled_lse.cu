@@ -189,8 +189,8 @@ __device__ inline float swz(const unsigned char* sub, int r, int c) {
       sub + r * 128 + (((c >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2));
 }
 
-__device__ inline void mma3(float* c, const FragA<float>& a,
-                            const FragB<float>& b) {
+__device__ inline void mma3(float* c, const FragA& a,
+                            const FragB& b) {
   mma_tf32(c, a.lo, b.hi);
   mma_tf32(c, a.hi, b.lo);
   mma_tf32(c, a.hi, b.hi);
@@ -209,14 +209,14 @@ __device__ inline void z_fp32(float (&z)[G::BN / 2], const unsigned char* X,
     const unsigned char* xs = X + (kk / 4) * G::X_SUB;
     const unsigned char* ys = Y + (kk / 4) * G::Y_SUB;
     const int c0 = (kk % 4) * 8 + tq;
-    FragA<float> a;
+    FragA a;
     split(swz(xs, xrow + gq, c0), a.hi[0], a.lo[0]);
     split(swz(xs, xrow + gq + 8, c0), a.hi[1], a.lo[1]);
     split(swz(xs, xrow + gq, c0 + 4), a.hi[2], a.lo[2]);
     split(swz(xs, xrow + gq + 8, c0 + 4), a.hi[3], a.lo[3]);
 #pragma unroll
     for (int j = 0; j < G::BN / 8; ++j) {
-      FragB<float> b;
+      FragB b;
       split(swz(ys, 8 * j + gq, c0), b.hi[0], b.lo[0]);
       split(swz(ys, 8 * j + gq, c0 + 4), b.hi[1], b.lo[1]);
       mma3(&z[4 * j], a, b);
@@ -235,7 +235,7 @@ __device__ inline void acc_fp32(float (&acc)[KW / 2],
   const int gq = lane_g(), tq = lane_t();
 #pragma unroll
   for (int j = 0; j < G::BN / 8; ++j) {
-    FragA<float> a;
+    FragA a;
     split(p[4 * j], a.hi[0], a.lo[0]);
     split(p[4 * j + 2], a.hi[1], a.lo[1]);
     split(p[4 * j + 1], a.hi[2], a.lo[2]);
@@ -245,7 +245,7 @@ __device__ inline void acc_fp32(float (&acc)[KW / 2],
     for (int nb = 0; nb < KW / 8; ++nb) {
       const int f = 8 * nb + gq;
       const unsigned char* ys = Y + (f / 32) * G::Y_SUB;
-      FragB<float> b;
+      FragB b;
       split(swz(ys, r0, f % 32), b.hi[0], b.lo[0]);
       split(swz(ys, r0 + 1, f % 32), b.hi[1], b.lo[1]);
       mma3(&acc[4 * nb], a, b);

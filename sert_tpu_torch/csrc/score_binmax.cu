@@ -386,8 +386,8 @@ score_binmax_f32_kernel(const float* __restrict__ R,
     const float* Ms = ring + (s % F_NST) * F_TE * F_LDM;
 #pragma unroll
     for (int kk = 0; kk < F_KC; kk += 8) {
-      FragA<float> a[2];
-      FragB<float> b[4];
+      FragA a[2];
+      FragB b[4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
         load_a(a[mi], Rs + (32 * wq + 16 * mi) * ldr + chunk * F_KC + kk,

@@ -1,21 +1,17 @@
 // The tile geometry of the full-softmax sweep (K5-K7, xent.cu): 64-row
-// batch and entity tiles, eight warps a block, the row strides of its fp32
-// logits tile and bf16 probability tile, the masked logit, and the running
-// (max, sumexp) of a logits tile that K5 keeps per row.
+// batch and entity tiles, eight warps a block, the row stride of its fp32
+// logits tile, the masked logit, and the running (max, sumexp) of a logits
+// tile that K5 keeps per row.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int TILE = 64;              // batch rows and columns per tile
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int LDZ = TILE + 4;         // fp32 logits-tile row stride
-constexpr int LDP = TILE + 8;         // bf16 probability-tile row stride
 constexpr float MASKED = -1e30f;
 
 // Fold one 64-column logits tile into each warp's running (max, sumexp) of

@@ -28,40 +28,39 @@
 // layout is "de" ([d, E], the log-linear proj_w: entities contiguous) or
 // "ed" ([E, d], the LSE entity_emb: features contiguous), given as the
 // strides (sj, sk) of W(j, k) = W[j * sj + k * sk]. Each entity tile is
-// staged entity-major into shared memory, cast to the compute type on the
-// way (fp32 master weights multiply as bf16 without a bf16 copy), with
-// entities past E and features past d staged as zeros, so the tail tile
-// needs no padding of W and its zero rows cannot leak 0 * NaN into
-// dpooled. dW is written back in W's own layout and shape.
+// staged entity-major into shared memory, in fp32 (a bf16 W is widened on
+// the way, without an fp32 copy), with entities past E and features past d
+// staged as zeros, so the tail tile needs no padding of W and its zero rows
+// cannot leak 0 * NaN into dpooled. dW is written back in W's own layout
+// and shape.
 //
 // What bounds them on the H100. K5 makes one product of [B, d] by [d, E],
 // K6 three (z, then dW and dpooled, with z made again in its second
-// sweep), K7 K6's three and the update. At lse_full's flagship shape
-// (B = 4096, E = 1M, d = 128, bf16) a product is 1.07 TFLOP, 1.1 ms at the
-// bf16 peak, against 0.5 GB of fp32 W: arithmetic bounds them, and the
-// recompute is the price of keeping 16 GB of fp32 logits out of device
-// memory. At the log-linear recipes' widths (E of a few thousand, fp32) a
-// product is a few GFLOP, 11 us at cerc's shape as 3xTF32 on the tensor
+// sweep), K7 K6's three and the update, each product here three TF32
+// products (3xTF32, below). At the log-linear recipes' widths (E of a few
+// thousand) a product is a few GFLOP, 11 us at cerc's shape on the tensor
 // cores; there the barriers, the fragment loads and the TF32 splits between
 // the tensor-core instructions set the time, not the tensor cores. K7's
 // update moves W and its slots once each way: at the reference's
 // fused-step width (B = 1024, E = 500k, d = 256, fp32 params) adam's W, m, v
 // in and out are 3.1 GB (0.92 ms at 3.35 TB/s), against 0.79 TFLOP of
-// products (0.8 ms at the bf16 peak), so the two bounds are close.
+// products, which the TF32 passes triple.
 //
 // What the design does about it: every mode streams one operand through a
 // cp.async / register ring that overlaps the products, keeps its
 // accumulators in registers and runs fp32 products on the tensor cores as
 // 3xTF32; each sweep splits its loop axis by a plan that fills one round of
-// two blocks an SM (ops/xent.py _dw_splits, _dp_chunks), the dpooled
-// sweep's chunks cut to DP_MAX_TILES there (a tensor-core sum drifts from
-// the exact one in proportion to its length). K5 is the z pass
-// alone, with a running (max, sumexp) of each row in registers. K7 is K6's
-// dpooled sweep, then K6's dW sweep whose epilogue applies the update to the
-// block's own tile of W, so dW is never stored; where the entity tiles are
-// too few to fill the card the dW sweep is split over the batch too, and
-// the update moves into the kernel that sums the slices. An fp32 mode of
-// xent_wgmma.cu's sweep, for K5-K7 in fp32 compute, is later work.
+// two blocks an SM (ops/xent.py _dw_splits, _dp_chunks). A tensor-core sum
+// drifts from the exact one in proportion to its length, so the dpooled
+// sweep adds its accumulators into its partial, in fp32, every `flush`
+// entity tiles (ops/xent.py DP_MAX_TILES) and starts them again from zero.
+// K5 is the z pass alone, with a running (max, sumexp) of each row in
+// registers. K7 is K6's dpooled sweep, then K6's dW sweep whose epilogue
+// applies the update to the block's own tile of W, so dW is never stored;
+// where the entity tiles are too few to fill the card the dW sweep is split
+// over the batch too, and the update moves into the kernel that sums the
+// slices. An fp32 mode of xent_wgmma.cu's sweep, for K5-K7 in fp32
+// compute, is later work.
 //
 // Determinism: no float atomics. The dW sweeps split the batch tiles into
 // slices by a plan that depends on the shapes alone (ops/xent.py
@@ -79,13 +78,14 @@
 
 #include <algorithm>
 #include <cstdint>
-#include <initializer_list>
 
 #include "mma_sync.cuh"
 #include "tile_mm.cuh"
 #include "update.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 // ---- The sweep: K5, K6 and K7 on the tensor cores --------------------------
 // Every launch of K5, K6 and K7 but the slice sums is xent_sweep_kernel, in
@@ -95,14 +95,14 @@ namespace {
 // (FWD) or twice:
 //   z[x][y] = X[x] . Y[y]               chunk by chunk, in registers;
 //   FWD: the running (max, sumexp) of each row of z, through shared memory;
-//   p = exp(z - lse) - onehot           in shared memory (fp32, and bf16);
+//   p = exp(z - lse) - onehot           in shared memory;
 //   acc[x][:] += sum_y p[x][y] Y[y][:]  chunk by chunk, in registers.
 // FWD (K5) and DPOOL (the dpooled sweep of K6 and K7): X is a batch tile of
 // P (by cp.async), Y the entity tiles of one entity chunk of W, each chunk
 // loaded into registers one step ahead (16 bytes a load where W's rows
-// allow) and cast while stored (cp.async copies bytes unchanged, and W may
-// be fp32 multiplied as bf16); DPOOL's acc = sum_e p W. DW (K6's dW sweep)
-// and UPDATE (K7's): X is entity tile t of W (cast on the way in), Y the
+// allow) and widened while stored (cp.async copies bytes unchanged, and W
+// may be stored as bf16); DPOOL's acc = sum_e p W. DW (K6's dW sweep)
+// and UPDATE (K7's): X is entity tile t of W (widened on the way in), Y the
 // batch tiles of slice s of P, which cp.async streams NST - 1 chunks ahead
 // of use, with each tile's lse and labels; acc = sum_b p^T P and
 // db = sum_b p. With one slice DW stores dW = g * acc and UPDATE applies
@@ -110,19 +110,16 @@ namespace {
 // their unscaled partials for a second kernel to sum in slice order.
 // fp32 products run on the tensor cores as 3xTF32: x = hi + lo with hi and
 // lo TF32, and a.b = lo.hi + hi.lo + hi.hi summed in fp32 (the dropped lo.lo
-// term is ~2^-22 of a product), which keeps fp32's accuracy class; bf16
-// products take one bf16 pass; both through mma.sync, with fragments read
-// from shared memory by plain loads (wmma's tf32 loads went through
-// generic addressing). Each warp owns 16 rows of X: four 16 x 8 tiles of z
-// and, in every chunk, CH / 16 16 x 8 tiles of acc (64 registers of acc at
-// dp = 256).
+// term is ~2^-22 of a product), which keeps fp32's accuracy class, through
+// mma.sync, with fragments read from shared memory by plain loads (wmma's
+// tf32 loads went through generic addressing). Each warp owns 16 rows of
+// X: four 16 x 8 tiles of z and, in every chunk, CH / 16 16 x 8 tiles of
+// acc (64 registers of acc at dp = 256).
 // Between two barriers a warp does a few fragment products, each fp32
 // operand element split in four integer operations and one subtraction, so
 // issue slots, load latency and the barriers, not the tensor cores, set its
-// time (PERF.md). At E = 1M bf16 each sweep has 256 blocks of ~3.9k entity
-// tiles, and each of the 64 batch tiles reads W once a pass.
-template <typename T>
-constexpr int CHUNK = sizeof(T) == 4 ? 32 : 64;
+// time (PERF.md).
+constexpr int CHUNK = 32;            // features of a ring stage
 constexpr int NACC = 256 / 16;       // 16 x 8 acc tiles a warp holds, dp 256
 constexpr int NST = 3;               // ring stages
 constexpr int AHEAD = NST - 1;       // cp.async chunks in flight ahead of use
@@ -131,26 +128,20 @@ constexpr int AHEAD = NST - 1;       // cp.async chunks in flight ahead of use
 // take) and of a ring stage, as constants so that every fragment address
 // folds into an offset from a per-warp base: 16 bytes of padding keep
 // fragment pointers 32-byte aligned and the rows off each other's banks.
-template <typename T>
-constexpr int LD_X = 256 + 16 / int(sizeof(T));
-template <typename T>
-constexpr int LD_Y = CHUNK<T> + 16 / int(sizeof(T));
+constexpr int LD_X = 256 + 4;
+constexpr int LD_Y = CHUNK + 4;
 
 // Byte offsets of a sweep block's shared memory: the resident tile, the
-// ring, the fp32 z / p tile, the bf16 p tile (bf16 only) and seven vectors
-// of TILE 4-byte entries. fp32: 113 KB, two blocks an SM.
-template <typename T>
+// ring, the z / p tile and seven vectors of TILE 4-byte entries: 113 KB,
+// two blocks an SM.
 struct SweepLayout {
   static constexpr size_t stage =
-      (size_t(TILE) * LD_Y<T> * sizeof(T) + 127) / 128 * 128;
+      (size_t(TILE) * LD_Y * sizeof(float) + 127) / 128 * 128;
   static constexpr size_t ring =
-      (size_t(TILE) * LD_X<T> * sizeof(T) + 127) / 128 * 128;
+      (size_t(TILE) * LD_X * sizeof(float) + 127) / 128 * 128;
   static constexpr size_t z = ring + NST * stage;
-  static constexpr size_t p =
-      (z + size_t(TILE) * LDZ * sizeof(float) + 127) / 128 * 128;
   static constexpr size_t vec =
-      (p + (sizeof(T) == 2 ? size_t(TILE) * LDP * sizeof(bf16) : 0) + 127) /
-      128 * 128;
+      (z + size_t(TILE) * LDZ * sizeof(float) + 127) / 128 * 128;
   static constexpr size_t total = vec + 7 * TILE * sizeof(float);
 };
 
@@ -179,36 +170,37 @@ struct StreamPos {
 // (batch tiles, chunks of `per` entity tiles). dp is a multiple of CH.
 // FWD writes each row's running max and sumexp over the chunk into `out`
 // and `out2` [chunks, B]. DPOOL writes its unscaled partial into `out`
-// [chunks, Bp, dp] (Bp = batch tiles * 64). DW writes, with one slice,
+// [chunks, Bp, dp] (Bp = batch tiles * 64), adding its accumulators into
+// it every `flush` Y tiles and at the end. DW writes, with one slice,
 // dW = g * acc in W's layout into `out` and db = g * sum p into `out2`;
 // UPDATE, with one slice, updates W and its slots in place (through up.w)
 // from G = up.gscale * acc, writes db unscaled into `out2` and the tile's
 // sum of G^2 into up.gsq; with S slices both write their unscaled partials
 // into slice s of `out` ([S, Ep, dp] in W's layout, Ep = entity tiles * 64,
 // then the db partials [S, Ep]).
-template <typename T, typename WT, int MODE>
+template <typename WT, int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
-xent_sweep_kernel(const T* __restrict__ P, const WT* W,
+xent_sweep_kernel(const float* __restrict__ P, const WT* W,
                   const float* __restrict__ bias,
                   const float* __restrict__ lse, const int* __restrict__ lab,
                   const float* __restrict__ g, float* __restrict__ out,
                   float* __restrict__ out2, int B, int E, int d, int dp,
-                  long long sj, long long sk, int per, Update<WT> up) {
+                  long long sj, long long sk, int per, int flush,
+                  Update<WT> up) {
   constexpr bool XW = MODE == DW || MODE == UPDATE;   // X is a tile of W
   constexpr int PASSES = MODE == FWD ? 1 : 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  using L = SweepLayout<T>;
-  constexpr int LDX = LD_X<T>, LDY = LD_Y<T>;
-  T* X = reinterpret_cast<T*>(smem);
+  using L = SweepLayout;
+  constexpr int LDX = LD_X, LDY = LD_Y;
+  float* X = reinterpret_cast<float*>(smem);
   float* Z = reinterpret_cast<float*>(smem + L::z);
-  bf16* Pb = reinterpret_cast<bf16*>(smem + L::p);
   float* rv = reinterpret_cast<float*>(smem + L::vec);  // X's bias or lse
   int* rl = reinterpret_cast<int*>(rv + TILE);          // X's labels
   float* sv = rv + 2 * TILE;       // Y's lse or bias, by tile parity
   int* sl = reinterpret_cast<int*>(sv + 2 * TILE);      // Y's labels, same
   float* dbacc = sv + 4 * TILE;    // DW, UPDATE: the entity tile's sum_b p
   auto ring = [&](int st) {
-    return reinterpret_cast<T*>(smem + L::ring + st * L::stage);
+    return reinterpret_cast<float*>(smem + L::ring + st * L::stage);
   };
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -217,13 +209,13 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
   const int n_y = XW ? (B + TILE - 1) / TILE : (E + TILE - 1) / TILE;
   const int y_first = blockIdx.y * per;
   const int n_tiles = min(per, n_y - y_first);
-  constexpr int CH = CHUNK<T>, NCH = 256 / CH, FPC = CH / 32;
+  constexpr int CH = CHUNK, NCH = 256 / CH, FPC = CH / 32;
   const int nch = dp / CH;
 
   // The stream is each Y tile's chunks in order for z, then again for acc.
   // fetch() starts the load at its cursor (cp.async into its stage; W:
   // global loads into registers), put() finishes the W load at its own
-  // (registers, cast, into its stage), and each step reads the stage at a
+  // (registers, widened, into its stage), and each step reads the stage at a
   // third, all three in stream order. W is read 16
   // bytes (VW elements) a load along its contiguous axis where that axis
   // is a whole number of such pieces, else an element a load.
@@ -254,11 +246,11 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
     const int ti = at_fetch.ti, c = at_fetch.c;
     const bool first = at_fetch.pass == 0 && c == 0;
     const int y0 = (y_first + ti) * TILE;
-    T* dst = ring(at_fetch.st);
+    float* dst = ring(at_fetch.st);
     at_fetch.next(nch);
     if constexpr (XW) {
       if (live) {
-        constexpr int V = 16 / sizeof(T), VPR = CH / V;
+        constexpr int V = 4, VPR = CH / V;
         for (int q = tid; q < TILE * VPR; q += THREADS) {
           const int r = q / VPR, col = (q % VPR) * V;
           const bool in = y0 + r < B;
@@ -305,7 +297,7 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
     const StreamPos<PASSES> at = at_put;
     at_put.next(nch);
     if (at.ti >= n_tiles) return;
-    T* dst = ring(at.st);
+    float* dst = ring(at.st);
     if (wvec) {
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
@@ -315,7 +307,7 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
 #pragma unroll
         for (int u = 0; u < VW; ++u)
           dst[(sk == 1 ? r : r + u) * LDY + (sk == 1 ? k + u : k)] =
-              from_f32<T>(to_f32(w[u]));
+              to_f32(w[u]);
       }
     } else {
 #pragma unroll
@@ -323,7 +315,7 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
         const int e = tid + q * THREADS;
         const int r = sk == 1 ? e / CH : e % TILE;
         const int k = sk == 1 ? e % CH : e / TILE;
-        dst[r * LDY + k] = from_f32<T>(wreg[q]);
+        dst[r * LDY + k] = wreg[q];
       }
     }
     if (at.pass == 0 && at.c == 0 && tid < TILE)
@@ -340,7 +332,7 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
       __syncthreads();
     }
     fetch();
-    const T* Y = ring(at_read);
+    const float* Y = ring(at_read);
     if (++at_read == NST) at_read = 0;
     return Y;
   };
@@ -349,7 +341,7 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
   };
   // The resident tile and its vectors, staged while the first loads of
   // the stream are in flight: W's tile through registers, RES loads a
-  // thread in flight, cast on the way; P's tile by cp.async.
+  // thread in flight, widened on the way; P's tile by cp.async.
   if constexpr (XW) {
     for (int i = 0; i < AHEAD; ++i) fetch();
     constexpr int RES = 16;
@@ -368,7 +360,7 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
         const int i = i0 + u * THREADS;
         const int r = sk == 1 ? i / dp : i % TILE;
         const int k = sk == 1 ? i % dp : i / TILE;
-        if (i < TILE * dp) X[r * LDX + k] = from_f32<T>(v[u]);
+        if (i < TILE * dp) X[r * LDX + k] = v[u];
       }
     }
     if (tid < TILE) {
@@ -376,7 +368,7 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
       dbacc[tid] = 0.0f;
     }
   } else {
-    constexpr int V = 16 / sizeof(T);
+    constexpr int V = 4;
     const int vpr = dp / V;
     for (int q = tid; q < TILE * vpr; q += THREADS) {
       const int r = q / vpr, col = (q % vpr) * V;
@@ -397,10 +389,6 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
     cp_wait<0>();
   }
 
-  constexpr int KS = KSTEP<T>;
-  const T* pt = reinterpret_cast<const T*>(
-      smem + (sizeof(T) == 2 ? L::p : L::z));
-  constexpr int LDPT = sizeof(T) == 2 ? LDP : LDZ;
   // ac[c * 2 FPC + j]: rows 16 mt.., features c CH + 16 FPC half + 8 j..;
   // zc[j]: rows 16 mt.., columns 32 half + 8 j.. of z.
   Acc8 ac[NACC], zc[4];
@@ -409,6 +397,24 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
   };
 #pragma unroll
   for (int a = 0; a < NACC; ++a) ac[a] = Acc8{{0.0f, 0.0f, 0.0f, 0.0f}};
+  // DPOOL: add the accumulators into this warp's rows of the block's
+  // partial, each element by the thread that holds it (the first time,
+  // store them), and start them again from zero.
+  bool flushed = false;
+  auto flush_acc = [&]() {
+    const size_t Bp = size_t(gridDim.x) * TILE;
+    float* part = out + (blockIdx.y * Bp + x0 + 16 * mt) * dp;
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) {
+      const int f = feature(a);
+      if (f < dp) {
+        if (flushed) add_c(ac[a], part + f, dp);
+        store_c(part + f, dp, ac[a]);
+      }
+      ac[a] = Acc8{{0.0f, 0.0f, 0.0f, 0.0f}};
+    }
+    flushed = true;
+  };
   // FWD: the running (max, sumexp) of rows 8 warp.. of X.
   constexpr int ROWS = TILE / WARPS;
   float m_run[ROWS], s_run[ROWS];
@@ -423,15 +429,15 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
 #pragma unroll
     for (int j = 0; j < 4; ++j) zc[j] = Acc8{{0.0f, 0.0f, 0.0f, 0.0f}};
     for (int c = 0; c < nch; ++c) {           // z = X . Y^T
-      const T* Y = begin() + 32 * half * LDY;
-      const T* xa = X + 16 * mt * LDX + c * CH;
+      const float* Y = begin() + 32 * half * LDY;
+      const float* xa = X + 16 * mt * LDX + c * CH;
 #pragma unroll
-      for (int kk = 0; kk < CH; kk += KS) {
-        FragA<T> a;
+      for (int kk = 0; kk < CH; kk += KSTEP) {
+        FragA a;
         load_a(a, xa + kk, LDX);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          FragB<T> b;
+          FragB b;
           load_b_nk(b, Y + 8 * j * LDY + kk, LDY);
           tc_mma(zc[j], a, b);
         }
@@ -467,7 +473,6 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
           if ((XW ? sl[buf + y] : rl[x]) == e) p -= 1.0f;
         }
         Z[x * LDZ + y] = p;
-        if constexpr (sizeof(T) == 2) Pb[x * LDP + y] = __float2bfloat16(p);
         sum += p;
       }
       if constexpr (XW) {
@@ -480,14 +485,14 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {           // acc += p . Y
       if (c < nch) {
-        const T* Y = begin();                 // its barrier publishes p
+        const float* Y = begin();             // its barrier publishes p
 #pragma unroll
-        for (int kk = 0; kk < TILE; kk += KS) {
-          FragA<T> a;
-          load_a(a, pt + 16 * mt * LDPT + kk, LDPT);
+        for (int kk = 0; kk < TILE; kk += KSTEP) {
+          FragA a;
+          load_a(a, Z + 16 * mt * LDZ + kk, LDZ);
 #pragma unroll
           for (int j = 0; j < 2 * FPC; ++j) {
-            FragB<T> b;
+            FragB b;
             load_b_kn(b, Y + kk * LDY + 16 * FPC * half + 8 * j, LDY);
             tc_mma(ac[2 * FPC * c + j], a, b);
           }
@@ -495,6 +500,8 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
         end();
       }
     }
+    if constexpr (MODE == DPOOL)
+      if ((ti + 1) % flush == 0 && ti + 1 < n_tiles) flush_acc();
   }
 
   if constexpr (MODE == FWD) {
@@ -509,13 +516,7 @@ xent_sweep_kernel(const T* __restrict__ P, const WT* W,
       }
     }
   } else if constexpr (MODE == DPOOL) {
-    const size_t Bp = size_t(gridDim.x) * TILE;
-    float* part = out + (blockIdx.y * Bp + x0 + 16 * mt) * dp;
-#pragma unroll
-    for (int a = 0; a < NACC; ++a) {
-      const int f = feature(a);
-      if (f < dp) store_c(part + f, dp, ac[a]);
-    }
+    flush_acc();
   } else {
     const int S = gridDim.y, Ep = gridDim.x * TILE;
     if (S > 1) {                // slice s's partials, unscaled
@@ -668,52 +669,65 @@ cudaError_t prepare_sweep(K kernel, size_t bytes) {
                               int(cudaSharedmemCarveoutMaxShared));
 }
 
-template <typename T, typename WT>
+template <typename WT>
 int launch_fwd(const void* P, const void* W, const void* bias, void* m_out,
                void* s_out, int B, int E, int d, int dp, long long sj,
                long long sk, int tiles_per_chunk, int n_chunks,
                cudaStream_t stream) {
-  const size_t smem = SweepLayout<T>::total;
-  auto k = xent_sweep_kernel<T, WT, FWD>;
+  const size_t smem = SweepLayout::total;
+  auto k = xent_sweep_kernel<WT, FWD>;
   const cudaError_t err = prepare_sweep(k, smem);
   if (err != cudaSuccess) return int(err);
   k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
-      static_cast<const T*>(P), static_cast<const WT*>(W),
+      static_cast<const float*>(P), static_cast<const WT*>(W),
       static_cast<const float*>(bias), nullptr, nullptr, nullptr,
       static_cast<float*>(m_out), static_cast<float*>(s_out), B, E, d, dp,
-      sj, sk, tiles_per_chunk, Update<WT>{});
+      sj, sk, tiles_per_chunk, 0, Update<WT>{});
+  return int(cudaGetLastError());
+}
+
+// The dpooled sweep of K6 and K7.
+template <typename WT>
+int launch_dpooled(const float* P, const WT* W, const float* bias,
+                   const void* lse, const void* lab, void* part, int B,
+                   int E, int d, int dp, long long sj, long long sk,
+                   int tiles_per_chunk, int n_chunks, int flush,
+                   cudaStream_t stream) {
+  const size_t smem = SweepLayout::total;
+  auto k = xent_sweep_kernel<WT, DPOOL>;
+  const cudaError_t err = prepare_sweep(k, smem);
+  if (err != cudaSuccess) return int(err);
+  k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
+      P, W, bias, static_cast<const float*>(lse),
+      static_cast<const int*>(lab), nullptr, static_cast<float*>(part),
+      nullptr, B, E, d, dp, sj, sk, tiles_per_chunk, flush, Update<WT>{});
   return int(cudaGetLastError());
 }
 
 // K6's launches: the dW sweep, the ordered sum of its slices (S > 1), then
 // the dpooled sweep.
-template <typename T, typename WT>
+template <typename WT>
 int launch_bwd(const void* P, const void* W, const void* bias,
                const void* lse, const void* lab, const void* g, void* dW,
                void* db, void* part, void* scratch, int B, int E, int d,
                int dp, long long sj, long long sk, int tiles_per_chunk,
-               int n_chunks, int btiles_per_slice, int n_slices,
+               int n_chunks, int btiles_per_slice, int n_slices, int flush,
                cudaStream_t stream) {
-  const size_t smem = SweepLayout<T>::total;
-  auto dw_k = xent_sweep_kernel<T, WT, DW>;
-  auto dp_k = xent_sweep_kernel<T, WT, DPOOL>;
-  for (auto k : {dw_k, dp_k}) {
-    const cudaError_t err = prepare_sweep(k, smem);
-    if (err != cudaSuccess) return int(err);
-  }
-  const T* p = static_cast<const T*>(P);
+  const size_t smem = SweepLayout::total;
+  auto dw_k = xent_sweep_kernel<WT, DW>;
+  cudaError_t err = prepare_sweep(dw_k, smem);
+  if (err != cudaSuccess) return int(err);
+  const float* p = static_cast<const float*>(P);
   const WT* w = static_cast<const WT*>(W);
   const float* b = static_cast<const float*>(bias);
-  const float* ls = static_cast<const float*>(lse);
-  const int* lb = static_cast<const int*>(lab);
   const float* gp = static_cast<const float*>(g);
   const int n_etiles = (E + TILE - 1) / TILE;
   dw_k<<<dim3(n_etiles, n_slices), THREADS, smem, stream>>>(
-      p, w, b, ls, lb, gp,
-      static_cast<float*>(n_slices > 1 ? scratch : dW),
-      static_cast<float*>(db), B, E, d, dp, sj, sk, btiles_per_slice,
+      p, w, b, static_cast<const float*>(lse), static_cast<const int*>(lab),
+      gp, static_cast<float*>(n_slices > 1 ? scratch : dW),
+      static_cast<float*>(db), B, E, d, dp, sj, sk, btiles_per_slice, 0,
       Update<WT>{});
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   if (n_slices > 1) {
     const size_t n = size_t(E) * d + E;
@@ -725,49 +739,39 @@ int launch_bwd(const void* P, const void* W, const void* bias,
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
   }
-  dp_k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
-      p, w, b, ls, lb, gp, static_cast<float*>(part), nullptr, B, E, d, dp,
-      sj, sk, tiles_per_chunk, Update<WT>{});
-  return int(cudaGetLastError());
+  return launch_dpooled(p, w, b, lse, lab, part, B, E, d, dp, sj, sk,
+                        tiles_per_chunk, n_chunks, flush, stream);
 }
 
-// K7's launches: in fp32 compute the dpooled sweep first (it reads W,
-// which the update overwrites; in bf16 compute the wrapper runs K6's, of
-// xent_wgmma.cu, before this call), then the update sweep, then, with
-// S > 1 slices, the ordered sum of the slices that applies the update.
-template <typename T, typename WT>
+// K7's launches: the dpooled sweep first (it reads W, which the update
+// overwrites), then the update sweep, then, with S > 1 slices, the ordered
+// sum of the slices that applies the update.
+template <typename WT>
 int launch_apply(const void* P, void* W, const void* bias, const void* lse,
                  const void* lab, void* s1, void* s2, void* db, void* part,
                  void* gsq, void* scratch, int B, int E, int d, int dp,
                  long long sj, long long sk, int tiles_per_chunk,
-                 int n_chunks, int btiles_per_slice, int n_slices, int opt,
-                 float lr, float gscale, float bc1, float bc2,
+                 int n_chunks, int btiles_per_slice, int n_slices, int flush,
+                 int opt, float lr, float gscale, float bc1, float bc2,
                  cudaStream_t stream) {
-  const size_t smem = SweepLayout<T>::total;
-  auto up_k = xent_sweep_kernel<T, WT, UPDATE>;
+  const size_t smem = SweepLayout::total;
+  auto up_k = xent_sweep_kernel<WT, UPDATE>;
   cudaError_t err = prepare_sweep(up_k, smem);
   if (err != cudaSuccess) return int(err);
-  const T* p = static_cast<const T*>(P);
+  const float* p = static_cast<const float*>(P);
   WT* w = static_cast<WT*>(W);
   const float* b = static_cast<const float*>(bias);
-  const float* ls = static_cast<const float*>(lse);
-  const int* lb = static_cast<const int*>(lab);
   const Update<WT> u{w, static_cast<WT*>(s1), static_cast<WT*>(s2),
                      static_cast<float*>(gsq), opt, lr, gscale, bc1, bc2};
-  if constexpr (sizeof(T) == 4) {
-    auto dp_k = xent_sweep_kernel<T, WT, DPOOL>;
-    err = prepare_sweep(dp_k, smem);
-    if (err != cudaSuccess) return int(err);
-    dp_k<<<dim3((B + TILE - 1) / TILE, n_chunks), THREADS, smem, stream>>>(
-        p, w, b, ls, lb, nullptr, static_cast<float*>(part), nullptr, B, E,
-        d, dp, sj, sk, tiles_per_chunk, Update<WT>{});
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
-  }
+  err = cudaError_t(launch_dpooled<WT>(p, w, b, lse, lab, part, B, E, d, dp,
+                                       sj, sk, tiles_per_chunk, n_chunks,
+                                       flush, stream));
+  if (err != cudaSuccess) return int(err);
   const int n_etiles = (E + TILE - 1) / TILE;
   up_k<<<dim3(n_etiles, n_slices), THREADS, smem, stream>>>(
-      p, w, b, ls, lb, nullptr, static_cast<float*>(scratch),
-      static_cast<float*>(db), B, E, d, dp, sj, sk, btiles_per_slice, u);
+      p, w, b, static_cast<const float*>(lse), static_cast<const int*>(lab),
+      nullptr, static_cast<float*>(scratch), static_cast<float*>(db), B, E,
+      d, dp, sj, sk, btiles_per_slice, 0, u);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_slices == 1) return int(err);
   xent_reduce_apply_kernel<WT><<<n_etiles, RA_THREADS, 0, stream>>>(
@@ -792,9 +796,8 @@ extern "C" int sert_xent_fwd(const void* P, const void* W, const void* bias,
                              void* stream) {
   const cudaStream_t st = cudaStream_t(stream);
   auto go = [&](auto wt) {
-    return launch_fwd<float, decltype(wt)>(
-        P, W, bias, m_out, s_out, B, E, d, dp, sj, sk, tiles_per_chunk,
-        n_chunks, st);
+    return launch_fwd<decltype(wt)>(P, W, bias, m_out, s_out, B, E, d, dp,
+                                    sj, sk, tiles_per_chunk, n_chunks, st);
   };
   return w_bf16 ? go(bf16()) : go(0.0f);
 }
@@ -803,38 +806,38 @@ extern "C" int sert_xent_fwd(const void* P, const void* W, const void* bias,
 // gold entity) and g, one fp32 scalar on the device. Writes dW fp32 with
 // W's shape and strides, db [E] fp32 (both scaled by g) and the unscaled
 // dpooled partials part [n_chunks, Bp, dp] fp32 (Bp = B rounded up to
-// 64), which the caller sums over the chunk axis. The dW sweep splits the batch tiles into
-// n_slices slices of btiles_per_slice; with more than one, `scratch` holds
-// n_slices * Ep * (dp + 1) floats of partials (Ep = E rounded up to 64),
-// else it is unused.
+// 64), which the caller sums over the chunk axis; a dpooled block adds its
+// accumulators into its partial every `flush` entity tiles. The dW sweep
+// splits the batch tiles into n_slices slices of btiles_per_slice; with
+// more than one, `scratch` holds n_slices * Ep * (dp + 1) floats of
+// partials (Ep = E rounded up to 64), else it is unused.
 extern "C" int sert_xent_bwd(const void* P, const void* W, const void* bias,
                              const void* lse, const void* lab, const void* g,
                              void* dW, void* db, void* part, void* scratch,
                              int B, int E, int d, int dp, long long sj,
                              long long sk, int tiles_per_chunk, int n_chunks,
-                             int btiles_per_slice, int n_slices,
+                             int btiles_per_slice, int n_slices, int flush,
                              int w_bf16, void* stream) {
   const cudaStream_t st = cudaStream_t(stream);
   auto go = [&](auto wt) {
-    return launch_bwd<float, decltype(wt)>(
+    return launch_bwd<decltype(wt)>(
         P, W, bias, lse, lab, g, dW, db, part, scratch, B, E, d, dp, sj, sk,
-        tiles_per_chunk, n_chunks, btiles_per_slice, n_slices, st);
+        tiles_per_chunk, n_chunks, btiles_per_slice, n_slices, flush, st);
   };
   return w_bf16 ? go(bf16()) : go(0.0f);
 }
 
-// K7: as K6, with W updated in place instead of dW written. `opt` is 0
-// adam (s1 = m, s2 = v), 1 adagrad (s1 = acc) or 2 sgd (no slots); the
-// slots have W's shape, layout and storage type and are updated in place.
-// lr is the constant learning rate, gscale the factor from the sum loss's
-// dW to the update's gradient (1 / B for the mean loss), bc1 and bc2 adam's
-// bias corrections 1 - 0.9^t and 1 - 0.999^t (fp32, t = count + 1).
-// Writes db [E] unscaled, the unscaled dpooled partials part
-// [n_chunks, Bp, dp] (summed by the caller) and gsq [ceil(E / 64)], each
-// entity tile's sum of (gscale * dW)^2. The plans and `scratch` are K6's.
-// With use_bf16 nonzero (bf16 products) `part` is unused and no dpooled
-// sweep runs here; ops/xent.py sends K7 in bf16 compute to xent_wgmma.cu
-// (sert_xent_wgmma_apply) and calls this with use_bf16 = 0 only.
+// K7 in fp32 compute (bf16 compute runs xent_wgmma.cu's
+// sert_xent_wgmma_apply): as K6, with W updated in place instead of dW
+// written. `opt` is 0 adam (s1 = m, s2 = v), 1 adagrad (s1 = acc) or 2 sgd
+// (no slots); the slots have W's shape, layout and storage type and are
+// updated in place. lr is the constant learning rate, gscale the factor
+// from the sum loss's dW to the update's gradient (1 / B for the mean
+// loss), bc1 and bc2 adam's bias corrections 1 - 0.9^t and 1 - 0.999^t
+// (fp32, t = count + 1). Writes db [E] unscaled, the unscaled dpooled
+// partials part [n_chunks, Bp, dp] (summed by the caller) and gsq
+// [ceil(E / 64)], each entity tile's sum of (gscale * dW)^2. The plans,
+// `flush` and `scratch` are K6's.
 extern "C" int sert_xent_bwd_apply(const void* P, void* W, const void* bias,
                                    const void* lse, const void* lab,
                                    void* s1, void* s2, void* db, void* part,
@@ -842,16 +845,15 @@ extern "C" int sert_xent_bwd_apply(const void* P, void* W, const void* bias,
                                    int d, int dp, long long sj, long long sk,
                                    int tiles_per_chunk, int n_chunks,
                                    int btiles_per_slice, int n_slices,
-                                   int opt, float lr, float gscale, float bc1,
-                                   float bc2, int use_bf16, int w_bf16,
-                                   void* stream) {
+                                   int flush, int opt, float lr,
+                                   float gscale, float bc1, float bc2,
+                                   int w_bf16, void* stream) {
   const cudaStream_t st = cudaStream_t(stream);
-  auto go = [&](auto t, auto wt) {
-    return launch_apply<decltype(t), decltype(wt)>(
+  auto go = [&](auto wt) {
+    return launch_apply<decltype(wt)>(
         P, W, bias, lse, lab, s1, s2, db, part, gsq, scratch, B, E, d, dp,
-        sj, sk, tiles_per_chunk, n_chunks, btiles_per_slice, n_slices, opt,
-        lr, gscale, bc1, bc2, st);
+        sj, sk, tiles_per_chunk, n_chunks, btiles_per_slice, n_slices, flush,
+        opt, lr, gscale, bc1, bc2, st);
   };
-  if (use_bf16) return w_bf16 ? go(bf16(), bf16()) : go(bf16(), 0.0f);
-  return w_bf16 ? go(0.0f, bf16()) : go(0.0f, 0.0f);
+  return w_bf16 ? go(bf16()) : go(0.0f);
 }

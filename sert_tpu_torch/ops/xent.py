@@ -181,13 +181,13 @@ def kernel_limits(B: int, E: int, d: int):
 # sweeps splits its loop axis into parts so that the grid is at most one
 # round of such blocks.
 K6_BLOCKS = 2 * 132
-# The longest chunk of the dpooled sweep, in entity tiles. A block sums its
-# chunk into tensor-core accumulators, whose fp32 sums drift from the exact
-# one in proportion to their length: at E 500k, d 256, B 1024 the one-card
-# dpooled read 7.5e-5 (relative norm) from an fp64 one with one-round chunks
-# of 489 tiles, 9.9e-6 at 64, 4.9e-6 at 32 and 2.5e-6 at 16
-# (tools/dpooled_fp64.py on the H100; PERF.md §6). Longer loops take more
-# chunks, which the wrapper sums in fp32.
+# The entity tiles a block of the dpooled sweep sums into its tensor-core
+# accumulators before it adds them into its partial (in fp32) and starts
+# them from zero. The accumulators' sums drift from the exact one in
+# proportion to their length: at E 500k, d 256, B 1024 the one-card dpooled
+# read 7.5e-5 (relative norm) from an fp64 one over whole chunks of 489
+# tiles, 9.9e-6 over 64, 4.9e-6 over 32 and 2.5e-6 over 16
+# (tools/dpooled_fp64.py on the H100; PERF.md §6).
 DP_MAX_TILES = 32
 
 
@@ -212,11 +212,8 @@ def _dw_splits(B: int, E: int):
 def _dp_chunks(B: int, E: int):
     """(entity tiles per chunk, chunks) of K5 and of the dpooled sweep of
     K6 and K7, whose block (batch tile, chunk) writes one partial that the
-    wrapper merges or sums in order: one round's split, its chunks cut to
-    at most DP_MAX_TILES."""
-    n_etiles = -(-E // TILE)
-    per = min(_k6_split(-(-B // TILE), n_etiles)[0], DP_MAX_TILES)
-    return per, -(-n_etiles // per)
+    wrapper merges or sums in order."""
+    return _k6_split(-(-B // TILE), -(-E // TILE))
 
 
 def _dw_scratch_numel(B: int, E: int, dp: int) -> int:
@@ -386,7 +383,7 @@ def _bwd(saved, geometry, g, ct):
                 P.data_ptr(), W.data_ptr(), bf.data_ptr(), lse.data_ptr(),
                 lab.data_ptr(), g.data_ptr(), dW.data_ptr(), db.data_ptr(),
                 part.data_ptr(), sp, B, E, d, dp, strides[0], strides[1],
-                per, n_chunks, bper, n_slices,
+                per, n_chunks, bper, n_slices, DP_MAX_TILES,
                 int(W.dtype == torch.bfloat16), stream)
     _build.check(err, "xent backward (K6)")
     bwd_launches += 1
@@ -754,7 +751,8 @@ def _bwd_apply(saved, geometry, slots, opt, lr, count, gscale, ct):
                 gsq.data_ptr(),
                 None if scratch is None else scratch.data_ptr(),
                 B, E, d, dp, strides[0], strides[1], per, n_chunks, bper,
-                n_slices, code, lr, gscale, bc1, bc2, 0, w_bf16, stream)
+                n_slices, DP_MAX_TILES, code, lr, gscale, bc1, bc2, w_bf16,
+                stream)
     _build.check(err, "xent backward with the optimizer update (K7)")
     apply_launches += 1
     apply_wgmma_launches += bf16

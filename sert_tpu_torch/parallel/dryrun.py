@@ -397,8 +397,10 @@ def _leaf_parity(stats, leaf: str, sharded: bool) -> dict:
 # phase's width over seeds 0-3 (tools/fused_tp_seeds.py, PERF.md §6):
 # against "off" at most 3.9e-6 (adam's proj_w; adagrad 4.3e-10, sgd 0) in
 # bf16 and fp32, 25x under FUSED_TP_RTOL; against one card at most 7.9e-4
-# in bf16 (adam's word table), 2.5x under, and 4.9e-6 in fp32 (1.3e-4
-# before the fp32 dpooled sweep's chunks were cut to ops.xent.DP_MAX_TILES).
+# in bf16 (adam's word table), 2.5x under, and 1.2e-5 in fp32 (adam's
+# word table), 43x under: the fp32 dpooled sweep adds its tensor-core sums
+# up every ops.xent.DP_MAX_TILES entity tiles, so that one card's long
+# sums stay near the blocks' shorter ones.
 FUSED_TP_OPTS = ("adam", "adagrad", "sgd")
 FUSED_TP_RTOL = 1e-4
 FUSED_TP_ONE_CARD_RTOL = {"float32": 5e-4, "bfloat16": 2e-3}

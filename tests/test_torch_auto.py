@@ -108,16 +108,13 @@ def test_k6_plans_fill_one_round_and_stop_splitting_when_tiles_do():
     for E in (131_072, 500_000, 1_000_000):
         assert xent._dw_splits(4096, E)[1] == 1        # dW written directly
     assert xent._dp_chunks(1024, 3500) == (4, 14)      # 224 blocks
-    # Past one round's chunk of DP_MAX_TILES, the chunks are cut to it.
-    assert xent._dp_chunks(4096, 1_000_000) == (xent.DP_MAX_TILES, 489)
-    assert xent._dp_chunks(1024, 500_000) == (xent.DP_MAX_TILES, 245)
+    assert xent._dp_chunks(4096, 1_000_000) == (3907, 4)
+    # The dpooled blocks flush their sums every DP_MAX_TILES of these.
+    assert xent._dp_chunks(1024, 500_000) == (489, 16)
     for B, E in ((1024, 3500), (1000, 1100), (4096, 300), (4096, 131071)):
         for plan, fixed in ((xent._dw_splits, -(-E // 64)),
                             (xent._dp_chunks, -(-B // 64))):
-            per, parts = plan(B, E)
-            assert (fixed * parts <= max(fixed, xent.K6_BLOCKS)
-                    or (plan is xent._dp_chunks
-                        and per == xent.DP_MAX_TILES))
+            assert fixed * plan(B, E)[1] <= max(fixed, xent.K6_BLOCKS)
 
 
 @pytest.mark.parametrize("B,E", [(1024, 3500), (1000, 1100), (4096, 300),
@@ -125,7 +122,6 @@ def test_k6_plans_fill_one_round_and_stop_splitting_when_tiles_do():
                                  (1024, 125_000)])
 def test_dp_chunks_cover_every_entity_tile_once(B, E):
     per, chunks = xent._dp_chunks(B, E)
-    assert per <= xent.DP_MAX_TILES
     n_etiles = -(-E // 64)
     covered = [t for c in range(chunks)
                for t in range(c * per, min((c + 1) * per, n_etiles))]
@@ -237,10 +233,11 @@ def test_each_sweep_takes_its_plan(launches, B, E, d, layout, dtype):
     assert fwd[5:9] == (B, E, d, dp) and bwd[10:14] == (B, E, d, dp)
     if dtype == "float32":
         assert fwd[11:13] == (per, chunks)
-        assert bwd[16:20] == (per, chunks, bper, slices)
+        assert bwd[16:21] == (per, chunks, bper, slices, xent.DP_MAX_TILES)
         assert (bwd[9] is None) == (slices == 1)
         assert apply[11:15] == (B, E, d, dp)
-        assert apply[17:21] == (per, chunks, bper, slices)
+        assert apply[17:22] == (per, chunks, bper, slices,
+                                xent.DP_MAX_TILES)
         assert (apply[10] is None) == (slices == 1)
         assert apply[8] is not None              # K7's own dpooled sweep
         assert apply[5] is not None and apply[6] is not None  # adam's m, v

@@ -267,7 +267,8 @@ def _imports(path: Path):
     for p in [*(REPO / "sert_tpu_torch").rglob("*.py"),
               REPO / "chip_smoke.py", *(REPO / "tools").glob("*torch*.py"),
               REPO / "tools/fused_tp_seeds.py",
-              REPO / "tools/dpooled_fp64.py"]))
+              REPO / "tools/dpooled_fp64.py",
+              REPO / "tools/fused_step_ab.py"]))
 def test_no_source_imports_jax(path):
     """Neither jax nor anything of the reference package, by any import
     statement, anywhere in the file (function bodies included)."""

@@ -186,7 +186,7 @@ def test_fp32_compute_and_k7_update_launch_what_they_did(launches, dtype):
         elif name == "sert_xent_bwd":
             assert a[1] == W.data_ptr()
             assert a[10:] == (B, E, d, dp, *strides, per, chunks, bper,
-                              slices, 0, 0)
+                              slices, xent.DP_MAX_TILES, 0, 0)
         elif name == "sert_xent_wgmma_dpooled":
             plan = xent._wgmma_plan(B, E, d)[0]
             assert a[6:10] == (B, E, d, dp) and a[11] == 1     # "de"
@@ -199,10 +199,10 @@ def test_fp32_compute_and_k7_update_launch_what_they_did(launches, dtype):
         elif name == "sert_xent_bwd_apply":
             assert a[1] == W.data_ptr()
             assert a[8] is not None
-            assert a[11:21] == (B, E, d, dp, *strides, per, chunks, bper,
-                                slices)
-            assert a[21] == xent.OPTIMIZERS.index("adam")
-            assert a[26:] == (0, 0, 0)
+            assert a[11:22] == (B, E, d, dp, *strides, per, chunks, bper,
+                                slices, xent.DP_MAX_TILES)
+            assert a[22] == xent.OPTIMIZERS.index("adam")
+            assert a[27:] == (0, 0)
 
 
 # (B, E, d, layout, W's storage) of K7 in bf16 compute: the dW sweep split

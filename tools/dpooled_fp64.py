@@ -18,8 +18,10 @@ that ``parallel.dryrun.check_fused_card_world`` takes for ``--seed``:
 - fp64: z, p = exp(z - lse) - onehot and p W in fp64 from the same fp32
   operands, in chunks of entities.
 The update is sgd at lr 0, so W is left as it is. For each
-``--dp-max-tiles`` (``ops.xent.DP_MAX_TILES``, the longest chunk of the
-dpooled sweep; the module's own by default) prints, for dpooled and for
+``--dp-max-tiles`` (``ops.xent.DP_MAX_TILES``, the entity tiles a block of
+the dpooled sweep sums on the tensor cores before it adds them into its
+partial; the module's own by default; a chunk's length or more sums each
+chunk whole) prints, for dpooled and for
 the word table's gradient each gives (the head's backward in fp32; the
 fp64 one in fp64), ||x - ref|| / ||ref|| and max |x - ref| / max |ref|
 against fp64 and between one card and the mesh; then one JSON object as

@@ -14,7 +14,8 @@ For each case, seeded inputs on the card (chip_smoke's ``_xent_case``, and
 ``torch.profiler``: the device time of each kernel per call, and of the
 plain version's kernels (TF32 off) where its [B, E] logits fit; then the
 CUDA-event time of ``--calls`` more calls without the profiler, host work
-included, as chip_smoke.py times them.
+included, as chip_smoke.py times them; and the peak device memory one call
+allocates beyond what was allocated before it.
 - ``fwd``: the forward of ``xent_loss`` (K5's sweep, the merge of its
   chunks and the gold logit) against ``xent_loss_plain``'s;
 - ``bwd``: the backward of ``xent_loss`` (K6's dW sweep, the sum of its
@@ -71,6 +72,7 @@ CASES = {   # name: (B, E, d, layout, dtype), as chip_smoke's xent phases
     "cerc_bf16": (1024, 3500, 256, "de", "bfloat16"),
     "split_max": (4096, 300, 256, "de", "float32"),
     "ll_500k": (1024, 500_000, 256, "de", "bfloat16"),
+    "ll_500k_f32": (1024, 500_000, 256, "de", "float32"),
     "lse_full_128k": (4096, 131072, 128, "ed", "bfloat16"),
     "lse_full_tail": (4096, 131071, 128, "ed", "bfloat16"),
     "lse_full_flagship": (4096, 1_000_000, 128, "ed", "bfloat16"),
@@ -297,12 +299,20 @@ def main() -> int:
                 event = float("nan")
             else:
                 event = chip_smoke.cuda_ms(fn, iters=calls, warmup=1)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
             total = sum(ms.values())
             print(f"{args.kernel} {name} {label} device_ms_per_call="
-                  f"{total:.4f} event_ms_per_call={event:.4f}")
+                  f"{total:.4f} event_ms_per_call={event:.4f} "
+                  f"peak_bytes_above_start={peak}")
             for k, v in list(ms.items())[:6]:
                 print(f"    {v:.4f}  {k[:90]}")
             out[f"{name}/{label}"] = {"total_ms": total, "event_ms": event,
+                                      "peak_bytes_above_start": peak,
                                       "by_kernel": [[k[:90], v] for k, v
                                                     in list(ms.items())[:6]]}
             del fn
