@@ -10,8 +10,11 @@ Phases (each prints one line or more; any failure exits non-zero):
      versions at the serving shapes (Q=64, E=1M, d=128, bw=128, NB=1012),
      with CUDA-event times for both; K3 also at bw=64 and at a partial
      tail (E=1M-1), with and without the bias; K3's fp32 mode (M staged
-     in fp32, 3xTF32) the same way, and both modes' bin maxima against
-     fp64 (the error relative to the largest score); K4 also on shared
+     in fp32, 3xTF32 on TF32 wgmma) the same way, and both modes' bin
+     maxima against fp64 (the error relative to the largest score; the
+     fp32 mode also at d=320, 512 and 672); two
+     calls of each K3 mode bit for bit; beside each mode cuBLAS's product
+     of the same R and M (product_ms; fp32 with TF32 off); K4 also on shared
      bins (every query the same 1012, each row in its own order), with a
      bin twice in a row, with out-of-range ids (NaN scores), and two calls
      bit for bit;
@@ -492,7 +495,9 @@ def phase_kernels() -> dict:
         src3, "sert_tpu/ops/score_binmax.py:51")
     # K3's record is its no-bias variant: it reads the bf16 copy once.
     records["score_binmax"].update(bound(
-        2 * Q * E * Mp.shape[1], nbytes(Mp, R, bins), "bfloat16"))
+        2 * Q * E * Mp.shape[1], nbytes(Mp, R, bins), "bfloat16"),
+        product_ms=_binmax_product_ms(R, Mp, E))
+    _binmax_bit_equal("score_binmax", R, Mp, E, bias, alpha)
 
     def check(name, variant, got, want):
         """An untimed case: within TOL of the plain version."""
@@ -529,7 +534,9 @@ def phase_kernels() -> dict:
         raise AssertionError("an fp32 Mp did not launch K3's fp32 mode")
     # It reads the fp32 copy once; 3xTF32 runs three products.
     records["score_binmax_f32"].update(bound(
-        2 * Q * E * Mp32.shape[1], nbytes(Mp32, R, bins32), "tf32x3"))
+        2 * Q * E * Mp32.shape[1], nbytes(Mp32, R, bins32), "tf32x3"),
+        product_ms=_binmax_product_ms(R, Mp32, E))
+    _binmax_bit_equal("score_binmax_f32", R, Mp32, E, bias, alpha)
     for e, bw in ((E, 64), (E - 1, BW)):
         for ba in ((), (bias, alpha)):
             check("score_binmax_f32",
@@ -541,19 +548,20 @@ def phase_kernels() -> dict:
             _binmax_vs_fp64("kernels", f"d={D},{mode}", R, M, mp, *ba)
     del Mp32
     torch.cuda.empty_cache()
-    # The fp32 mode at its widest d, where the sums are longest and the
-    # scores of unit rows smallest.
-    g672 = torch.Generator(device=dev).manual_seed(SEED + 2)
-    R672 = torch.randn(Q, k3.MAX_DIM_F32, generator=g672, device=dev)
-    M672 = torch.randn(E, k3.MAX_DIM_F32, generator=g672, device=dev)
-    R672 = R672 / R672.norm(dim=1, keepdim=True)
-    M672 = M672 / M672.norm(dim=1, keepdim=True)
-    Mp672 = k3.prepare_binmax_matrix(M672, torch.float32)
-    for ba in ((), (bias, alpha)):
-        _binmax_vs_fp64("kernels", f"d={k3.MAX_DIM_F32},float32", R672, M672,
-                        Mp672, *ba)
-    del M672, Mp672
-    torch.cuda.empty_cache()
+    # The fp32 mode at wider d (two consumer warpgroups at 320 and 512, one
+    # at its widest, 672, where the sums are longest and the scores of unit
+    # rows smallest).
+    gf = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for d in (320, 512, k3.MAX_DIM_F32):
+        Rf = torch.randn(Q, d, generator=gf, device=dev)
+        Mf = torch.randn(E, d, generator=gf, device=dev)
+        Rf = Rf / Rf.norm(dim=1, keepdim=True)
+        Mf = Mf / Mf.norm(dim=1, keepdim=True)
+        Mpf = k3.prepare_binmax_matrix(Mf, torch.float32)
+        for ba in ((), (bias, alpha)):
+            _binmax_vs_fp64("kernels", f"d={d},float32", Rf, Mf, Mpf, *ba)
+        del Mf, Mpf
+        torch.cuda.empty_cache()
     # K3 at wide rows, where every block walks its ring many times over with
     # more sub-tiles a tile (8 and 5) than a warpgroup's share of the ring.
     gw = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -737,14 +745,18 @@ def _slse_check(phase: str, seed: int, case, records: dict,
     # sweep also takes one exponential of every logit (K1 one sweep, K2
     # two), and those run on the SMs' special-function units, a floor of
     # their own beside the tensor cores' (the larger of the two counts).
+    # fp32 products run as 3xTF32 on the tensor cores; their bounds on the
+    # CUDA cores are kept beside.
     ins = nbytes(reps, cand, corr, ids, pos)
-    fb = bound(2 * B * k * d, ins + 4 * B, dtype, exps=B * k)
-    bb = bound(6 * B * k * d, ins + 8 * B + nbytes(reps, cand, corr), dtype,
-               exps=2 * B * k)
+    work = ((2 * B * k * d, ins + 4 * B, B * k),
+            (6 * B * k * d, ins + 8 * B + nbytes(reps, cand, corr), 2 * B * k))
+    fb, bb = (bound(f, m, _product_type(dtype), exps=x) for f, m, x in work)
+    fc, bc = (bound(f, m, dtype, exps=x)["bound_ms"] for f, m, x in work)
     say(phase, case=label, B=B, k=k, d=d, dtype=dtype,
         fwd_ms=k_["fwd_ms"], fwd_plain_ms=p_["fwd_ms"],
-        fwd_bound_ms=fb["bound_ms"], bwd_ms=k_["bwd_ms"],
-        bwd_plain_ms=p_["bwd_ms"], bwd_bound_ms=bb["bound_ms"])
+        fwd_bound_ms=fb["bound_ms"], fwd_bound_cuda_cores_ms=fc,
+        bwd_ms=k_["bwd_ms"], bwd_plain_ms=p_["bwd_ms"],
+        bwd_bound_ms=bb["bound_ms"], bwd_bound_cuda_cores_ms=bc)
     fwd, bwd = records["sampled_lse_fwd"], records["sampled_lse_bwd"]
     fwd["max_abs_err"] = max(fwd["max_abs_err"], errs["lse"])
     bwd["max_abs_err"] = max(bwd["max_abs_err"], errs["dreps"],
@@ -1111,6 +1123,38 @@ def _topk_check(phase: str, name: str, fn, Rs, M) -> dict:
         raise AssertionError(f"{name}: recall {recall} < {RECALL_MIN} or "
                              f"score error {worst} > {SCORE_TOL}")
     return launches
+
+
+def _binmax_product_ms(R, Mp, E: int) -> float:
+    """CUDA-event ms of cuBLAS's [Q, d] x [d, E] product of K3's operands
+    in ``Mp``'s dtype (torch.matmul into a [Q, chunk] buffer of that dtype,
+    E in chunks of 2^17; fp32 with TF32 off, as phase_device set it): the
+    product alone, the yardstick beside K3. The port never calls it."""
+    import torch
+    Rb = R.to(Mp.dtype)
+    step = min(E, 1 << 17)
+    out = torch.empty((Rb.shape[0], step), dtype=Mp.dtype, device=R.device)
+
+    def run():
+        for lo in range(0, E, step):
+            hi = min(E, lo + step)
+            torch.matmul(Rb, Mp[lo:hi].T, out=out[:, :hi - lo])
+
+    ms = cuda_ms(run)
+    say("kernels", name="cublas_product", dtype=str(Mp.dtype), ms=ms)
+    return ms
+
+
+def _binmax_bit_equal(name: str, R, Mp, E: int, bias, alpha) -> None:
+    """Two K3 calls with the bias, bit for bit."""
+    import torch
+    from sert_tpu_torch.ops import score_binmax as k3
+    same = torch.equal(
+        k3.score_binmax_prepared(R, Mp, E, bias, alpha, BW),
+        k3.score_binmax_prepared(R, Mp, E, bias, alpha, BW))
+    say("kernels", name=name, two_calls_bit_equal=same)
+    if not same:
+        raise AssertionError(f"two {name} calls differ")
 
 
 def _binmax_vs_fp64(phase: str, variant: str, R, M, Mp, bias=None,
@@ -2186,7 +2230,8 @@ def _apply_case(B, E, d, layout, opt, seed, w_dtype):
 
 
 def _product_type(dtype: str) -> str:
-    """The peak-rate type of K5-K7's products: fp32 runs as 3xTF32."""
+    """The peak-rate type of K1/K2's and K5-K7's products: fp32 runs as
+    3xTF32."""
     return "tf32x3" if dtype == "float32" else dtype
 
 

@@ -1,8 +1,9 @@
 // Hopper's asynchronous pieces for sm_90a, as inline PTX: mbarriers, TMA
 // tile loads into 128-byte-swizzled shared memory, wgmma descriptors and
-// the bf16 wgmma instructions, warpgroup register rebalancing. Used by the
-// warp-specialized sweeps of K1/K2 (sampled_lse.cu), K3 (score_binmax.cu)
-// and K5/K6 in bf16 (xent_wgmma.cu), with the host side's tensor maps.
+// the bf16 and TF32 wgmma instructions, warpgroup register rebalancing.
+// Used by the warp-specialized sweeps of K1/K2 (sampled_lse.cu), K3 in
+// both dtypes (score_binmax.cu) and K5/K6 in bf16 (xent_wgmma.cu), with the
+// host side's tensor maps.
 //
 // Layout conventions. A tile of rows x (128 bytes) is loaded by one TMA box
 // with CU_TENSOR_MAP_SWIZZLE_128B: row r lands at byte 128 r, and its 16-byte
@@ -106,6 +107,12 @@ __device__ inline void wgmma_wait_all() {
 template <int N>
 __device__ inline void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Order this thread's generic-proxy writes to shared memory before the
+// async proxy's later accesses (a wgmma reading them, a TMA overwriting
+// them); a barrier among the writers must follow before a wgmma.
+__device__ inline void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // Keep the compiler from moving accesses of registers that an asynchronous
 // wgmma reads or writes across its issue and its wait.
@@ -268,6 +275,36 @@ template <> struct Wgmma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };
+
+// wgmma.m64n128k8 with fp32 accumulators and TF32 operands: A in registers
+// (a thread of warp w holds rows 16 w + l / 4 (+ 8), depth l % 4 (+ 4) of
+// the 64 x 8 step, as a[0] (row), a[1] (row + 8), a[2] (depth + 4), a[3]
+// (both), l the lane), B in shared memory, K-major (TF32 has no transposed
+// form). The tensor cores read a TF32 operand's 32-bit word and ignore its
+// low 13 bits. The accumulators are laid out as Wgmma<128>'s.
+__device__ inline void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                     uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
 
 // ---- Host side: tensor maps ----------------------------------------------
 // cuTensorMapEncodeTiled, reached through the runtime so that the library

@@ -1,8 +1,9 @@
 // Warp-level fp32 tensor-core products (3xTF32) through mma.sync for
 // sm_90a, and asynchronous global -> shared copies (cp.async): the pieces of
-// the fp32 sweeps (xent.cu, and the fp32 modes of sampled_lse.cu and
-// score_binmax.cu) that a block's own tiling does not decide; K4's rescore
-// sweep (gather_rescore.cu) takes the copies alone.
+// the fp32 sweeps (xent.cu, and the fp32 mode of sampled_lse.cu) that a
+// block's own tiling does not decide; K4's rescore sweep (gather_rescore.cu)
+// takes the copies alone, and K3's fp32 mode (score_binmax.cu, TF32 wgmma)
+// the split alone.
 //
 // Fragments are laid out as the PTX ISA lays out m16n8k8 (tf32): lane l
 // holds rows g = l / 4 and g + 8, and columns (k) t = l % 4 (+ 4); a

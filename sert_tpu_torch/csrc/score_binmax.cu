@@ -40,20 +40,44 @@
 //   * any bw dividing 128 is a register max: bw >= 8 a quad reduction, a
 //     smaller bw within a thread's column pair (and one shuffle at 4).
 //
-// The fp32 mode (score_binmax_f32_kernel, below) takes R and M in fp32, as
-// the reference's kernels do when prepare_binmax_matrix staged M in fp32
+// The fp32 mode (score_binmax_f32_kernel) takes R and M in fp32, as the
+// reference's kernels do when prepare_binmax_matrix staged M in fp32
 // (sert_tpu/ops/score_binmax.py:72-81, :111), for a prefilter whose bin
-// maxima carry fp32-class rounding. It is a kernel of its own, simple
-// first: its products run as 3xTF32 on mma.sync (mma_sync.cuh, as K1/K2 and
-// K5-K7 take fp32), fed by cp.async. What bounds it at the serving shape:
-// bytes again, 512 MB of fp32 M (0.153 ms at 3.35 TB/s) against 3 x 16.4
-// GFLOP at the dense TF32 rate (0.099 ms). Each block keeps its 64 query
-// rows resident in shared memory and walks entity tiles of 128 rows x, x +
-// gridDim.x, ..., streaming each tile's 32-column chunks through a ring of
-// three stages, so the copies of the next chunks overlap the products of
-// this one. Its epilogue is the bf16 sweep's: + alpha bias, -inf past E,
-// the bin max (over a thread's pair, the quad, then, for bw >= 8, each
-// row's 8-column group maxima through shared memory).
+// maxima carry fp32-class rounding: 3xTF32 products (lo.hi, hi.lo, hi.hi a
+// depth step, mma_sync.cuh's tc_mma order and split), fp32 sums. What
+// bounds it at the serving shape: bytes again, 512 MB of fp32 M (0.153 ms)
+// against 3 x 16.4 GFLOP at the dense TF32 rate (0.099 ms). It is the bf16
+// sweep on TF32 tensor cores: the same persistent blocks, resident query
+// tile, producer warp and 128-byte-swizzled 128 x 32-float sub-tiles
+// (TMA, zeros past E and d), the same epilogue; wgmma m64n128k8 TF32.
+// What differs is the split, which TMA cannot do. The tensor cores read a
+// TF32 operand's word and drop its low 13 bits, so each word they read
+// must be the rounded hi or lo that split() makes, or the hi they see is
+// not the hi that lo was taken from:
+//   * R (wgmma's A) comes from registers: each depth step's fragment is
+//     read from the resident raw fp32 tile and split in registers, so one
+//     copy of R serves both parts (R_hi and R_lo in shared memory would
+//     take 344 KB at d 672);
+//   * M (B) is split by its consumer warpgroup once its sub-tile lands:
+//     hi written over the stage in place, lo into the warpgroup's own lo
+//     buffer of the same layout, then fence.proxy.async and the
+//     warpgroup's barrier before its wgmmas read them. The stage goes back
+//     to the producer when all four warps have arrived on its empty
+//     barrier, each after waiting for its share of the sub-tile's
+//     products. The one lo buffer has no such barrier, and a warp's wait
+//     covers only its own share of the collective wgmma, so a second
+//     warpgroup barrier before the split orders every warp's wait for the
+//     products that last read lo before any warp rewrites it (two lo
+//     buffers in turn would need no second barrier, but do not fit beside
+//     R and two stages past d 512). The other warpgroup's products overlap
+//     this one's split;
+//   * the resident R takes 64 d 4 bytes (172 KB at d 672), so the ring
+//     shrinks with d: ops/score_binmax.py's _plan_f32 gives the consumer
+//     warpgroups (two while each keeps two stages, else one) and stages.
+//     A stage stays taken until its products are done, so at the widest d
+//     (one warpgroup, two stages) one load is in flight a block and its
+//     latency, not the bytes, sets the pace.
+// Sums run in a fixed order with no atomics: two calls are bit-equal.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -70,6 +94,7 @@ namespace {
 constexpr int TQ = 64;             // query rows a block holds (wgmma M)
 constexpr int TE = 128;            // entity rows a tile (wgmma N)
 constexpr int SUB = 64;            // bf16 columns of a 128-byte sub-tile
+constexpr int FSUB = 32;           // fp32 columns of a 128-byte sub-tile
 constexpr int NST = 8;             // ring stages, one M sub-tile each
 constexpr int HALF = NST / 2;      // a consumer warpgroup's own stages
 constexpr int MAX_NSUB = 8;        // d <= 512
@@ -83,6 +108,113 @@ inline size_t smem_bytes(int nsub) {
   return size_t(nsub) * R_SUB + NST * M_SUB + (2 * NST + 1) * 8;
 }
 
+// ---- The epilogue, both modes --------------------------------------------
+// A consumer thread holds rows 16 w + gq (+ 8) of the 64 and, of every
+// 8-column block j, columns 8 j + 2 tq (+ 1): acc[4 j + 2 h + i] is row h,
+// column i.
+
+// The bias of the thread's columns of the tile at e0 (0 past E), loaded
+// while the tile's last products run.
+__device__ inline void tile_bias(float (&bv)[32], const float* __restrict__ bias,
+                                 int e0, int E, int tq) {
+  const bool inside = e0 + TE <= E;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = e0 + 8 * j + 2 * tq + i;
+      bv[2 * j + i] = inside || e < E ? __ldg(bias + e) : 0.0f;
+    }
+}
+
+// The scores of the tile at e0 (+ alpha bias, as the plain version rounds
+// it: a product, then a sum; -inf past E), then each row's max over its bin
+// into out[q, bin].
+__device__ inline void bin_maxima(float (&acc)[64], const float (&bv)[32],
+                                  bool with_bias, const float (&al)[2],
+                                  const int (&qr)[2], int e0, int E, int Q,
+                                  int bw, int n_bins, int tq,
+                                  float* __restrict__ out) {
+  const bool inside = e0 + TE <= E;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e & 1, h = e >> 1;
+      float v = acc[4 * j + e];
+      if (with_bias) v = __fadd_rn(v, __fmul_rn(al[h], bv[2 * j + i]));
+      if (!inside && e0 + 8 * j + 2 * tq + i >= E) v = -CUDART_INF_F;
+      acc[4 * j + e] = v;
+    }
+
+  if (bw >= 8) {
+    // Each thread's max over its two columns of every 8-column block j,
+    // into acc[4 j + 2 h]; then over the blocks of a bin (a tree over j,
+    // the bin's first block keeps it); then across the quad.
+    const int gmask = bw / 8 - 1;   // (8-column groups a bin) - 1
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        acc[4 * j + 2 * h] = fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+#pragma unroll
+    for (int s = 1; s < 16; s <<= 1) {
+      if (16 * s > bw) break;
+#pragma unroll
+      for (int j = 0; j < 16; j += 2 * s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          acc[4 * j + 2 * h] =
+              fmaxf(acc[4 * j + 2 * h], acc[4 * (j + s) + 2 * h]);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (j & gmask) continue;      // uniform: bw is the whole grid's
+      const int bin = (e0 + 8 * j) / bw;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m = acc[4 * j + 2 * h];
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        if (tq == 0 && qr[h] < Q && bin < n_bins)
+          out[size_t(qr[h]) * n_bins + bin] = m;
+      }
+    }
+  } else {
+    // bw 1, 2 or 4: within the thread's column pair (and, at 4, with the
+    // neighbouring lane).
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = e0 + 8 * j + 2 * tq;
+        const float a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
+        float* o = out + size_t(qr[h]) * n_bins;
+        if (bw == 1) {
+          if (qr[h] < Q && e < n_bins) o[e] = a;
+          if (qr[h] < Q && e + 1 < n_bins) o[e + 1] = b;
+          continue;
+        }
+        float m = fmaxf(a, b);
+        if (bw == 4) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        if ((bw == 2 || (tq & 1) == 0) && qr[h] < Q && e / bw < n_bins)
+          o[e / bw] = m;
+      }
+  }
+}
+
+// The consumer thread's query rows and their alpha (1 without one).
+__device__ inline void query_rows(int (&qr)[2], float (&al)[2],
+                                  const float* __restrict__ alpha, int q0,
+                                  int w, int gq, int Q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qr[h] = q0 + 16 * w + gq + 8 * h;
+    al[h] = alpha != nullptr && qr[h] < Q ? alpha[qr[h]] : 1.0f;
+  }
+}
+
+// ---- The bf16 mode -----------------------------------------------------------
 __global__ void __launch_bounds__(THREADS, 1)
 score_binmax_kernel(const __grid_constant__ CUtensorMap tr,
                     const __grid_constant__ CUtensorMap tm,
@@ -136,20 +268,13 @@ score_binmax_kernel(const __grid_constant__ CUtensorMap tr,
   }
 
   // The consumers: warpgroup c takes tiles c, c + 2, ... of this block,
-  // its g-th sub-tile from stage c HALF + g % HALF of the ring. A thread
-  // holds rows 16 w + gq (+ 8) of the 64 and, of every 8-column block j,
-  // columns 8 j + 2 tq (+ 1): acc[4 j + 2 h + i] is row h, column i.
+  // its g-th sub-tile from stage c HALF + g % HALF of the ring.
   setmaxnreg_inc<232>();
   const int c = wg - 1, w = (tid / 32) % 4, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;
   int qr[2];
   float al[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    qr[h] = q0 + 16 * w + gq + 8 * h;
-    al[h] = alpha != nullptr && qr[h] < Q ? alpha[qr[h]] : 1.0f;
-  }
-  const int gmask = bw / 8 - 1;     // (8-column groups a bin) - 1, bw >= 8
+  query_rows(qr, al, alpha, q0, w, gq, Q);
   // This warp's release of the stage of its g-th sub-tile, once the
   // products that read it are done.
   auto release = [&](int g) {
@@ -179,88 +304,186 @@ score_binmax_kernel(const __grid_constant__ CUtensorMap tr,
       }
     }
     const int e0 = (blockIdx.x + t * gridDim.x) * TE;
-    const bool inside = e0 + TE <= E;
     float bv[32];                   // the columns' bias, loaded meanwhile
-    if (bias != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int e = e0 + 8 * j + 2 * tq + i;
-          bv[2 * j + i] = inside || e < E ? __ldg(bias + e) : 0.0f;
-        }
-    }
+    if (bias != nullptr) tile_bias(bv, bias, e0, E, tq);
     wgmma_wait_all();
     fence_regs(acc);
     release(g0 + nsub - 1);
-
-    // Scores: + alpha bias (as the plain version rounds it: a product, then
-    // a sum), -inf past E.
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e & 1, h = e >> 1;
-        float v = acc[4 * j + e];
-        if (bias != nullptr) v = __fadd_rn(v, __fmul_rn(al[h], bv[2 * j + i]));
-        if (!inside && e0 + 8 * j + 2 * tq + i >= E) v = -CUDART_INF_F;
-        acc[4 * j + e] = v;
-      }
-
-    if (bw >= 8) {
-      // Each thread's max over its two columns of every 8-column block j,
-      // into acc[4 j + 2 h]; then over the blocks of a bin (a tree over j,
-      // the bin's first block keeps it); then across the quad.
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          acc[4 * j + 2 * h] = fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-#pragma unroll
-      for (int s = 1; s < 16; s <<= 1) {
-        if (16 * s > bw) break;
-#pragma unroll
-        for (int j = 0; j < 16; j += 2 * s)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            acc[4 * j + 2 * h] =
-                fmaxf(acc[4 * j + 2 * h], acc[4 * (j + s) + 2 * h]);
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (j & gmask) continue;    // uniform: bw is the whole grid's
-        const int bin = (e0 + 8 * j) / bw;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float m = acc[4 * j + 2 * h];
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          if (tq == 0 && qr[h] < Q && bin < n_bins)
-            out[size_t(qr[h]) * n_bins + bin] = m;
-        }
-      }
-    } else {
-      // bw 1, 2 or 4: within the thread's column pair (and, at 4, with the
-      // neighbouring lane).
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = e0 + 8 * j + 2 * tq;
-          const float a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
-          float* o = out + size_t(qr[h]) * n_bins;
-          if (bw == 1) {
-            if (qr[h] < Q && e < n_bins) o[e] = a;
-            if (qr[h] < Q && e + 1 < n_bins) o[e + 1] = b;
-            continue;
-          }
-          float m = fmaxf(a, b);
-          if (bw == 4) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-          if ((bw == 2 || (tq & 1) == 0) && qr[h] < Q && e / bw < n_bins)
-            o[e / bw] = m;
-        }
-    }
+    bin_maxima(acc, bv, bias != nullptr, al, qr, e0, E, Q, bw, n_bins, tq,
+               out);
   }
+}
+
+// ---- The fp32 mode -----------------------------------------------------------
+// Bytes of shared memory of the fp32 mode: R's nsub sub-tiles, `stages`
+// ring stages and a lo buffer for each of `cons` consumer warpgroups, the
+// barriers (ops/score_binmax.py's _plan_f32 computes the same).
+inline size_t smem_bytes_f32(int nsub, int cons, int stages) {
+  return size_t(nsub) * R_SUB + size_t(cons) * (stages + 1) * M_SUB +
+         (2 * cons * stages + 1) * 8;
+}
+
+// Element (row r, column c) of a 128-byte-swizzled fp32 sub-tile.
+__device__ inline float swz(const unsigned char* sub, int r, int c) {
+  return *reinterpret_cast<const float*>(
+      sub + r * 128 + (((c >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2));
+}
+
+// The landed M sub-tile at `st` as TF32 parts, by thread t of the 128 of a
+// consumer warpgroup: hi over it in place, lo at the same offset of `lo`.
+// Elementwise, so lo keeps the sub-tile's swizzled layout.
+__device__ inline void split_stage(unsigned char* st, unsigned char* lo,
+                                   int t) {
+  constexpr int N = M_SUB / (16 * 128);   // 16-byte words a thread
+  float4 v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    v[i] = *reinterpret_cast<const float4*>(st + 16 * (128 * i + t));
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    uint4 h, l;
+    split(v[i].x, h.x, l.x);
+    split(v[i].y, h.y, l.y);
+    split(v[i].z, h.z, l.z);
+    split(v[i].w, h.w, l.w);
+    *reinterpret_cast<uint4*>(st + 16 * (128 * i + t)) = h;
+    *reinterpret_cast<uint4*>(lo + 16 * (128 * i + t)) = l;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+score_binmax_f32_kernel(const __grid_constant__ CUtensorMap tr,
+                        const __grid_constant__ CUtensorMap tm,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ alpha,
+                        float* __restrict__ out, int Q, int E, int nsub,
+                        int bw, int n_bins, int cons, int stages) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const int nst = cons * stages;
+  const uint32_t ring = base + nsub * R_SUB, lobuf = ring + nst * M_SUB;
+  const uint32_t full = lobuf + cons * M_SUB, empty = full + 8 * nst,
+                 rbar = empty + 8 * nst;
+  const int q0 = blockIdx.y * TQ;
+  const int n_et = (E + TE - 1) / TE;
+  const int n_tiles = int(blockIdx.x) < n_et
+                          ? (n_et - 1 - int(blockIdx.x)) / int(gridDim.x) + 1
+                          : 0;
+  // The role index, warp-uniform (read from lane 0), so that the compiler
+  // knows each warp takes one branch: without it ptxas serializes the
+  // wgmmas ("program dependence on compiler-inserted WG.AR in divergent
+  // path"), which cost a fifth of the time at the serving shape.
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (tid == 0) {
+    if (base & 1023) __trap();     // the swizzled tiles need 1 KB alignment
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(full + 8 * s, 1);      // the producer's arrival + its bytes
+      mbar_init(empty + 8 * s, 4);     // the consuming warpgroup's warps
+    }
+    mbar_init(rbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer, as the bf16 mode's: tile t goes to consumer t % cons,
+    // its g-th sub-tile to stage g % stages of that consumer's ring.
+    setmaxnreg_dec<40>();
+    if (tid != 0) return;
+    mbar_arrive_tx(rbar, nsub * R_SUB);
+    for (int s = 0; s < nsub; ++s)
+      tma_load_2d(base + s * R_SUB, &tr, rbar, s * FSUB, q0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int e0 = (blockIdx.x + t * gridDim.x) * TE;
+      const int first = (t % cons) * stages;
+      for (int s = 0; s < nsub; ++s) {
+        const int g = (t / cons) * nsub + s, st = first + g % stages;
+        mbar_wait(empty + 8 * st, ((g / stages) & 1) ^ 1);
+        mbar_arrive_tx(full + 8 * st, M_SUB);
+        tma_load_2d(ring + st * M_SUB, &tm, full + 8 * st, s * FSUB, e0);
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup c takes tiles c, c + cons, ... of this block.
+  setmaxnreg_inc<232>();
+  const int c = wg - 1, ct = tid % 128, w = ct / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  int qr[2];
+  float al[2];
+  query_rows(qr, al, alpha, q0, w, gq, Q);
+  const uint32_t lo = lobuf + c * M_SUB;
+  auto release = [&](int g) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (c * stages + g % stages));
+  };
+  mbar_wait(rbar, 0);
+
+  for (int t = c; t < n_tiles; t += cons) {
+    const int g0 = (t / cons) * nsub;
+    float acc[64];
+    for (int s = 0; s < nsub; ++s) {
+      const int g = g0 + s, st = c * stages + g % stages;
+      if (s > 0) {   // this warp's share of sub-tile s - 1's products is
+        wgmma_wait<0>();    // done: its stage and its A registers are free
+        fence_regs(acc);
+        release(g - 1);
+      }
+      // A: this warp's 16 rows of R, depth 8 kk.. of sub-tile s, split.
+      const unsigned char* rs = smem + s * R_SUB;
+      uint32_t ah[4][4], alo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split(swz(rs, 16 * w + gq + 8 * (i & 1), 8 * kk + tq + 4 * (i >> 1)),
+                ah[kk][i], alo[kk][i]);
+      mbar_wait(full + 8 * st, (g / stages) & 1);
+      // Every warp of the group has waited for the products that last read
+      // lo (sub-tile s - 1's, or the previous tile's last): one warp's wait
+      // covers only its own share of the collective wgmma, so no warp
+      // writes lo before all four have passed theirs.
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      split_stage(smem + (ring - base) + st * M_SUB, smem + (lo - base), ct);
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t hi_d = wgmma_desc(ring + st * M_SUB + kk * 32, 16, 1024);
+        const uint64_t lo_d = wgmma_desc(lo + kk * 32, 16, 1024);
+        wgmma_tf32_rs(acc, alo[kk], hi_d, s > 0 || kk > 0);
+        wgmma_tf32_rs(acc, ah[kk], lo_d, 1);
+        wgmma_tf32_rs(acc, ah[kk], hi_d, 1);
+      }
+      wgmma_commit();
+    }
+    const int e0 = (blockIdx.x + t * gridDim.x) * TE;
+    float bv[32];
+    if (bias != nullptr) tile_bias(bv, bias, e0, E, tq);
+    wgmma_wait_all();
+    fence_regs(acc);
+    release(g0 + nsub - 1);
+    bin_maxima(acc, bv, bias != nullptr, al, qr, e0, E, Q, bw, n_bins, tq,
+               out);
+  }
+}
+
+// The persistent grid: one block an SM, the SMs shared among the query
+// tiles, no more blocks a query tile than entity tiles.
+cudaError_t sweep_grid(int Q, int E, dim3* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (Q + TQ - 1) / TQ, n_et = (E + TE - 1) / TE;
+  const int per_qt = sms / n_qt;
+  *grid = dim3(per_qt < 1 ? 1 : per_qt < n_et ? per_qt : n_et, n_qt);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -285,212 +508,47 @@ extern "C" int sert_score_binmax(const void* R, const void* M,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem));
   if (err != cudaSuccess) return int(err);
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  dim3 grid;
+  err = sweep_grid(Q, E, &grid);
   if (err != cudaSuccess) return int(err);
-  const int n_qt = (Q + TQ - 1) / TQ, n_et = (E + TE - 1) / TE;
-  const int per_qt = sms / n_qt;   // blocks a query tile, one an SM
-  const int gx = per_qt < 1 ? 1 : per_qt < n_et ? per_qt : n_et;
-  score_binmax_kernel<<<dim3(gx, n_qt), THREADS, smem,
-                        cudaStream_t(stream)>>>(
+  score_binmax_kernel<<<grid, THREADS, smem, cudaStream_t(stream)>>>(
       tr, tm, static_cast<const float*>(bias),
       static_cast<const float*>(alpha), static_cast<float*>(out), Q, E, nsub,
       bw, n_bins);
   return int(cudaGetLastError());
 }
 
-namespace {
-
-// The fp32 mode: 3xTF32 on mma.sync, cp.async-fed.
-constexpr int F_TQ = 64;             // query rows a block holds
-constexpr int F_TE = 128;            // entity rows a tile
-constexpr int F_KC = 32;             // columns a ring stage holds
-constexpr int F_LDM = F_KC + 4;      // a stage row's floats (no bank conflicts)
-constexpr int F_NST = 3;             // ring stages
-constexpr int F_THREADS = 256;       // 8 warps: 2 (query) x 4 (entity)
-constexpr int F_GROUPS = F_TE / 8;   // 8-column groups a tile
-
-// Shared memory of the fp32 mode at a depth of dk columns (d rounded up to
-// F_KC): the resident R rows, the ring, each row's group maxima.
-inline size_t smem_bytes_f32(int dk) {
-  return sizeof(float) * (size_t(F_TQ) * (dk + 4) + F_NST * F_TE * F_LDM +
-                          F_TQ * F_GROUPS);
-}
-
-__global__ void __launch_bounds__(F_THREADS)
-score_binmax_f32_kernel(const float* __restrict__ R,
-                        const float* __restrict__ M,
-                        const float* __restrict__ bias,
-                        const float* __restrict__ alpha,
-                        float* __restrict__ out, int Q, int E, int d, int dk,
-                        int bw, int n_bins) {
-  extern __shared__ __align__(16) float fsm[];
-  const int ldr = dk + 4;
-  float* Rs = fsm;                                  // [F_TQ][ldr]
-  float* ring = Rs + F_TQ * ldr;                    // [F_NST][F_TE][F_LDM]
-  float* red = ring + F_NST * F_TE * F_LDM;         // [F_TQ][F_GROUPS]
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wq = warp / 4, we = warp % 4;           // rows 32 wq, cols 32 we
-  const int g = lane_g(), t = lane_t();
-  const int q0 = blockIdx.y * F_TQ;
-  const int n_et = (E + F_TE - 1) / F_TE;
-  const int n_tiles = int(blockIdx.x) < n_et
-                          ? (n_et - 1 - int(blockIdx.x)) / int(gridDim.x) + 1
-                          : 0;
-  const int n_chunks = dk / F_KC;
-  const int total = n_tiles * n_chunks;
-
-  // This block's query rows, zero past Q and past d: resident throughout.
-  for (int i = tid; i < F_TQ * dk; i += F_THREADS) {
-    const int r = i / dk, c = i % dk;
-    Rs[r * ldr + c] = q0 + r < Q && c < d ? R[size_t(q0 + r) * d + c] : 0.0f;
-  }
-
-  // Stream position s is chunk s % n_chunks of this block's tile
-  // s / n_chunks; its copy goes to stage s % F_NST. Every call commits a
-  // group (empty past the end), so that the waits count uniformly.
-  auto load_stage = [&](int s) {
-    if (s < total) {
-      const int e0 = (blockIdx.x + (s / n_chunks) * gridDim.x) * F_TE;
-      const int c0 = (s % n_chunks) * F_KC;
-      float* dst = ring + (s % F_NST) * F_TE * F_LDM;
-      for (int p = tid; p < F_TE * F_KC / 4; p += F_THREADS) {
-        const int r = p / (F_KC / 4), c = c0 + 4 * (p % (F_KC / 4));
-        const bool ok = e0 + r < E && c < d;
-        cp_async16(dst + r * F_LDM + c - c0,
-                   ok ? M + size_t(e0 + r) * d + c : M, ok);
-      }
-    }
-    cp_commit();
-  };
-  for (int s = 0; s < F_NST - 1; ++s) load_stage(s);
-
-  // Thread (g, t) of warp (wq, we) holds rows 32 wq + 16 mi + g (+ 8) and
-  // columns 32 we + 8 ni + 2 t (+ 1): acc[mi][ni].c[2 h + i].
-  Acc8 acc[2][4];
-  for (int s = 0; s < total; ++s) {
-    cp_wait<F_NST - 2>();
-    __syncthreads();             // stage s landed; stage s - 1 is free
-    load_stage(s + F_NST - 1);
-    const int chunk = s % n_chunks;
-    if (chunk == 0) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mi][ni].c[j] = 0.0f;
-    }
-    const float* Ms = ring + (s % F_NST) * F_TE * F_LDM;
-#pragma unroll
-    for (int kk = 0; kk < F_KC; kk += 8) {
-      FragA a[2];
-      FragB b[4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        load_a(a[mi], Rs + (32 * wq + 16 * mi) * ldr + chunk * F_KC + kk,
-               ldr);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        load_b_nk(b[ni], Ms + (32 * we + 8 * ni) * F_LDM + kk, F_LDM);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) tc_mma(acc[mi][ni], a[mi], b[ni]);
-    }
-    if (chunk != n_chunks - 1) continue;
-
-    // The epilogue of tile s / n_chunks: + alpha bias (a product, then a
-    // sum, as the plain version rounds it), -inf past E, the bin maxima.
-    const int e0 = (blockIdx.x + (s / n_chunks) * gridDim.x) * F_TE;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = 32 * wq + 16 * mi + g + 8 * h, q = q0 + row;
-        const float al = alpha != nullptr && q < Q ? alpha[q] : 1.0f;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int col = 32 * we + 8 * ni + 2 * t, e = e0 + col;
-          float v[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            v[i] = acc[mi][ni].c[2 * h + i];
-            if (bias != nullptr && e + i < E)
-              v[i] = __fadd_rn(v[i], __fmul_rn(al, __ldg(bias + e + i)));
-            if (e + i >= E) v[i] = -CUDART_INF_F;
-          }
-          float* o = out + size_t(q) * n_bins;
-          if (bw == 1) {
-            if (q < Q && e < n_bins) o[e] = v[0];
-            if (q < Q && e + 1 < n_bins) o[e + 1] = v[1];
-            continue;
-          }
-          float m = fmaxf(v[0], v[1]);
-          if (bw == 2) {
-            if (q < Q && e / 2 < n_bins) o[e / 2] = m;
-            continue;
-          }
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-          if (bw == 4) {
-            if ((t & 1) == 0 && q < Q && e / 4 < n_bins) o[e / 4] = m;
-            continue;
-          }
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          if (t == 0) red[row * F_GROUPS + 4 * we + ni] = m;
-        }
-      }
-    if (bw >= 8) {               // uniform: bw is the whole grid's
-      __syncthreads();
-      const int per = F_TE / bw, span = bw / 8;
-      for (int i = tid; i < F_TQ * per; i += F_THREADS) {
-        const int row = i / per, b = i % per, q = q0 + row;
-        const int bin = e0 / bw + b;
-        float m = red[row * F_GROUPS + b * span];
-        for (int j = 1; j < span; ++j)
-          m = fmaxf(m, red[row * F_GROUPS + b * span + j]);
-        if (q < Q && bin < n_bins) out[size_t(q) * n_bins + bin] = m;
-      }
-    }
-  }
-  cp_wait<0>();
-}
-
-}  // namespace
-
-// The fp32 mode: R [Q, d] fp32, M [>=E, d] fp32, both contiguous, the rest
-// as sert_score_binmax. d % 16 == 0 and 128 % bw == 0; d is bounded by the
-// shared memory the resident R rows take (ops/score_binmax.py's
-// kernel_limits, MAX_DIM_F32). Returns the cudaError_t of the launch.
+// The fp32 mode: R [Q, d] fp32 and M [>=E, d] fp32, both contiguous, the
+// rest as sert_score_binmax; d % 16 == 0 and 128 % bw == 0. `consumers`
+// (1 or 2) warpgroups of `stages` ring stages each in `smem` bytes of
+// shared memory: ops/score_binmax.py's _plan_f32 for d, which bounds d by
+// the resident R rows (kernel_limits, MAX_DIM_F32). Returns the
+// cudaError_t of the launch.
 extern "C" int sert_score_binmax_f32(const void* R, const void* M,
                                      const void* bias, const void* alpha,
                                      void* out, int Q, int E, int d, int bw,
-                                     int n_bins, void* stream) {
-  if (d % 16 != 0 || F_TE % bw != 0) return int(cudaErrorInvalidValue);
-  const int dk = (d + F_KC - 1) / F_KC * F_KC;
-  const size_t smem = smem_bytes_f32(dk);
-  cudaError_t err = cudaFuncSetAttribute(
-      score_binmax_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+                                     int n_bins, int consumers, int stages,
+                                     int smem, void* stream) {
+  const int nsub = (d + FSUB - 1) / FSUB;
+  if (d % 16 != 0 || TE % bw != 0 || consumers < 1 || consumers > 2 ||
+      stages < 1 || size_t(smem) < smem_bytes_f32(nsub, consumers, stages))
+    return int(cudaErrorInvalidValue);
+  CUtensorMap tr, tm;
+  cudaError_t err = make_map<float>(&tr, R, Q, d, TQ);
   if (err != cudaSuccess) return int(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, score_binmax_f32_kernel, F_THREADS, smem);
+  err = make_map<float>(&tm, M, E, d, TE);
   if (err != cudaSuccess) return int(err);
-  if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
-  const int n_qt = (Q + F_TQ - 1) / F_TQ, n_et = (E + F_TE - 1) / F_TE;
-  const int per_qt = sms * per_sm / n_qt;   // blocks a query tile
-  const int gx = per_qt < 1 ? 1 : per_qt < n_et ? per_qt : n_et;
-  score_binmax_f32_kernel<<<dim3(gx, n_qt), F_THREADS, smem,
+  err = cudaFuncSetAttribute(score_binmax_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return int(err);
+  dim3 grid;
+  err = sweep_grid(Q, E, &grid);
+  if (err != cudaSuccess) return int(err);
+  score_binmax_f32_kernel<<<grid, 128 * (1 + consumers), smem,
                             cudaStream_t(stream)>>>(
-      static_cast<const float*>(R), static_cast<const float*>(M),
-      static_cast<const float*>(bias), static_cast<const float*>(alpha),
-      static_cast<float*>(out), Q, E, d, dk, bw, n_bins);
+      tr, tm, static_cast<const float*>(bias),
+      static_cast<const float*>(alpha), static_cast<float*>(out), Q, E, nsub,
+      bw, n_bins, consumers, stages);
   return int(cudaGetLastError());
 }

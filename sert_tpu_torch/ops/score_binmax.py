@@ -9,17 +9,18 @@ replaces and what bounds it on the H100.
 
 A CUDA tensor goes to the kernel, a CPU tensor to :func:`score_binmax_plain`
 (the same arithmetic in plain PyTorch, and the kernel's oracle on the card).
-The bf16 mode is a persistent sweep: TMA streams the entity tiles, wgmma
+Both modes are a persistent sweep: TMA streams the entity tiles, wgmma
 scores them against the resident query tile, and the bin maxima are taken
-from the accumulator registers. The fp32 mode is a kernel of its own:
-cp.async streams the tiles, mma.sync multiplies them as 3xTF32.
+from the accumulator registers. The fp32 mode runs its products as 3xTF32
+(each consumer warpgroup splits the landed M tiles into TF32 parts, R's
+parts are split in registers), on the ring :func:`_plan_f32` sizes.
 Entities past ``num_entities`` are -inf in both, so a partial tail bin holds
 the max over its valid entities only.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +32,16 @@ LANES = 128          # default bin width; the kernel's entity tile is 128
 DIM_MULTIPLE = 16    # the bf16 tensor-core fragment depth
 MAX_DIM = 512        # widest d: the resident R tile (8 sub-tiles of 64
                      # columns) and the ring fit 227 KB of shared memory
-# The fp32 mode's widest d: its resident 64 query rows of d (rounded up to
-# 32) + 4 floats, a ring of 3 stages of 128 x 36 floats and 64 x 16 group
-# maxima fit 227 KB of shared memory up to d = 672.
+# The fp32 mode's widest d: its resident 64 query rows of d (in sub-tiles of
+# 32 floats), one consumer warpgroup's lo buffer and two ring stages fit 227
+# KB of shared memory up to d = 672 (_plan_f32).
 MAX_DIM_F32 = 672
+SMEM_LIMIT = 232_448        # shared memory a block may take on the H100
+F32_COLS = 32               # fp32 columns of a 128-byte sub-tile
+R_SUB_BYTES = 64 * 128      # a sub-tile of the 64 resident query rows
+M_SUB_BYTES = 128 * 128     # a sub-tile of a 128-row entity tile: a ring
+                            # stage, or a consumer's lo buffer
+F32_MAX_STAGES = 4          # ring stages a consumer warpgroup, at most
 _MAX_DIM = {torch.bfloat16: MAX_DIM, torch.float32: MAX_DIM_F32}
 _KERNELS = {torch.bfloat16: "sert_score_binmax",
             torch.float32: "sert_score_binmax_f32"}
@@ -44,6 +51,35 @@ _KERNELS = {torch.bfloat16: "sert_score_binmax",
 # them).
 launches = 0
 f32_launches = 0
+
+
+class PlanF32(NamedTuple):
+    consumers: int      # consumer warpgroups, taking entity tiles in turn
+    stages: int         # ring stages each
+    smem: int           # dynamic shared memory of a block, bytes
+
+
+def _smem_f32(nsub: int, consumers: int, stages: int) -> int:
+    """R's sub-tiles, each consumer's stages and lo buffer, the barriers
+    (a full and an empty one a stage, one for R): the kernel's layout."""
+    return (nsub * R_SUB_BYTES + consumers * (stages + 1) * M_SUB_BYTES
+            + (2 * consumers * stages + 1) * 8)
+
+
+def _plan_f32(d: int) -> PlanF32:
+    """The fp32 mode's ring for rows of width d, from d alone: two
+    consumer warpgroups (one splits while the other multiplies) while each
+    keeps two stages beside the resident R rows, else one; each as many
+    stages as fit, up to F32_MAX_STAGES."""
+    nsub = -(-d // F32_COLS)
+    for consumers in (2, 1):
+        room = SMEM_LIMIT - _smem_f32(nsub, consumers, 0)
+        stages = min(F32_MAX_STAGES, room // (consumers * (M_SUB_BYTES + 16)))
+        if stages >= 2:
+            return PlanF32(consumers, stages,
+                           _smem_f32(nsub, consumers, stages))
+    raise ValueError(f"K3's fp32 mode cannot hold 64 rows of width {d} "
+                     f"beside two ring stages in {SMEM_LIMIT} bytes")
 
 
 def kernel_limits(d: int, dtype: torch.dtype = torch.bfloat16):
@@ -127,12 +163,13 @@ def _launch(R: torch.Tensor, Mp: torch.Tensor, E: int,
     out = torch.empty((Q, n_bins), dtype=torch.float32, device=dev)
     if Q == 0:
         return out
+    plan = _plan_f32(d) if Mp.dtype == torch.float32 else ()
     with torch.cuda.device(dev):
         err = _build.kernel(_KERNELS[Mp.dtype])(
             Rb.data_ptr(), Mp.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             alpha.data_ptr() if alpha is not None else None,
-            out.data_ptr(), Q, E, d, bw, n_bins,
+            out.data_ptr(), Q, E, d, bw, n_bins, *plan,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "score_binmax")
     if Mp.dtype == torch.float32:

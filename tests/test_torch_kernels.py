@@ -266,8 +266,9 @@ class TestOnCard:
 
     @pytest.mark.parametrize("Q", [1, 64, 130])
     def test_score_binmax_f32_walks_many_tiles(self, cuda, Q):
-        """E past 100k: each block takes many tiles, each of 4 chunks
-        through the 3-stage ring; close to fp64 (3xTF32)."""
+        """E past 100k: each block takes many tiles in turn between its
+        two warpgroups, each tile of 4 sub-tiles through a ring of 4 stages
+        a warpgroup; close to fp64 (3xTF32)."""
         E, d = 100_003, 128
         g = torch.Generator(device=cuda).manual_seed(Q)
         R = torch.nn.functional.normalize(
@@ -311,6 +312,81 @@ class TestOnCard:
         want = s64.view(Q, -1, 128).amax(-1)
         rel = ((got - want).abs().amax(1) / want.amax(1).abs()).max().item()
         assert 4 * rel <= exact_topk.ADAPTIVE_EPS[torch.float32], rel
+
+    @pytest.mark.parametrize("with_bias", [False, True])
+    @pytest.mark.parametrize("d", [128, 672])
+    def test_score_binmax_f32_two_calls_are_bit_equal(self, cuda, d,
+                                                      with_bias):
+        """A fixed order of depth steps and terms, no atomics: at the
+        widest d one consumer warpgroup walks 21 sub-tiles a tile through
+        two stages."""
+        E = 100_003
+        g = torch.Generator(device=cuda).manual_seed(d + with_bias)
+        R = torch.nn.functional.normalize(
+            torch.randn(64, d, generator=g, device=cuda), dim=1)
+        M = torch.nn.functional.normalize(
+            torch.randn(E, d, generator=g, device=cuda), dim=1)
+        ba = ((torch.randn(E, generator=g, device=cuda),
+               torch.randint(1, 5, (64,), generator=g, device=cuda).float())
+              if with_bias else ())
+        Mp = score_binmax.prepare_binmax_matrix(M, torch.float32)
+        a = score_binmax.score_binmax_prepared(R, Mp, E, *ba)
+        b = score_binmax.score_binmax_prepared(R, Mp, E, *ba)
+        assert torch.equal(a, b)
+        torch.testing.assert_close(
+            a, score_binmax.score_binmax_plain(R, Mp, E, *ba), **TOL)
+
+    @pytest.mark.parametrize("with_bias", [False, True])
+    @pytest.mark.parametrize("d", [32, 128, 672])
+    def test_score_binmax_f32_many_calls_are_bit_equal(self, cuda, d,
+                                                       with_bias):
+        """Each consumer warpgroup rewrites its one lo buffer every
+        sub-tile (at d 32 once a tile, right after the last tile's
+        products): 200 calls agree bit for bit with the first, so no
+        warp's rewrite reaches products still reading the buffer."""
+        E = 100_003
+        g = torch.Generator(device=cuda).manual_seed(3 * d + with_bias)
+        R = torch.nn.functional.normalize(
+            torch.randn(64, d, generator=g, device=cuda), dim=1)
+        M = torch.nn.functional.normalize(
+            torch.randn(E, d, generator=g, device=cuda), dim=1)
+        ba = ((torch.randn(E, generator=g, device=cuda),
+               torch.randint(1, 5, (64,), generator=g, device=cuda).float())
+              if with_bias else ())
+        Mp = score_binmax.prepare_binmax_matrix(M, torch.float32)
+        first = score_binmax.score_binmax_prepared(R, Mp, E, *ba)
+        outs = [score_binmax.score_binmax_prepared(R, Mp, E, *ba)
+                for _ in range(200)]
+        assert sum(not torch.equal(first, o) for o in outs) == 0
+        torch.testing.assert_close(
+            first, score_binmax.score_binmax_plain(R, Mp, E, *ba), **TOL)
+
+    @pytest.mark.parametrize("Q", [1, 130])
+    def test_score_binmax_f32_query_tiles_at_the_widest_d(self, cuda, Q):
+        """One query row (TMA fills the other 63 with zeros), and three
+        query tiles, the last of two rows, at d 672."""
+        d, E = score_binmax.MAX_DIM_F32, 5000
+        R, M, bias, alpha = (torch.from_numpy(x).to(cuda)
+                             for x in _data(Q, Q=Q, E=E, d=d))
+        Mp = score_binmax.prepare_binmax_matrix(M, torch.float32)
+        for ba in ((), (bias, alpha)):
+            got = score_binmax.score_binmax_prepared(R, Mp, E, *ba)
+            assert got.shape == (Q, -(-E // 128))
+            torch.testing.assert_close(
+                got, score_binmax.score_binmax_plain(R, Mp, E, *ba), **TOL)
+
+    @pytest.mark.parametrize("bw", [1, 2, 4, 8, 16, 32, 64, 128])
+    def test_score_binmax_f32_tail_tile_at_the_widest_d(self, cuda, bw):
+        """E = 2000 ends 80 rows into a tile (TMA fills the rest with
+        zeros, the epilogue masks them to -inf), at every bin width."""
+        d, E = score_binmax.MAX_DIM_F32, 2000
+        R, M, bias, alpha = (torch.from_numpy(x).to(cuda)
+                             for x in _data(bw + 1, Q=70, E=E, d=d))
+        Mp = score_binmax.prepare_binmax_matrix(M, torch.float32)
+        got = score_binmax.score_binmax_prepared(R, Mp, E, bias, alpha, bw)
+        want = score_binmax.score_binmax_plain(R, Mp, E, bias, alpha, bw)
+        assert got.shape == (70, -(-E // bw))
+        torch.testing.assert_close(got, want, **TOL)
 
     def test_exact_topk_f32_prefilter_on_card_matches_cpu(self, cuda):
         R, M, _, _ = _data(5, Q=64, E=20000, d=128)

@@ -24,7 +24,8 @@ allocates beyond what was allocated before it.
 - ``apply``: K7 alone on K5's outputs (its dpooled sweep, its update
   sweep, the sum of its slices with the update, the wrapper's sums), W and
   the slots updated in place, against autograd of the plain loss and the
-  plain update;
+  plain update; each case's bound first (chip_smoke's ``_apply_bound``:
+  fp32 products as 3xTF32, and on the CUDA cores beside);
 - ``slse_fwd`` / ``slse_bwd``: ``sampled_lse``'s forward (K1 and the merge
   of its chunks) / its backward (K2's dC and dreps sweeps and the sums of
   their partials) against ``sampled_lse_plain``'s, on chip_smoke's
@@ -35,7 +36,9 @@ allocates beyond what was allocated before it.
   chip_smoke's seeded unit rows), without and with the bias, at a partial
   tail (E = 1M - 1) and at bw = 64 with the bias; and its fp32 mode (M
   staged in fp32, 3xTF32 products) without and with the bias and at
-  bw = 64 with the bias (``f32``, ``f32_bias``, ``f32_bw64_bias``);
+  bw = 64 with the bias (``f32``, ``f32_bias``, ``f32_bw64_bias``), and at
+  d = 320, 512 and 672 (``f32_d320``, ``f32_d512``, ``f32_d672``: seeded
+  unit rows of that width, E 1M, no bias; not among the defaults);
 - ``rescore``: K4 (``gather_rescore``: its index build, count, scan and
   scatter, then its sweep) against ``gather_rescore_plain``, fp32 and bf16
   rows, on the smoke's ``bin_idx`` (each query's top 1012 bins by K3's
@@ -46,7 +49,10 @@ allocates beyond what was allocated before it.
   runs it (``kernel_after_k3``: K3 then K4 a call, the device time summed
   over K4's own kernels; no event time).
 The device times leave out the host's launch work, which the event times
-hold; on a host slow to launch, small shapes are host-bound. Prints one
+hold; on a host slow to launch, small shapes are host-bound. Each kernel's
+line gives its records in the trace: a count that is not a multiple of
+``--calls`` means the trace dropped records, and the case's line is marked
+``TRACE_SHORT`` (its device time then reads low). Prints one
 line per kernel and one JSON object as its last line. Needs a CUDA
 device.
 """
@@ -84,15 +90,19 @@ SLSE_CASES = {   # name: (B, k, d, dtype), as chip_smoke's train_kernels
     "amazon_musical_instruments": (1024, 256, 128, "float32"),
 }
 SERVE_Q, SERVE_E, SERVE_D, SERVE_NB = 64, 1_000_000, 128, 1012
-BINMAX_CASES = {   # name: (E, bw, with bias, staged dtype)
-    "serving": (SERVE_E, 128, False, "bfloat16"),
-    "serving_bias": (SERVE_E, 128, True, "bfloat16"),
-    "tail": (SERVE_E - 1, 128, False, "bfloat16"),
-    "bw64_bias": (SERVE_E, 64, True, "bfloat16"),
-    "f32": (SERVE_E, 128, False, "float32"),
-    "f32_bias": (SERVE_E, 128, True, "float32"),
-    "f32_bw64_bias": (SERVE_E, 64, True, "float32"),
+BINMAX_CASES = {   # name: (E, bw, with bias, staged dtype, d)
+    "serving": (SERVE_E, 128, False, "bfloat16", SERVE_D),
+    "serving_bias": (SERVE_E, 128, True, "bfloat16", SERVE_D),
+    "tail": (SERVE_E - 1, 128, False, "bfloat16", SERVE_D),
+    "bw64_bias": (SERVE_E, 64, True, "bfloat16", SERVE_D),
+    "f32": (SERVE_E, 128, False, "float32", SERVE_D),
+    "f32_bias": (SERVE_E, 128, True, "float32", SERVE_D),
+    "f32_bw64_bias": (SERVE_E, 64, True, "float32", SERVE_D),
+    "f32_d320": (SERVE_E, 128, False, "float32", 320),
+    "f32_d512": (SERVE_E, 128, False, "float32", 512),
+    "f32_d672": (SERVE_E, 128, False, "float32", 672),
 }
+WIDE_BINMAX = ("f32_d320", "f32_d512", "f32_d672")
 RESCORE_CASES = {   # name: (bins, row dtype)
     "serving_fp32": ("chosen", "float32"),
     "serving_bf16": ("chosen", "bfloat16"),
@@ -107,7 +117,7 @@ DEFAULT_CASES = {
     "apply": ["w3c", "cerc", "ll_500k", "lse_full_128k", "lse_full_tail"],
     "slse_fwd": list(SLSE_CASES),
     "slse_bwd": list(SLSE_CASES),
-    "binmax": list(BINMAX_CASES),
+    "binmax": [c for c in BINMAX_CASES if c not in WIDE_BINMAX],
     "rescore": list(RESCORE_CASES),
 }
 _serving = {}
@@ -115,8 +125,11 @@ PLAIN_MAX_LOGITS = 1 << 30     # [B, E] fp32 entries the plain version may hold
 APPLY_LR, APPLY_COUNT = 1e-2, 3
 
 
-def device_ms(fn, calls: int) -> dict:
-    """{kernel name: ms per call} of ``calls`` calls of ``fn``."""
+def device_ms(fn, calls: int) -> tuple[dict, dict]:
+    """{kernel name: ms per call} of ``calls`` calls of ``fn``, and
+    {kernel name: device records traced}. A kernel launched once a call
+    must show ``calls`` records (a multiple of it if launched more): a trace
+    that dropped some divides too few records by ``calls`` and reads low."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -124,11 +137,13 @@ def device_ms(fn, calls: int) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    by = {}
+    by, n = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return {k: v / calls for k, v in sorted(by.items(), key=lambda t: -t[1])}
+            n[e.name] = n.get(e.name, 0) + 1
+    return ({k: v / calls for k, v in sorted(by.items(), key=lambda t: -t[1])},
+            n)
 
 
 def serving_inputs() -> dict:
@@ -163,20 +178,34 @@ def serving_inputs() -> dict:
     return _serving
 
 
+def wide_inputs(d: int) -> dict:
+    """Seeded unit rows R [64, d] and M [1M, d] (M staged in fp32 for K3),
+    made anew for each width."""
+    from sert_tpu_torch.ops import score_binmax as k3
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d)
+    R = torch.nn.functional.normalize(
+        torch.randn(SERVE_Q, d, generator=g, device=dev), dim=1)
+    M = torch.nn.functional.normalize(
+        torch.randn(SERVE_E, d, generator=g, device=dev), dim=1)
+    return dict(R=R, Mp32=k3.prepare_binmax_matrix(M, torch.float32))
+
+
 def serving_calls(kernel: str, name: str, with_plain: bool):
     """[(label, fn)] of K3 or K4 and their plain versions on the serving
     inputs; K4's also after K3's sweep (see the docstring)."""
     from sert_tpu_torch.ops import gather_rescore as k4
     from sert_tpu_torch.ops import score_binmax as k3
-    x = serving_inputs()
     if kernel == "binmax":
-        E, bw, with_bias, dtype = BINMAX_CASES[name]
+        E, bw, with_bias, dtype, d = BINMAX_CASES[name]
+        x = serving_inputs() if d == SERVE_D else wide_inputs(d)
         ba = (x["bias"], x["alpha"]) if with_bias else (None, None)
         Mp = x["Mp32" if dtype == "float32" else "Mp"]
         return [(label, lambda fn=fn: fn(x["R"], Mp, E, *ba, bw))
                 for label, fn in [("kernel", k3.score_binmax_prepared),
                                   ("plain", k3.score_binmax_plain)]
                 [:1 + with_plain]]
+    x = serving_inputs()
     bins, dtype = RESCORE_CASES[name]
     Mb, idx = x[dtype], x[bins]
     out = []
@@ -245,6 +274,10 @@ def calls_of(kernel: str, name: str, opt: str, with_plain: bool):
     with torch.no_grad():
         _, saved, geometry = xent._loss_forward(pooled, W, b, labels, layout,
                                                 ct)
+    lim, cores = chip_smoke._apply_bound(
+        (pooled, W, b, labels, slots), dtype)
+    print(f"apply {name} bound_ms={lim['bound_ms']:.4f} "
+          f"({lim['bound_by']}) bound_cuda_cores_ms={cores:.4f}")
     out = [("kernel", lambda: xent._bwd_apply(saved, geometry, ordered,
                                               ct=ct, **kw))]
     if with_plain:
@@ -293,12 +326,13 @@ def main() -> int:
             calls = args.calls if E <= 200_000 else max(2, args.calls // 10)
         for label, fn in calls_of(args.kernel, name, args.opt,
                                   B * E <= PLAIN_MAX_LOGITS):
-            ms = device_ms(fn, calls)
+            ms, records = device_ms(fn, calls)
             if label.endswith("_after_k3"):   # K4's own kernels only
                 ms = {k: v for k, v in ms.items() if "score_binmax" not in k}
                 event = float("nan")
             else:
                 event = chip_smoke.cuda_ms(fn, iters=calls, warmup=1)
+            short = sorted(k[:90] for k in ms if records[k] % calls)
             torch.cuda.synchronize()
             before = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -308,12 +342,15 @@ def main() -> int:
             total = sum(ms.values())
             print(f"{args.kernel} {name} {label} device_ms_per_call="
                   f"{total:.4f} event_ms_per_call={event:.4f} "
-                  f"peak_bytes_above_start={peak}")
+                  f"peak_bytes_above_start={peak}"
+                  + (" TRACE_SHORT" if short else ""))
             for k, v in list(ms.items())[:6]:
-                print(f"    {v:.4f}  {k[:90]}")
+                print(f"    {v:.4f}  records={records[k]}  {k[:90]}")
             out[f"{name}/{label}"] = {"total_ms": total, "event_ms": event,
                                       "peak_bytes_above_start": peak,
-                                      "by_kernel": [[k[:90], v] for k, v
+                                      "calls": calls, "short_trace": short,
+                                      "by_kernel": [[k[:90], v, records[k]]
+                                                    for k, v
                                                     in list(ms.items())[:6]]}
             del fn
         torch.cuda.empty_cache()
