@@ -1,0 +1,17 @@
+"""k1_roofline: K1's bound (``counts.k1``) over its device seconds a call,
+in %; each call is one launch of the sampled-LSE sweep in its forward
+mode."""
+
+from portbench import counts, kernels
+
+
+def read(view):
+    got = kernels.sweep_seconds(view.device, (kernels.FWD,))
+    if got is None:
+        return None
+    seconds, calls = got
+    dims = view.dims
+    c = counts.k1(dims["batch_size"], dims["num_negatives"],
+                  dims["entity_dim"], dims["compute_dtype"])
+    bound = counts.bound_s(c["flops"], c["bytes"], dims["compute_dtype"])
+    return None if bound is None else 100.0 * bound * calls / seconds
