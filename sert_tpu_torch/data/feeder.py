@@ -7,16 +7,27 @@ planes, or the packed feed's uint16 and uint8 ones) into pinned memory and
 then to the card with ``non_blocking=True`` on a stream of its own, and
 records an event; the consumer's stream waits on that event before the
 batch is used, so the copy overlaps the previous step.
+
+Spans (``utils.profiling``): ``sert.feed.put`` on the worker, the making of
+one item, with ``sert.feed.read`` (the host iterator's next) and
+``sert.feed.copy`` (``DevicePut``) inside it; ``sert.feed.wait`` on the
+consumer, its queue get. A put and the wait that receives its item carry
+the same ident: (the feeder's serial, the item's number).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from sert_tpu_torch.utils import profiling
+
+_SERIALS = itertools.count()
 
 
 class DevicePut:
@@ -30,6 +41,10 @@ class DevicePut:
                         if self.device.type == "cuda" else None)
 
     def __call__(self, batch: Dict[str, np.ndarray]):
+        with profiling.annotate("sert.feed.copy"):
+            return self._copy(batch)
+
+    def _copy(self, batch: Dict[str, np.ndarray]):
         if self._stream is None:
             return {k: torch.from_numpy(np.ascontiguousarray(v))
                     for k, v in batch.items()}, None
@@ -63,6 +78,7 @@ class PrefetchFeeder:
     build a new feeder per epoch."""
 
     _SENTINEL = object()
+    _END = object()
 
     def __init__(self, batches: Iterator[Any],
                  put_fn: Optional[Callable[[Any], Any]] = None,
@@ -71,6 +87,7 @@ class PrefetchFeeder:
         self._put = put_fn if put_fn is not None else (lambda b: b)
         self._deterministic = deterministic
         self._finished = False
+        self._serial = next(_SERIALS)
         if not deterministic:
             self._q: queue.Queue = queue.Queue(maxsize=depth)
             self._err: Optional[BaseException] = None
@@ -90,8 +107,16 @@ class PrefetchFeeder:
 
     def _worker(self) -> None:
         try:
-            for b in self._batches:
-                if self._stop.is_set() or not self._put_or_stop(self._put(b)):
+            it = iter(self._batches)
+            for seq in itertools.count():
+                with profiling.annotate("sert.feed.put",
+                                        (self._serial, seq)):
+                    with profiling.annotate("sert.feed.read"):
+                        b = next(it, self._END)
+                    if b is self._END or self._stop.is_set():
+                        return
+                    item = self._put(b)
+                if not self._put_or_stop(item):
                     return
         except BaseException as e:  # re-raised on the consumer's side
             self._err = e
@@ -125,8 +150,9 @@ class PrefetchFeeder:
         if self._finished:
             raise RuntimeError(
                 "PrefetchFeeder is exhausted; construct a new one per epoch")
-        while True:
-            item = self._q.get()
+        for seq in itertools.count():
+            with profiling.annotate("sert.feed.wait", (self._serial, seq)):
+                item = self._q.get()
             if item is self._SENTINEL:
                 self._finished = True
                 if self._err is not None:

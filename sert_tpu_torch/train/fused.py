@@ -48,6 +48,7 @@ from sert_tpu_torch.ops.xent import (ADAGRAD_EPS, OPTIMIZERS, SLOTS,
                                      sharded_xent_apply, xent_loss_apply)
 from sert_tpu_torch.train.step import (TrainState, has_schedule,
                                        make_optimizer, micro_step_calls)
+from sert_tpu_torch.utils import profiling
 from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
 
 # The optax state path of each of ops.xent's slots.
@@ -213,7 +214,7 @@ def make_fused_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         B = batch["windows"].shape[0]
         leaves = {k: params[k].detach().requires_grad_(True)
                   for k in head_keys}
-        with torch.enable_grad():
+        with torch.enable_grad(), profiling.annotate("sert.step.loss"):
             if loglin:
                 pooled = loglinear.pooled_rep(
                     leaves, batch["windows"], batch["lengths"], cfg).float()
@@ -229,19 +230,24 @@ def make_fused_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                             for s in SLOTS[opt_name]},
                   lr=train_cfg.learning_rate, count=count, gscale=1.0 / B,
                   layout=layout, dtype=cfg.compute_dtype)
-        if stitch is None:
-            loss_sum, _, _, db, dpooled, gsq = xent_loss_apply(
-                pooled.detach(), W, bias, batch["entities"], **kw)
-        else:
-            loss_sum, _, _, db, dpooled, gsq = sharded_xent_apply(
-                pooled.detach(), W, bias, batch["entities"], stitch, **kw)
+        with profiling.annotate("sert.step.fused"):
+            if stitch is None:
+                loss_sum, _, _, db, dpooled, gsq = xent_loss_apply(
+                    pooled.detach(), W, bias, batch["entities"], **kw)
+            else:
+                loss_sum, _, _, db, dpooled, gsq = sharded_xent_apply(
+                    pooled.detach(), W, bias, batch["entities"], stitch,
+                    **kw)
         # dpooled is the whole batch's on every rank, so the replicated
         # leaves' gradients are complete here: no sum over the mesh.
-        grads = dict(zip(head_keys, torch.autograd.grad(
-            pooled, [leaves[k] for k in head_keys], grad_outputs=dpooled)))
+        with profiling.annotate("sert.step.backward"):
+            grads = dict(zip(head_keys, torch.autograd.grad(
+                pooled, [leaves[k] for k in head_keys],
+                grad_outputs=dpooled)))
         if loglin:
             grads["proj_b"] = db        # lse_full's db is dropped
-        opt.update(params, grads, opt_state)
+        with profiling.annotate("sert.step.optimizer"):
+            opt.update(params, grads, opt_state)
         grads_sq = gsq
         for k, g in grads.items():
             sq = torch.sum(g.float() * g.float())

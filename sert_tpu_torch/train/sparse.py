@@ -47,6 +47,7 @@ from sert_tpu_torch.models.common import (Params, compute_dtype,
                                           masked_mean_pool)
 from sert_tpu_torch.train.step import (Optimizer, TrainState, make_lr,
                                        micro_step_calls, scalar)
+from sert_tpu_torch.utils import profiling
 from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
 
 _DENSE_KEYS = ("proj_w", "proj_b")
@@ -254,30 +255,38 @@ def make_sparse_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         nz = lse_model.noise_or_uniform(noise, cfg, dev)
         windows, pos = batch["windows"].long(), batch["entities"].long()
         B = windows.shape[0]
-        if cfg.objective == "sampled_softmax":
-            negatives = lse_model.sample_negatives(
-                state.generator, nz, 1, cfg)[0].long()          # [k]
-            corr = lse_model.sampled_correction(nz, negatives)
-            ent_idx = torch.cat([pos, negatives])
-        else:
-            negatives = lse_model.sample_negatives(
-                state.generator, nz, B, cfg).long()             # [B, k]
-            corr = None
-            ent_idx = torch.cat([pos, negatives.reshape(-1)])
+        with profiling.annotate("sert.step.sample"):
+            if cfg.objective == "sampled_softmax":
+                negatives = lse_model.sample_negatives(
+                    state.generator, nz, 1, cfg)[0].long()      # [k]
+                corr = lse_model.sampled_correction(nz, negatives)
+                ent_idx = torch.cat([pos, negatives])
+            else:
+                negatives = lse_model.sample_negatives(
+                    state.generator, nz, B, cfg).long()         # [B, k]
+                corr = None
+                ent_idx = torch.cat([pos, negatives.reshape(-1)])
 
-        word_rows = params["word_emb"][windows].requires_grad_(True)
-        ent_rows = params["entity_emb"][ent_idx].requires_grad_(True)
-        dense_p = {k: params[k].detach().requires_grad_(True)
-                   for k in _DENSE_KEYS}
-        loss = _forward(dense_p, word_rows, ent_rows, batch, negatives,
-                        corr, cfg)
-        *g_d, g_w, g_e = torch.autograd.grad(
-            loss, [dense_p[k] for k in _DENSE_KEYS] + [word_rows, ent_rows])
+        with profiling.annotate("sert.step.loss"):
+            word_rows = params["word_emb"][windows].requires_grad_(True)
+            ent_rows = params["entity_emb"][ent_idx].requires_grad_(True)
+            dense_p = {k: params[k].detach().requires_grad_(True)
+                       for k in _DENSE_KEYS}
+            loss = _forward(dense_p, word_rows, ent_rows, batch, negatives,
+                            corr, cfg)
+        with profiling.annotate("sert.step.backward"):
+            *g_d, g_w, g_e = torch.autograd.grad(
+                loss,
+                [dense_p[k] for k in _DENSE_KEYS] + [word_rows, ent_rows])
         g_dense = dict(zip(_DENSE_KEYS, g_d))
-        rows = {
-            "word_emb": _dedup_rows(windows.reshape(-1),
-                                    g_w.reshape(-1, g_w.shape[-1])),
-            "entity_emb": _dedup_rows(ent_idx, g_e)}
+        with profiling.annotate("sert.step.dedup"):
+            rows = {
+                "word_emb": _dedup_rows(windows.reshape(-1),
+                                        g_w.reshape(-1, g_w.shape[-1])),
+                "entity_emb": _dedup_rows(ent_idx, g_e)}
+            for leaf, (ids, _, valid) in rows.items():
+                profiling.count(f"rows.slots.{leaf}", ids.shape[0])
+                profiling.count(f"rows.unique.{leaf}", valid)
 
         # The dense path's global norm: the de-duplicated rows are exactly
         # the scatter-added gradient's non-zero rows.
@@ -294,14 +303,16 @@ def make_sparse_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                            for k, g in g_dense.items()}
                 rows = {k: (ids, (g.float() * scale).to(g.dtype), valid)
                         for k, (ids, g, valid) in rows.items()}
-            opt.update(params, g_dense, state.opt_state)
-            # The schedule's value for this update: at the completed-update
-            # count, as optax's scale_by_schedule reads it.
-            lr = lr_of(state.step)
-            for leaf, (ids, g_u, valid) in rows.items():
-                st = {n: state.opt_state[_row_key(leaf, n)] for n in names}
-                _row_update(train_cfg, params[leaf], st, ids, g_u, valid, lr,
-                            state.step + 1)
+            with profiling.annotate("sert.step.optimizer"):
+                opt.update(params, g_dense, state.opt_state)
+                # The schedule's value for this update: at the completed-
+                # update count, as optax's scale_by_schedule reads it.
+                lr = lr_of(state.step)
+                for leaf, (ids, g_u, valid) in rows.items():
+                    st = {n: state.opt_state[_row_key(leaf, n)]
+                          for n in names}
+                    _row_update(train_cfg, params[leaf], st, ids, g_u, valid,
+                                lr, state.step + 1)
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": gn}
 

@@ -23,6 +23,7 @@ import torch
 
 from sert_tpu_torch.models import api
 from sert_tpu_torch.models.common import Params
+from sert_tpu_torch.utils import profiling
 from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
 
 OptState = Dict[str, object]
@@ -373,14 +374,17 @@ def micro_step_calls(micro_step, n: int):
     """``step(state, batch) -> (state, metrics)`` over ``micro_step(state,
     batch) -> metrics``: one micro-step, or with ``n > 1`` a Python loop
     over the stacked batch's leading micro-step axis, with the last
-    micro-step's metrics."""
+    micro-step's metrics. Each micro-step is a ``sert.step.micro`` span."""
     def step(state: TrainState, batch
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         if n <= 1:
-            return state, micro_step(state, batch)
+            with profiling.annotate("sert.step.micro"):
+                return state, micro_step(state, batch)
         metrics = None
         for i in range(next(iter(batch.values())).shape[0]):
-            metrics = micro_step(state, {k: v[i] for k, v in batch.items()})
+            with profiling.annotate("sert.step.micro"):
+                metrics = micro_step(state,
+                                     {k: v[i] for k, v in batch.items()})
         return state, metrics
 
     return step
@@ -423,12 +427,15 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         names = sorted(state.params)
         leaves = {n: state.params[n].detach().requires_grad_(True)
                   for n in names}
-        loss = loss_fn(leaves, batch, model_cfg,
-                       generator=state.generator, noise=noise)
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+        with profiling.annotate("sert.step.loss"):
+            loss = loss_fn(leaves, batch, model_cfg,
+                           generator=state.generator, noise=noise)
+        with profiling.annotate("sert.step.backward"):
+            grads = torch.autograd.grad(loss, [leaves[n] for n in names])
         grads = dict(zip(names, grads))
         grad_norm = global_norm(grads)
-        opt.update(state.params, grads, state.opt_state)
+        with profiling.annotate("sert.step.optimizer"):
+            opt.update(state.params, grads, state.opt_state)
         state.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 

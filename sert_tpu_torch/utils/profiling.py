@@ -1,50 +1,138 @@
 """Tracing / profiling utilities (port of ``sert_tpu/utils/profiling.py``).
 
-  * ``trace(logdir)`` — ``torch.profiler`` over a block (CPU activity, and
-    CUDA activity where a card is present), written into ``logdir`` as a
-    chrome trace (``*.pt.trace.json``; chrome://tracing, Perfetto or
-    TensorBoard's profile plugin).
-  * ``annotate(name)`` — a named region inside a trace.
+  * ``trace(logdir)`` — ``torch.profiler`` over a block (CPU activity on
+    every thread, and CUDA activity where a card is present), written into
+    ``logdir`` as a chrome trace (``*.pt.trace.json``; chrome://tracing,
+    Perfetto or TensorBoard's profile plugin), with spans and counters
+    recording.
+  * ``recording()`` — turns the program's spans and counters on; ``trace``
+    opens it around its profiler, and so can a caller's own profiler.
+  * ``annotate(name, ident=None)`` — a named span: inside a recording a
+    ``torch.profiler.record_function`` range, so the profiler puts it on
+    the clock of the device's activity and links the kernels launched
+    inside it; outside one a shared null context after one flag check (no
+    allocation, no launch, no sync), as the reference's annotation is
+    recorded only under a trace. ``ident`` joins spans across threads
+    (``span_idents``).
+  * ``count(name, value)`` / ``counters()`` — counters kept while
+    recording; a device tensor stays on the device, summed when read, so
+    a recorded step launches nothing more.
   * ``StepTimer`` — honest wall-clock step rates: it fences the device
     before reading the clock (``torch.cuda.synchronize`` on a CUDA
     argument, or a caller's fence).
+
+The program's spans are named ``sert.<layer>.<part>``: ``sert.feed.wait``
+(the consumer's queue get), ``sert.feed.put`` (the feeder thread making one
+item) with its children ``sert.feed.read`` (the host iterator) and
+``sert.feed.copy`` (``DevicePut``), ``sert.step.micro`` (one micro-step)
+with its children ``sert.step.sample``, ``sert.step.loss``,
+``sert.step.backward``, ``sert.step.dedup``, ``sert.step.fused`` and
+``sert.step.optimizer``. Counters: ``rows.slots.<table>`` and
+``rows.unique.<table>``, the lazy step's de-duplicated slots and the
+distinct rows among them.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
-from typing import Any, Iterator, Optional
+from typing import Any, Dict, Hashable, Iterator, List, Optional, Tuple
 
 import torch
 from torch.utils import _pytree
 
+_NULL = contextlib.nullcontext()
+_recording = False
+_counts: Dict[str, List[Any]] = collections.defaultdict(list)
+_idents: Dict[str, List[Tuple[int, Hashable]]] = collections.defaultdict(
+    list)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[None]:
+    """Record the program's spans and counters inside the block."""
+    global _recording
+    before, _recording = _recording, True
+    try:
+        yield
+    finally:
+        _recording = before
+
+
+def profile_all_threads() -> Dict[str, Any]:
+    """``torch.profiler.profile``'s keyword arguments that record the CPU
+    operations of every thread (the feeder's spans run on its own), where
+    this torch has the option; else none."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return {"experimental_config":
+                _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):  # pragma: no cover - older torch
+        return {}
+
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[None]:
-    """Capture a profiler trace of the block into ``logdir``; a no-op
-    where the profiler cannot start."""
+    """Capture a profiler trace of the block into ``logdir``, with spans
+    and counters recording; a no-op where the profiler cannot start."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(logdir))
-    try:
-        prof.start()
-    except RuntimeError:  # pragma: no cover - platform dependent
-        prof = None
-    try:
-        yield
-    finally:
-        if prof is not None:
-            prof.stop()
+                   on_trace_ready=tensorboard_trace_handler(logdir),
+                   **profile_all_threads())
+    with recording():
+        try:
+            prof.start()
+        except RuntimeError:  # pragma: no cover - platform dependent
+            prof = None
+        try:
+            yield
+        finally:
+            if prof is not None:
+                prof.stop()
 
 
-def annotate(name: str):
-    """Named sub-region for traces: ``with annotate("scoring"): ...``"""
+def annotate(name: str, ident: Optional[Hashable] = None):
+    """Named sub-region for traces: ``with annotate("scoring"): ...``.
+    While recording, ``ident`` is kept with the wall clock's ns at the
+    span's start (``span_idents``), so that a reader can join spans of two
+    threads that handle the same item."""
+    if not _recording:
+        return _NULL
+    if ident is not None:
+        _idents[name].append((time.time_ns(), ident))
     return torch.profiler.record_function(name)
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` to the counter ``name`` while recording: a number, or
+    a tensor whose elements are added, kept where it lives until
+    :func:`counters` sums it (so call that after each recording)."""
+    if _recording:
+        _counts[name].append(value)
+
+
+def counters() -> Dict[str, float]:
+    """Every counter's sum since the last call, as host numbers (summing
+    a device tensor waits for it); resets them."""
+    global _counts
+    kept, _counts = _counts, collections.defaultdict(list)
+    return {name: float(sum(float(v.sum()) if torch.is_tensor(v) else v
+                            for v in vals))
+            for name, vals in kept.items()}
+
+
+def span_idents() -> Dict[str, List[Tuple[int, Hashable]]]:
+    """For each span name given an ``ident`` since the last call, its
+    (wall clock ns at the start, ident) in order; resets them. Another
+    thread may be adding to them: they are swapped out, not copied."""
+    global _idents
+    kept, _idents = _idents, collections.defaultdict(list)
+    return dict(kept)
 
 
 def _fence(arg: Any) -> None:

@@ -3,6 +3,7 @@ tracing utilities (utils.profiling): the reference's TestDebug and
 TestProfiling cases (tests/test_utils.py) on the port, with the
 reference's messages and leaf names where both packages name one."""
 
+import contextlib
 import glob
 import json
 import os
@@ -182,3 +183,210 @@ class TestProfiling:
         names = {e.get("name") for e in json.load(open(files[0]))[
             "traceEvents"]}
         assert "scoring_region" in names
+
+
+# ---------------------------------------------------------------------------
+# The program's spans and counters (utils.profiling.recording)
+
+SV, SE, SD, SB, SW, SK = 97, 53, 8, 16, 5, 7
+STEP_KINDS = ("dense", "lazy", "fused")
+# Each step's spans directly inside sert.step.micro, in order.
+STEP_SPANS = {
+    "dense": ["sert.step.loss", "sert.step.backward", "sert.step.optimizer"],
+    "lazy": ["sert.step.sample", "sert.step.loss", "sert.step.backward",
+             "sert.step.dedup", "sert.step.optimizer"],
+    "fused": ["sert.step.loss", "sert.step.fused", "sert.step.backward",
+              "sert.step.optimizer"]}
+
+
+def _step_setup(kind, steps_per_call=1):
+    """(step, state, batches): a tiny LSE sampled-softmax step, dense or
+    lazy, or a log-linear fused step, with 4 host batches."""
+    from sert_tpu_torch.utils import config as port_config
+    tk = dict(batch_size=SB, learning_rate=0.05, donate_state=False,
+              steps_per_call=steps_per_call, lr_decay_steps=10)
+    if kind == "fused":
+        mcfg = port_config.ModelConfig(
+            model="loglinear", vocab_size=SV, num_entities=SE, word_dim=128,
+            fused_softmax="on")
+        tcfg = port_config.TrainConfig(optimizer="adam", fused_update="on",
+                                       **tk)
+    else:
+        mcfg = port_config.ModelConfig(
+            model="lse", vocab_size=SV, num_entities=SE, word_dim=SD,
+            entity_dim=SD, objective="sampled_softmax", num_negatives=SK,
+            negative_distribution="unigram")
+        tcfg = port_config.TrainConfig(
+            optimizer="adam", lr_schedule="cosine",
+            sparse_update="on" if kind == "lazy" else "off", **tk)
+    from sert_tpu_torch.models import lse
+    noise = (lse.noise_logits(np.arange(1, SE + 1), mcfg, "cpu")
+             if mcfg.model == "lse" else None)
+    step = port_step.make_train_step(mcfg, tcfg, noise=noise)
+    state = port_step.init_state(0, mcfg, tcfg)
+    rng = np.random.default_rng(3)
+    batches = [{"windows": rng.integers(0, SV, (SB, SW)).astype(np.int32),
+                "lengths": rng.integers(1, SW + 1, SB).astype(np.int32),
+                "entities": rng.integers(0, SE, SB).astype(np.int32)}
+               for _ in range(4)]
+    return step, state, batches
+
+
+def _spans(events):
+    """{thread: [(start, end, name)]} of the program's spans."""
+    out = {}
+    for e in events:
+        if e.name.startswith("sert."):
+            out.setdefault(e.thread, []).append(
+                (e.time_range.start, e.time_range.end, e.name))
+    return out
+
+
+def _children(spans, parent):
+    """The spans directly inside each ``parent`` span, by start."""
+    spans = sorted(spans)
+    out = []
+    for a, b, name in spans:
+        if name != parent:
+            continue
+        inner = [s for s in spans if a <= s[0] and s[1] <= b and s[2] != parent]
+        out.append([n for x, y, n in inner
+                    if not any(p[0] <= x and y <= p[1] and p != (x, y, n)
+                               for p in inner)])
+    return out
+
+
+class TestSpans:
+    @pytest.fixture(autouse=True)
+    def _fresh(self):
+        """No counter or ident left from another test's recording."""
+        profiling.counters()
+        profiling.span_idents()
+
+    def test_annotate_outside_a_recording_is_one_shared_null_context(self):
+        a, b = profiling.annotate("sert.x"), profiling.annotate("sert.y", 3)
+        assert a is b
+        with a:
+            pass
+        profiling.count("c", 5)
+        profiling.count("c", torch.ones(3, dtype=torch.bool))
+        assert profiling.counters() == {} and profiling.span_idents() == {}
+
+    def test_a_bare_profiler_records_no_program_span(self):
+        """What the benchmark's measured runs see: a profiler alone does
+        not turn the spans on."""
+        from torch.profiler import profile
+        step, state, batches = _step_setup("dense")
+        with profile() as prof:
+            step(state, {k: torch.from_numpy(v) for k, v in
+                         batches[0].items()})
+        names = {e.name for e in prof.events()}
+        assert "aten::mm" in names or "aten::matmul" in names
+        assert not [n for n in names if n.startswith("sert.")]
+
+    @pytest.mark.parametrize("kind", STEP_KINDS)
+    def test_the_step_spans_nest_in_the_micro_step(self, kind, tmp_path):
+        """Inside ``profiling.trace``, each micro-step of a call of two is
+        one ``sert.step.micro`` holding its parts in order, in the chrome
+        trace it writes."""
+        step, state, batches = _step_setup(kind, steps_per_call=2)
+        group = {k: torch.from_numpy(np.stack([b[k] for b in batches[:2]]))
+                 for k in batches[0]}
+        logdir = str(tmp_path / "trace")
+        with profiling.trace(logdir):
+            step(state, group)
+        (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        events = [e for e in json.load(open(path))["traceEvents"]
+                  if e.get("ph") == "X" and e["name"].startswith("sert.")]
+        threads = {e["tid"] for e in events}
+        assert len(threads) == 1
+        spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events]
+        assert sum(n == "sert.step.micro" for _, _, n in spans) == 2
+        assert _children(spans, "sert.step.micro") == [STEP_SPANS[kind]] * 2
+        assert not [n for _, _, n in spans
+                    if n not in STEP_SPANS[kind] + ["sert.step.micro"]]
+
+    def test_the_feeders_put_carries_the_ident_of_its_wait(self):
+        """The worker's ``sert.feed.put`` (around ``sert.feed.read`` and
+        the put function) runs on its own thread; the consumer's wait that
+        receives item i carries the ident the put of item i carried."""
+        from torch.profiler import profile
+
+        from sert_tpu_torch.data.feeder import PrefetchFeeder
+        def put_fn(i):
+            return i
+        with profiling.recording(), profile(
+                **profiling.profile_all_threads()) as prof:
+            got = list(PrefetchFeeder(iter(range(6)), put_fn=put_fn))
+        assert got == list(range(6))
+        idents = profiling.span_idents()
+        puts = [i for _, i in idents["sert.feed.put"]]
+        waits = [i for _, i in idents["sert.feed.wait"]]
+        serial = puts[0][0]
+        # Six items, then the put and the wait of the end of the stream.
+        assert puts == [(serial, i) for i in range(7)]
+        assert waits == [(serial, i) for i in range(7)]
+        spans = _spans(prof.events())
+        main = [th for th, s in spans.items()
+                if any(n == "sert.feed.wait" for _, _, n in s)]
+        assert len(main) == 1
+        if profiling.profile_all_threads():
+            worker = [th for th in spans if th != main[0]]
+            assert len(worker) == 1
+            s = spans[worker[0]]
+            assert sum(n == "sert.feed.put" for _, _, n in s) == 7
+            assert _children(s, "sert.feed.put") == \
+                [["sert.feed.read"]] * 7
+
+    def test_the_lazy_steps_row_counters_count_distinct_rows(
+            self, monkeypatch):
+        from sert_tpu_torch.models import lse
+        negs = [np.array([[1, 2, 2, 9, 50, 1, 4]]),
+                np.array([[0, 0, 0, 0, 0, 0, 0]])]
+        it = iter(negs)
+        monkeypatch.setattr(lse, "sample_negatives",
+                            lambda gen, noise, n, cfg: torch.from_numpy(
+                                next(it)).long().reshape(n, -1))
+        step, state, batches = _step_setup("lazy")
+        with profiling.recording():
+            for b in batches[:2]:
+                step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+            got = profiling.counters()
+        want = {
+            "rows.slots.word_emb": 2 * SB * SW,
+            "rows.unique.word_emb": sum(
+                torch.unique(torch.from_numpy(b["windows"])).numel()
+                for b in batches[:2]),
+            "rows.slots.entity_emb": 2 * (SB + SK),
+            "rows.unique.entity_emb": sum(
+                torch.unique(torch.from_numpy(np.concatenate(
+                    [b["entities"], n.ravel()]))).numel()
+                for b, n in zip(batches, negs))}
+        assert got == want
+        assert profiling.counters() == {}
+
+    @pytest.mark.parametrize("kind", STEP_KINDS)
+    def test_recording_leaves_the_state_bit_equal(self, kind):
+        """Three micro-steps with the spans and counters on, under a
+        profiler, give the params and optimizer state of three without."""
+        from torch.profiler import profile
+        results = []
+        for on in (False, True):
+            step, state, batches = _step_setup(kind)
+            ctx = profiling.recording() if on else contextlib.nullcontext()
+            with ctx, profile(**profiling.profile_all_threads()):
+                for b in batches[:3]:
+                    step(state, {k: torch.from_numpy(v)
+                                 for k, v in b.items()})
+            profiling.counters()
+            results.append(state)
+        off, on = results
+        assert off.step == on.step == 3
+        for tree in ("params", "opt_state"):
+            a, b = getattr(off, tree), getattr(on, tree)
+            assert a.keys() == b.keys()
+            for k in a:
+                if torch.is_tensor(a[k]):
+                    assert torch.equal(a[k], b[k]), (tree, k)
+                else:
+                    assert a[k] == b[k], (tree, k)

@@ -18,17 +18,25 @@ optimizer-in-backward step, K5 + K7, and ``--sparse-update`` its
 ``sparse_update``: "on" takes the row-sparse lazy step), e.g. the 10M
 lazy step: ``--recipe synthetic_10m_training --vocab 250000 --entities
 10000000``, and its dense step with ``--sparse-update off``,
-and feeds it seeded random batches of the recipe's shape that already sit
-on the card, so the feed is left out.
+and feeds it seeded random batches of the recipe's shape from the host
+through the loop's feed (a ``PrefetchFeeder`` copying each to the card on
+its own thread with ``DevicePut``).
 After five warm-up steps:
 
   * host clock: ``--steps`` micro-steps through ``train.step``'s step
     (dense, or fused where the config says so), ending in a synchronize:
     steps/s;
-  * ``torch.profiler`` over ten more: device time by kernel (K5/K6, K5/K7
-    or K1/K2, the optimizer's elementwise kernels, the embedding gathers
-    and their backward, the lazy step's sorts, segment sums and row
-    updates), the device's busy and idle share of the window;
+  * ``torch.profiler`` over ten more, with the program's spans and
+    counters recording (``utils.profiling.recording``): device time by
+    kernel (K5/K6, K5/K7 or K1/K2, the optimizer's elementwise kernels, the
+    embedding gathers and their backward, the lazy step's sorts, segment
+    sums and row updates), the device's busy and idle share of the window
+    (``portbench/trace.py``), and by span (``portbench/spans.py``): each
+    part's device ms and own host ms a micro-step, the idle gaps named by
+    the span the host was in (on the feeder thread too, where the step
+    waits for a batch), the feed's items that were not ready when the
+    step asked for them, and the lazy step's padding share of its
+    de-duplicated row slots, per table;
     the Chrome trace and the key-averages table go to ``--out``.
 
 Prints one JSON object as its last line. Needs a CUDA device.
@@ -44,6 +52,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -81,14 +90,16 @@ def main() -> int:
         print("profile_torch_train: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from portbench import spans, trace
     from sert_tpu_torch.cli import load_recipe
+    from sert_tpu_torch.data.feeder import DevicePut, PrefetchFeeder
     from sert_tpu_torch.models import lse
     from sert_tpu_torch.train.fused import fused_enabled
     from sert_tpu_torch.train.sparse import sparse_enabled
     from sert_tpu_torch.train.step import init_state, make_train_step
+    from sert_tpu_torch.utils import profiling
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -116,50 +127,59 @@ def main() -> int:
     step = make_train_step(mcfg, tcfg, noise=noise, device=dev)
     fused = fused_enabled(mcfg, tcfg, dev)
 
-    g = torch.Generator(device=dev).manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
     B, w = tcfg.batch_size, recipe.data.window_size
     n = args.steps + 15
-    lengths = torch.randint(w // 2, w + 1, (n, B), generator=g, device=dev)
-    windows = torch.randint(0, args.vocab, (n, B, w), generator=g,
-                            device=dev)
-    windows = windows * (torch.arange(w, device=dev) < lengths[..., None])
-    entities = torch.randint(0, args.entities, (n, B), generator=g,
-                             device=dev)
-    batches = [{"windows": windows[i].int(), "lengths": lengths[i].int(),
-                "entities": entities[i].int()} for i in range(n)]
+    lengths = rng.integers(w // 2, w + 1, (n, B))
+    windows = (rng.integers(0, args.vocab, (n, B, w))
+               * (np.arange(w) < lengths[..., None]))
+    entities = rng.integers(0, args.entities, (n, B))
+    batches = [{"windows": windows[i].astype(np.int32),
+                "lengths": lengths[i].astype(np.int32),
+                "entities": entities[i].astype(np.int32)} for i in range(n)]
+    put = DevicePut(dev)
 
-    for b in batches[:5]:
+    def fed(host):
+        with PrefetchFeeder(iter(host), put_fn=put) as feeder:
+            for staged in feeder:
+                yield put.ready(staged)
+
+    for b in fed(batches[:5]):
         step(state, b)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for b in batches[5:5 + args.steps]:
+    for b in fed(batches[5:5 + args.steps]):
         _, metrics = step(state, b)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     loss = metrics["loss"].item()
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches[5 + args.steps:]:
-            step(state, b)
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
+    profiled = 10
+    profiling.counters()
+    profiling.span_idents()
+    with profiling.recording(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            **profiling.profile_all_threads()) as prof:
+        with record_function(trace.WINDOW):
+            for b in fed(batches[5 + args.steps:]):
+                step(state, b)
+            torch.cuda.synchronize()
+    counters = profiling.counters()
+    idents = profiling.span_idents()
     prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
     ka = prof.key_averages()
     with open(os.path.join(args.out, "key_averages.txt"), "w") as fh:
         fh.write(ka.table(sort_by="device_time_total", row_limit=40))
-    # Device-side events run on one stream here, so their summed durations
-    # are the device's busy time.
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, c + 1)
-    dev_ms = sorted(((k, ms, c) for k, (ms, c) in by_name.items()),
-                    key=lambda x: -x[1])
-    busy_ms = sum(ms for _, ms, _ in dev_ms)
-    profiled = 10
+    dev = trace.read(spans.without_spans(prof), profiled)
+    by_span = spans.read(prof, profiled, idents)
+    per_step = 1e3 / profiled
+    # The lazy step's share of padding in its de-duplicated row slots.
+    rows = {t: (counters[f"rows.unique.{t}"], counters[f"rows.slots.{t}"])
+            for t in ("word_emb", "entity_emb")
+            if counters.get(f"rows.slots.{t}")}
+    if rows:
+        rows["both"] = tuple(map(sum, zip(*rows.values())))
+    padding = {t: 100.0 * (1.0 - u / n) for t, (u, n) in rows.items()}
 
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -173,15 +193,29 @@ def main() -> int:
         "steps_per_sec": args.steps / wall_s,
         "ms_per_step": wall_s * 1e3 / args.steps, "last_loss": loss,
         "profiled_steps": profiled,
-        "profiled_window_ms": window_s * 1e3,
-        "device_busy_ms_per_step": busy_ms / profiled,
-        "device_idle_share": 1 - busy_ms / (window_s * 1e3),
+        "profiled_window_ms": dev.window_s * 1e3,
+        "device_busy_ms_per_step": dev.busy_s * per_step,
+        "device_idle_share": 1 - dev.busy_s / dev.window_s,
         "device_ms_per_step_by_kernel": [
-            [k[:80], ms / profiled, c / profiled] for k, ms, c in dev_ms][:20],
+            [k[:80], s * per_step] for k, s in dev.device_ops],
+        "device_ms_per_step_by_span": {
+            k: s * per_step for k, s in by_span.span_device.items()},
+        "host_ms_per_step_by_span": {
+            k: s * per_step for k, s in by_span.span_host.items()},
+        "idle_ms_per_step_by_span": [
+            [k, s * per_step] for k, s in by_span.idle_gaps],
+        "feed_items": len(by_span.feed),
+        "feed_items_not_ready": sum(put[1] > wait[0]
+                                    for _, put, wait in by_span.feed),
+        "row_padding_pct": padding,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     }
     for key, val in result.items():
         print(f"{key}: {val}")
+    print(f"{'span':22} {'device ms':>10} {'host ms':>9}  (a micro-step)")
+    for name in sorted(set(by_span.span_device) | set(by_span.span_host)):
+        print(f"{name:22} {by_span.span_device.get(name, 0) * per_step:10.4f}"
+              f" {by_span.span_host.get(name, 0) * per_step:9.4f}")
     print(json.dumps(result))
     return 0
 
