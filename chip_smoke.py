@@ -28,6 +28,12 @@ Phases (each prints one line or more; any failure exits non-zero):
      K2 calls bit for bit at the flagship and at k=100, errors of lse,
      dreps, dC and dcorr with their tolerances, CUDA-event times of kernel
      and plain;
+  4a. adam: the dense adam kernel (ops/adam.py, one launch for all of a
+     dtype's leaves) against its plain composition bit for bit, on the
+     flagship's four fp32 leaves (V=250k and E=1M rows, proj_w, proj_b;
+     160M elements) and on the lazy step's two bf16 dense leaves, with
+     CUDA-event times of kernel and plain beside the kernel's bound (28
+     bytes an fp32 element, 14 a bf16 one, over 3.35 TB/s);
   5. serve: a random-weight synthetic_1m_retrieval checkpoint at full width
      (V=250k, E=1M) behind the port's EntitySearcher: one search, then
      200 queries; recall against an fp32 dense oracle and score agreement.
@@ -786,6 +792,69 @@ def phase_train_kernels() -> dict:
                                 library_ms=None)}
     for i, case in enumerate(SLSE_CASES):
         _slse_check("train_kernels", i, case, records, keep_times=i == 0)
+    return records
+
+
+ADAM_FLAGSHIP = [(V, D), (E, D), (D, D), (D,)]   # the flagship's leaves
+ADAM_LAZY_DENSE = [(D, D), (D,)]                 # the lazy step's dense ones
+
+
+def _adam_case(shapes, dtype):
+    """Seeded leaves (p, g, m, v) on the card, v positive, and the adam
+    constants of the third step of a 3e-3 adam."""
+    import torch
+    from sert_tpu_torch.train.step import Optimizer
+    from sert_tpu_torch.utils.config import TrainConfig
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    leaves = [tuple(
+        (scale * torch.randn(s, generator=g, device="cuda")).to(dtype)
+        for scale in (1.0, 1e-2, 1e-3, 1e-4)) for s in shapes]
+    for leaf in leaves:
+        leaf[3].abs_()
+    opt = Optimizer(TrainConfig(optimizer="adam", learning_rate=3e-3))
+    return leaves, opt._adam_consts(dtype, 3e-3, 1 - opt.B1 ** 3,
+                                    1 - opt.B2 ** 3)
+
+
+def phase_adam_kernel() -> dict:
+    """The dense adam kernel against ``adam_plain`` on the same leaves
+    and constants, bit for bit: its record is the flagship's four fp32
+    leaves (its launches are the main paths', counted by ``on_path``)."""
+    import torch
+    from sert_tpu_torch.ops import adam
+    records = {}
+    for variant, dtype, shapes in (
+            ("flagship_f32", torch.float32, ADAM_FLAGSHIP),
+            ("lazy_dense_bf16", torch.bfloat16, ADAM_LAZY_DENSE)):
+        leaves, k = _adam_case(shapes, dtype)
+        twin = [tuple(t.clone() for t in leaf) for leaf in leaves]
+        n = adam.launches
+        adam.adam_update(leaves, lambda dt: k)
+        for leaf in twin:
+            adam.adam_plain(*leaf, k)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for x, y in zip(leaves, twin)
+                   for a, b in zip(x, y))
+        if adam.launches != n + 1 or not same:
+            raise AssertionError(f"adam {variant}: launches "
+                                 f"{adam.launches - n}, bit-equal {same}")
+        ms = cuda_ms(lambda: adam.adam_update(leaves, lambda dt: k))
+        plain_ms = cuda_ms(lambda: [adam.adam_plain(*leaf, k)
+                                    for leaf in twin])
+        moved = 7 * sum(nbytes(leaf[0]) for leaf in leaves)
+        b = bound(0, moved, "float32")
+        say("adam", variant=variant, bit_equal=same, ms=ms,
+            plain_ms=plain_ms, bytes=moved, **b,
+            bound_share=b["bound_ms"] / ms)
+        if variant == "flagship_f32":
+            records["adam_update"] = dict(
+                name="adam_update", route="cuda",
+                source="sert_tpu_torch/csrc/adam.cu",
+                replaces="none: optax's adam, which XLA fuses",
+                launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=None, **b)
+        del leaves, twin
+        torch.cuda.empty_cache()
     return records
 
 
@@ -3914,7 +3983,8 @@ def phase_mesh_fused_tp(records: dict) -> dict:
                              "FUSED_PARITY_RTOL")
     mcfg, tcfg, window = _ab_configs()
     smi = card()
-    launches = {"xent_fwd": 0, "xent_bwd": 0, "xent_bwd_apply": 0}
+    launches = {"xent_fwd": 0, "xent_bwd": 0, "xent_bwd_apply": 0,
+                "adam_update": 0}
     for cfg, steps in ((mcfg, MESH_FUSED_STEPS),
                        (mcfg.replace(compute_dtype="float32"),
                         MESH_FUSED_F32_STEPS)):
@@ -4277,6 +4347,19 @@ def _mesh_fallback(root: str) -> dict:
     return launches
 
 
+def on_path(phase, *args):
+    """``phase(*args)``, a main path, with the adam kernel's launches in
+    this process counted from 0 and added to the launches by kernel that
+    it returns (its last item where it returns a tuple): every training
+    path's dense update takes the kernel, so no phase counts it alone."""
+    from sert_tpu_torch.ops import adam
+    adam.launches = 0
+    out = phase(*args)
+    launches = out[-1] if isinstance(out, tuple) else out
+    launches["adam_update"] = launches.get("adam_update", 0) + adam.launches
+    return out
+
+
 def main() -> int:
     import sert_tpu_torch  # noqa: F401  (fails outside a checkout)
     import torch
@@ -4285,45 +4368,51 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     records.update(phase_train_kernels())
+    records.update(phase_adam_kernel())
     records.update(phase_xent_kernels())
     records.update(phase_xent_apply_kernels())
     with tempfile.TemporaryDirectory() as root:
-        data_dir, run_dir, topics, oracle_top, launches = phase_serve(root)
+        data_dir, run_dir, topics, oracle_top, launches = on_path(
+            phase_serve, root)
         torch.cuda.empty_cache()
         phase_cli(root, data_dir, run_dir, topics, oracle_top)
-        data_dir, run_dir, topics, qrels, train_launches = phase_train(root)
-        launches.update(train_launches)
+        data_dir, run_dir, topics, qrels, train_launches = on_path(
+            phase_train, root)
+        for name, n in train_launches.items():
+            launches[name] = launches.get(name, 0) + n
         searcher = phase_serve_trained(root, data_dir, run_dir, topics,
                                        qrels)
         # Each path's launches are counted from 0 over that path alone;
         # a kernel's record sums the paths it serves.
-        paths = [phase_serve_engines(root, data_dir, run_dir, topics,
-                                     searcher),
-                 phase_cli_scoring(root, data_dir, run_dir, topics, qrels,
-                                   searcher),
-                 phase_serve_foldin(searcher, topics),
-                 phase_serve_http(searcher, topics)]
+        paths = [on_path(phase_serve_engines, root, data_dir, run_dir,
+                         topics, searcher),
+                 on_path(phase_cli_scoring, root, data_dir, run_dir, topics,
+                         qrels, searcher),
+                 on_path(phase_serve_foldin, searcher, topics),
+                 on_path(phase_serve_http, searcher, topics)]
         del searcher
         torch.cuda.empty_cache()
-        paths += [phase_train_loglinear(root),
-                  phase_serve_http_loglinear(root), phase_report(root),
-                  phase_train_fused(root), phase_train_adafactor(root),
-                  phase_train_lse_full(root)]
-        recipe_10m, data_10m, run_10m, topics_10m, launches_10m = (
-            phase_train_10m(root))
+        paths += [on_path(phase_train_loglinear, root),
+                  on_path(phase_serve_http_loglinear, root),
+                  on_path(phase_report, root),
+                  on_path(phase_train_fused, root),
+                  on_path(phase_train_adafactor, root),
+                  on_path(phase_train_lse_full, root)]
+        recipe_10m, data_10m, run_10m, topics_10m, launches_10m = on_path(
+            phase_train_10m, root)
         paths += [launches_10m,
-                  phase_serve_10m(recipe_10m, data_10m, run_10m, topics_10m,
-                                  records)]
+                  on_path(phase_serve_10m, recipe_10m, data_10m, run_10m,
+                          topics_10m, records)]
         phase_sparse_ab_10m(recipe_10m, data_10m)
         phase_sparse_resume(root, data_dir)
-        paths.append(phase_packed_feed(root, data_dir))
+        paths.append(on_path(phase_packed_feed, root, data_dir))
         phase_debug(root, data_dir)
-        paths.append(phase_nce_tiny(root))
-        paths.append(phase_fused_ab())
+        paths.append(on_path(phase_nce_tiny, root))
+        paths.append(on_path(phase_fused_ab))
         phase_mesh_kernels(records)
-        paths.append(phase_mesh_fused_tp(records))
-        paths.append(phase_mesh_nccl(root, data_dir, data_10m, run_10m,
-                                     topics_10m))
+        paths.append(on_path(phase_mesh_fused_tp, records))
+        paths.append(on_path(phase_mesh_nccl, root, data_dir, data_10m,
+                             run_10m, topics_10m))
         for path in paths:
             for name, n in path.items():
                 launches[name] = launches.get(name, 0) + n

@@ -52,6 +52,10 @@ _SIGNATURES = {
                             + [_F] * 4 + [_I] + [_P]),
     "sert_xent_wgmma_apply": ([_P] * 11 + [_I] * 4 + [_L] + [_I] * 5
                               + [_F] * 4 + [_I] + [_P]),
+    "sert_adam_update_f32": [_P, _I] + [_F] * 9 + [_I, _P] + [_F] * 2 + [_P],
+    "sert_adam_update_bf16": [_P, _I] + [_F] * 9 + [_I, _P] + [_F] * 2 + [_P],
+    "sert_adam_update_bf16_f32grad": ([_P, _I] + [_F] * 9 + [_I, _P]
+                                      + [_F] * 2 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -53,11 +53,12 @@ def _tensors(d, device="cpu") -> Dict[str, torch.Tensor]:
 
 def _launches() -> Dict[str, int]:
     """The kernels' launch counts so far in this process."""
-    from sert_tpu_torch.ops import sampled_lse, xent
+    from sert_tpu_torch.ops import adam, sampled_lse, xent
     return {"sampled_lse_fwd": sampled_lse.fwd_launches,
             "sampled_lse_bwd": sampled_lse.bwd_launches,
             "xent_fwd": xent.fwd_launches, "xent_bwd": xent.bwd_launches,
-            "xent_bwd_apply": xent.apply_launches}
+            "xent_bwd_apply": xent.apply_launches,
+            "adam_update": adam.launches}
 
 
 def _since(before: Dict[str, int]) -> Dict[str, int]:

@@ -23,6 +23,7 @@ import torch
 
 from sert_tpu_torch.models import api
 from sert_tpu_torch.models.common import Params
+from sert_tpu_torch.ops import adam
 from sert_tpu_torch.utils import profiling
 from sert_tpu_torch.utils.config import ModelConfig, TrainConfig
 
@@ -162,7 +163,8 @@ class Optimizer:
     (after), as ``sert_tpu.train.step.make_optimizer`` chains them.
     adafactor is ``optax.adafactor(lr, multiply_by_parameter_scale=False,
     clipping_threshold=None)``: the factored second moment alone, no
-    momentum. :meth:`update` changes the params and the state in place.
+    momentum. :meth:`update` changes the params and the state in place,
+    adam's on a CUDA device in one kernel launch (``ops.adam``).
     ``shards`` (a mesh step's :class:`ShardInfo`): the norm and the
     factored statistics reduce over the sharded axes."""
 
@@ -253,14 +255,28 @@ class Optimizer:
         col_factor = v_col ** -0.5
         return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
 
+    def _adam_consts(self, dtype: torch.dtype, lr: float, bc1: float,
+                     bc2: float) -> adam.Consts:
+        c = functools.partial(scalar, dtype=dtype)
+        return adam.Consts(
+            b1=c(self.B1), c1=c(1 - self.B1), b2=c(self.B2),
+            c2=c(1 - self.B2), bc1=c(bc1), bc2=c(bc2), eps=c(self.EPS),
+            neg_lr=c(-lr),
+            neg_decay=c(-self.decay) if self.decay > 0 else None,
+            clip_below=self.clip, clip=c(self.clip))
+
     @torch.no_grad()
     def update(self, params: Params, grads: Params, state: OptState) -> None:
-        if self.clip > 0:
-            norm = global_norm(grads, self.shards)
-            keep = norm < self.clip
-            grads = {n: torch.where(keep, g, g / norm.to(g.dtype)
-                                    * scalar(self.clip, g.dtype))
-                     for n, g in grads.items()}
+        """adam's leaves on a CUDA device go to its kernel, which clips
+        them itself; the rest are clipped first. Records the counters
+        ``optimizer.leaves.kernel`` (leaves that adam's kernel updated) and
+        ``optimizer.leaves.plain`` (the rest)."""
+        norm = global_norm(grads, self.shards) if self.clip > 0 else None
+        card = ([n for n in grads if params[n].is_cuda]
+                if self.kind == "adam" else [])
+        plain = {n: g for n, g in grads.items() if n not in card}
+        if norm is not None:
+            plain = clip_by_norm(plain, norm, self.clip)
         if self.scheduled:
             count = state[self._key("[1].count")]
             lr = self.lr(count)
@@ -271,8 +287,13 @@ class Optimizer:
             count = state[self._key("[0].count")] + 1
             state[self._key("[0].count")] = count
         if self.kind == "adam":
-            bc1 = 1.0 - self.B1 ** count
-            bc2 = 1.0 - self.B2 ** count
+            consts = functools.partial(
+                self._adam_consts, lr=lr, bc1=1.0 - self.B1 ** count,
+                bc2=1.0 - self.B2 ** count)
+            adam.adam_update(
+                [(params[n], grads[n], state[self._key("[0].mu", n)],
+                  state[self._key("[0].nu", n)]) for n in card],
+                consts, norm)
         elif self.kind == "adafactor":
             # optax's _decay_rate_pow of the count before this update, in
             # fp32; as host floats, so no copy to the device waits on it.
@@ -280,16 +301,17 @@ class Optimizer:
                                          dtype=torch.float32) \
                 ** -self.DECAY_RATE
             decay, keep = float(decay_t), float(1.0 - decay_t)
-        for n, g in grads.items():
+        profiling.count("optimizer.leaves.kernel", len(card))
+        profiling.count("optimizer.leaves.plain", len(plain))
+        for n, g in plain.items():
             p = params[n]
             c = functools.partial(scalar, dtype=g.dtype)
             if self.kind == "adam":
-                mu = state[self._key("[0].mu", n)]
-                nu = state[self._key("[0].nu", n)]
-                mu.mul_(c(self.B1)).add_(g * c(1 - self.B1))
-                nu.mul_(c(self.B2)).add_(g * g * c(1 - self.B2))
-                u = (mu / c(bc1)) / (torch.sqrt(nu / c(bc2)) + c(self.EPS))
-            elif self.kind == "adagrad":
+                adam.adam_plain(p, g, state[self._key("[0].mu", n)],
+                                state[self._key("[0].nu", n)],
+                                consts(g.dtype))
+                continue
+            if self.kind == "adagrad":
                 sos = state[self._key("[0].sum_of_squares", n)]
                 sos.add_(g * g)
                 inv = torch.where(sos > 0, torch.rsqrt(
@@ -300,12 +322,22 @@ class Optimizer:
                 u = self._factored_rms(n, g, state, decay, keep)
             else:
                 u = g
-            # adam's scale(-lr), or adafactor's scale(lr) then scale(-1):
-            # a negation is exact, so one product either way.
+            # scale(-lr), or adafactor's scale(lr) then scale(-1): a
+            # negation is exact, so one product either way.
             u = u * c(-lr)
             if self.decay > 0:
                 u = u + p * c(-self.decay)
             p.add_(u.to(p.dtype))
+
+
+def clip_by_norm(grads: Params, norm: torch.Tensor, clip: float) -> Params:
+    """optax.clip_by_global_norm: each gradient where ``norm`` (their
+    global norm, an fp32 0-d tensor) is below ``clip``, else
+    ``g / norm * clip``, in the gradient's dtype."""
+    keep = norm < clip
+    return {n: torch.where(keep, g, g / norm.to(g.dtype)
+                           * scalar(clip, g.dtype))
+            for n, g in grads.items()}
 
 
 @functools.lru_cache(maxsize=1024)

@@ -14,6 +14,9 @@
     allocation, no launch, no sync), as the reference's annotation is
     recorded only under a trace. ``ident`` joins spans across threads
     (``span_idents``).
+  * ``launch(name)`` — inside a recording, a profiler operation around a
+    kernel launched through ctypes, so that the trace links the kernel to
+    the span it was launched in; outside one the shared null context.
   * ``count(name, value)`` / ``counters()`` — counters kept while
     recording; a device tensor stays on the device, summed when read, so
     a recorded step launches nothing more.
@@ -29,7 +32,9 @@ with its children ``sert.step.sample``, ``sert.step.loss``,
 ``sert.step.backward``, ``sert.step.dedup``, ``sert.step.fused`` and
 ``sert.step.optimizer``. Counters: ``rows.slots.<table>`` and
 ``rows.unique.<table>``, the lazy step's de-duplicated slots and the
-distinct rows among them.
+distinct rows among them; ``optimizer.leaves.kernel`` and
+``optimizer.leaves.plain``, the leaves that adam's kernel updated and the
+rest.
 """
 
 from __future__ import annotations
@@ -106,6 +111,20 @@ def annotate(name: str, ident: Optional[Hashable] = None):
     if ident is not None:
         _idents[name].append((time.time_ns(), ident))
     return torch.profiler.record_function(name)
+
+
+def launch(name: str):
+    """A profiler operation named ``name`` around a kernel launched through
+    ctypes, which no torch operation holds: while recording, one of the
+    function scope (``RecordFunctionFast``, as torch's own compiled kernels
+    are launched inside), so that the profiler links the kernel to it and
+    a reader to the span around it; a ``record_function`` range is of the
+    user scope, to which the profiler links no kernel. Outside a recording
+    the shared null context."""
+    if not _recording:
+        return _NULL
+    from torch._C._profiler import _RecordFunctionFast
+    return _RecordFunctionFast(name)
 
 
 def count(name: str, value) -> None:

@@ -361,7 +361,10 @@ class TestSpans:
             "rows.unique.entity_emb": sum(
                 torch.unique(torch.from_numpy(np.concatenate(
                     [b["entities"], n.ravel()]))).numel()
-                for b, n in zip(batches, negs))}
+                for b, n in zip(batches, negs)),
+            # The dense leaves' adam, proj_w and proj_b, on the CPU.
+            "optimizer.leaves.kernel": 0,
+            "optimizer.leaves.plain": 2 * 2}
         assert got == want
         assert profiling.counters() == {}
 

@@ -35,8 +35,9 @@ After five warm-up steps:
     part's device ms and own host ms a micro-step, the idle gaps named by
     the span the host was in (on the feeder thread too, where the step
     waits for a batch), the feed's items that were not ready when the
-    step asked for them, and the lazy step's padding share of its
-    de-duplicated row slots, per table;
+    step asked for them, the lazy step's padding share of its
+    de-duplicated row slots, per table, and each counter a micro-step
+    (``optimizer.leaves.kernel``: leaves the adam kernel updated);
     the Chrome trace and the key-averages table go to ``--out``.
 
 Prints one JSON object as its last line. Needs a CUDA device.
@@ -208,6 +209,7 @@ def main() -> int:
         "feed_items_not_ready": sum(put[1] > wait[0]
                                     for _, put, wait in by_span.feed),
         "row_padding_pct": padding,
+        "counters_per_step": {k: v / profiled for k, v in counters.items()},
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     }
     for key, val in result.items():

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Device time by kernel of the full-softmax kernels (K5 forward, K6
 backward, K7 backward with the optimizer update), of the sampled-softmax
-kernels (K1 forward, K2 backward) and of the serving kernels (K3 score +
-bin max, K4 rescore), and of their plain versions, at chip_smoke.py's
-shapes, on one card.
+kernels (K1 forward, K2 backward), of the serving kernels (K3 score +
+bin max, K4 rescore) and of the dense adam, and of their plain versions,
+at chip_smoke.py's shapes, on one card.
 
     python tools/profile_torch_xent.py [--kernel fwd|bwd|apply|slse_fwd|
-        slse_bwd|binmax|rescore] [--cases cerc w3c ...] [--opt adam]
+        slse_bwd|binmax|rescore|adam] [--cases cerc w3c ...] [--opt adam]
         [--calls 20]
 
 For each case, seeded inputs on the card (chip_smoke's ``_xent_case``, and
@@ -47,7 +47,12 @@ allocates beyond what was allocated before it.
   (``kernel``, ``plain``; the shared-bins rows, 66 MB, then partly stay in
   the 50 MB L2), each is profiled after K3's sweep, as the serving path
   runs it (``kernel_after_k3``: K3 then K4 a call, the device time summed
-  over K4's own kernels; no event time).
+  over K4's own kernels; no event time);
+- ``adam``: the dense adam kernel (``ops.adam.adam_update``, one launch a
+  call) against ``adam_plain`` on each leaf, on the flagship's four fp32
+  leaves (``flagship``: 250k x 128, 1M x 128, 128 x 128, 128) and on the
+  lazy step's two bf16 dense leaves (``lazy_dense``), each case's bound
+  first (p, g, m and v read and p, m and v written once, over 3.35 TB/s).
 The device times leave out the host's launch work, which the event times
 hold; on a host slow to launch, small shapes are host-bound. Each kernel's
 line gives its records in the trace: a count that is not a multiple of
@@ -109,6 +114,10 @@ RESCORE_CASES = {   # name: (bins, row dtype)
     "shared_fp32": ("shared", "float32"),
     "shared_bf16": ("shared", "bfloat16"),
 }
+ADAM_CASES = {   # name: (dtype, chip_smoke's leaf shapes)
+    "flagship": ("float32", "ADAM_FLAGSHIP"),
+    "lazy_dense": ("bfloat16", "ADAM_LAZY_DENSE"),
+}
 DEFAULT_CASES = {
     "fwd": ["cerc", "w3c_ragged", "cerc_bf16", "lse_full_128k",
             "lse_full_flagship"],
@@ -119,6 +128,7 @@ DEFAULT_CASES = {
     "slse_bwd": list(SLSE_CASES),
     "binmax": [c for c in BINMAX_CASES if c not in WIDE_BINMAX],
     "rescore": list(RESCORE_CASES),
+    "adam": list(ADAM_CASES),
 }
 _serving = {}
 PLAIN_MAX_LOGITS = 1 << 30     # [B, E] fp32 entries the plain version may hold
@@ -218,12 +228,29 @@ def serving_calls(kernel: str, name: str, with_plain: bool):
     return out
 
 
+def adam_calls(name: str, with_plain: bool):
+    """[(label, fn)] of the dense adam on chip_smoke's seeded leaves;
+    prints the case's bound."""
+    import chip_smoke
+    from sert_tpu_torch.ops import adam
+    dtype, shapes = ADAM_CASES[name]
+    leaves, k = chip_smoke._adam_case(getattr(chip_smoke, shapes),
+                                      getattr(torch, dtype))
+    moved = 7 * sum(t.numel() * t.element_size() for t, *_ in leaves)
+    print(f"adam {name} bytes={moved} bound_ms={moved / 3.35e12 * 1e3:.4f}")
+    return [("kernel", lambda: adam.adam_update(leaves, lambda dt: k)),
+            ("plain", lambda: [adam.adam_plain(*leaf, k)
+                               for leaf in leaves])][:1 + with_plain]
+
+
 def calls_of(kernel: str, name: str, opt: str, with_plain: bool):
     """[(label, fn)] of the kernel's call and, with ``with_plain``, its
     plain version's, on the case's seeded inputs."""
     import chip_smoke
     if kernel in ("binmax", "rescore"):
         return serving_calls(kernel, name, with_plain)
+    if kernel == "adam":
+        return adam_calls(name, with_plain)
     from sert_tpu_torch.ops import sampled_lse as slse
     from sert_tpu_torch.ops import xent
     from sert_tpu_torch.ops.sampled_lse import _compute_dtype
@@ -300,7 +327,8 @@ def main() -> int:
     ap.add_argument("--kernel", choices=sorted(DEFAULT_CASES), default="bwd")
     ap.add_argument("--cases", nargs="*",
                     choices=sorted(CASES) + sorted(SLSE_CASES)
-                    + sorted(BINMAX_CASES) + sorted(RESCORE_CASES))
+                    + sorted(BINMAX_CASES) + sorted(RESCORE_CASES)
+                    + sorted(ADAM_CASES))
     ap.add_argument("--opt", default="adam", choices=["adam", "adagrad",
                                                       "sgd"])
     ap.add_argument("--calls", type=int, default=20)
@@ -318,7 +346,7 @@ def main() -> int:
            "kernel": args.kernel, "opt": args.opt}
     serving = args.kernel in ("binmax", "rescore")
     for name in args.cases or DEFAULT_CASES[args.kernel]:
-        if serving:
+        if serving or args.kernel == "adam":
             B, E, calls = 1, 1, args.calls
         else:
             B, E = (SLSE_CASES if args.kernel.startswith("slse") else
