@@ -10,7 +10,7 @@ import time
 import pytest
 import torch
 
-from portbench import calibrate, check, run
+from portbench import calibrate, check, host, run
 from portbench.tests.portbench_cells import TINY, make_root
 
 CELLS = sorted(TINY)
@@ -134,8 +134,24 @@ def test_the_control_is_not_correct(root, cell):
 def test_traced_run_reports_its_spans(root, cell):
     out = _run(root, cell, trace=True)
     assert out["correct"]
-    # The CPU has no device trace and no device allocator: only the host
-    # spans' and the state's metrics remain.
-    assert set(out["metrics"]) == {"feed_wait_ms", "step_enqueue_ms",
-                                   "state_gib"}
+    # The CPU has no device trace and no device allocator: only the
+    # state's metric remains; the window's host spans are in the record.
+    assert set(out["metrics"]) == {"state_gib"}
     assert out["device"]["busy_s"] == 0.0
+    spans = out["spans"]
+    assert spans["micro_steps"] > 0 and spans["window_s"] > 0
+    assert 0 < spans["feed_wait_s"] + spans["step_enqueue_s"] \
+        <= spans["window_s"]
+
+
+def test_the_record_holds_the_windows_host_cpu_time(root):
+    """``host_cpu_ms`` (the process's CPU clock around the window) agrees
+    with the threads' CPU time that ``/proc`` kept for the same window, to
+    10 % and the ticks ``/proc`` counts in."""
+    out = _run(root, CELLS[0], seed=9)
+    h, n = out["host"], out["spans"]["micro_steps"]
+    assert h["host_cpu_ms"] > 0 and "main" in h["threads"]
+    tol = 0.1 * h["host_cpu_ms"] + 3e3 * host.TICK_S / n
+    assert abs(h["host_cpu_ms"] - h["process_cpu_ms"]) <= tol
+    assert h["process_cpu_ms"] == pytest.approx(
+        h["threads_cpu_ms"] + h["ended_threads_cpu_ms"])

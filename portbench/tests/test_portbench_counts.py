@@ -48,8 +48,6 @@ def _view(kernel_list, busy=0.05, window=1.0, micro=10):
                                device_ops=[], idle_gaps=[])
     return types.SimpleNamespace(
         device=device,
-        spans={"window_s": 2.0, "micro_steps": 200, "calls": 50,
-               "feed_wait_s": 0.01, "step_enqueue_s": 0.4},
         dims={"batch_size": B, "num_negatives": K, "word_dim": D,
               "entity_dim": D, "compute_dtype": "bfloat16"},
         memory={"peak": 3 * 2 ** 30, "init_peak": 2 ** 30, "state": 2 ** 29},
@@ -68,27 +66,19 @@ def test_readers_on_a_made_up_trace():
                ("elementwise", 1e-3)]
     view = _view(ks)
     read = {n: reader(REPO, n)(view) for n in (
-        "k1_roofline", "k2_roofline", "launches_per_step", "device_idle_pct",
-        "feed_wait_ms", "step_enqueue_ms", "train_mfu_pct",
+        "k1_roofline", "k2_roofline", "launches_per_step",
         "k1_roofline.lazy", "device_mfu_pct", "step_device_ms",
-        "train_windows_per_s", "peak_mem_gib", "setup_s", "init_peak_gib",
-        "state_gib")}
+        "peak_mem_gib", "setup_s", "init_peak_gib", "state_gib")}
     assert read["k1_roofline"] == pytest.approx(100 * 3.4743e-5 / 1e-4,
                                                 rel=1e-3)
     assert read["k2_roofline"] == pytest.approx(100 * 6.9487e-5 / 2.5e-4,
                                                 rel=1e-3)
     assert read["launches_per_step"] == 4.0
-    assert read["device_idle_pct"] == pytest.approx(50.0)
-    assert read["feed_wait_ms"] == pytest.approx(0.05)
-    assert read["step_enqueue_ms"] == pytest.approx(2.0)
-    assert read["train_mfu_pct"] == pytest.approx(
-        100 * 1.0348e11 * 200 / (2.0 * 989e12), rel=1e-3)
-    # The device works 5 ms of each micro-step's 10 in the window.
+    # The device works 50 ms over the trace's 10 micro-steps.
     assert read["step_device_ms"] == pytest.approx(5.0)
     assert read["device_mfu_pct"] == pytest.approx(
         100 * 1.0348e11 / (5e-3 * 989e12), rel=1e-3)
     assert read["k1_roofline.lazy"] == read["k1_roofline"]
-    assert read["train_windows_per_s"] == pytest.approx(200 * B / 2.0)
     assert (read["peak_mem_gib"], read["init_peak_gib"], read["state_gib"],
             read["setup_s"]) == (3.0, 1.0, 0.5, 12.5)
 
@@ -101,8 +91,8 @@ def test_readers_find_nothing_to_read_without_their_kernels():
     view = _view([(_sweep(2), 1e-4)] * 2 + [(_sweep(1), 1e-4)])
     assert reader(REPO, "k2_roofline")(view) is None
     view.device = None
-    for n in ("k1_roofline", "launches_per_step", "device_idle_pct",
-              "train_mfu_pct", "step_device_ms", "device_mfu_pct"):
+    for n in ("k1_roofline", "launches_per_step", "step_device_ms",
+              "device_mfu_pct"):
         assert reader(REPO, n)(view) is None
 
 

@@ -141,3 +141,16 @@ def test_run_refuses_without_a_cuda_device():
     assert got.returncode != 0
     assert got.stdout.strip() == ""
     assert "CUDA" in got.stderr
+
+
+def test_both_cells_are_held_to_their_device_time():
+    """Each cell's per-layer metrics move a metric the device's trace or
+    allocator reads, none the host's clock."""
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    for work in bench["workloads"]:
+        cell = spec.find_cell(REPO, work["name"])
+        e2e = {m["name"] for m in cell.end_to_end}
+        assert e2e == {"step_device_ms", "peak_mem_gib", "setup_s"}
+        moved = {m["moves"] for m in cell.per_layer}
+        assert moved == {"step_device_ms", "peak_mem_gib"}
+        assert "device_mfu_pct" in {m["name"] for m in cell.per_layer}

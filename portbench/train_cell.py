@@ -15,9 +15,11 @@ reads the loss back every ``log_every_steps`` as the loop does, runs epoch
 after epoch, and ends with a synchronize. The loop's snapshots are left
 out.
 
-A ``torch.profiler`` trace of ``PROFILED_CALLS`` calls follows the window
-where the run is traced or the cell has an end-to-end metric read from
-the device's trace; a traced run also records the harness's host spans.
+Over the window, ``host.WindowProbe`` records what the host's threads did
+(the run's ``record``, not a metric). A ``torch.profiler`` trace of
+``PROFILED_CALLS`` calls follows the window where the run is traced or the
+cell has an end-to-end metric read from the device's trace; a traced run
+also records the harness's host spans.
 Once the program's state is freed, the plain reference (``reference.py``)
 follows the micro-steps of both groups from the same weights, batches and
 candidates, and ``check.py`` compares the two.
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from portbench import check, fixture, reference, weights
+from portbench.host import WindowProbe
 from portbench.spec import Cell
 
 PROFILED_CALLS = 25      # calls in the traced window
@@ -368,11 +371,13 @@ def reference_steps(s: Setup, host: List[Dict[str, np.ndarray]],
 
 
 def window(s: Setup, state, step, feed: EpochFeed, seconds: float,
-           profiler=None) -> Dict[str, float]:
-    """Call the step group after group for ``seconds``, then synchronize.
+           profiler=None, probe=None) -> Dict[str, float]:
+    """Call the step group after group for ``seconds``, then synchronize;
+    ``cpu_s`` is the process's CPU seconds over it, every thread counted.
     Under ``profiler`` (the traced window), each call's feed, step and
     loss read are spans of their own, and the window is ``calls`` calls
-    long instead."""
+    long instead. ``probe`` (a ``host.WindowProbe``) looks at the host's
+    threads now and then."""
     from torch.profiler import record_function
     nothing = contextlib.nullcontext()
     log_every = s.tcfg.log_every_steps
@@ -381,6 +386,7 @@ def window(s: Setup, state, step, feed: EpochFeed, seconds: float,
     feed_s = step_s = 0.0
     marks: List[float] = []
     _sync(s.device)
+    cpu0 = time.process_time()
     t0 = time.perf_counter()
     while True:
         with record_function("portbench.feed") if profiler else nothing:
@@ -401,10 +407,13 @@ def window(s: Setup, state, step, feed: EpochFeed, seconds: float,
                 failed += micro - last_log
             last_log = micro
             marks.append(time.perf_counter() - t0)
+        if probe is not None:
+            probe.tick(c - t0)
         if (calls >= PROFILED_CALLS if profiler else c - t0 >= seconds):
             break
     _sync(s.device)
-    return {"window_s": time.perf_counter() - t0, "micro_steps": micro,
+    return {"window_s": time.perf_counter() - t0,
+            "cpu_s": time.process_time() - cpu0, "micro_steps": micro,
             "calls": calls, "feed_wait_s": feed_s, "step_enqueue_s": step_s,
             "failed": failed, "log_reads_s": marks}
 
@@ -468,7 +477,11 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         _sync(s.device)
         marks["warm_up"] = time.perf_counter()
         setup_s = marks["warm_up"] - t_start
-        spans = window(s, state, step, feed, seconds)
+        probe = WindowProbe(seconds, cell.chips)
+        probe.start()
+        spans = window(s, state, step, feed, seconds, probe=probe)
+        on_host = probe.stop(spans["micro_steps"])
+        on_host["host_cpu_ms"] = 1e3 * spans["cpu_s"] / spans["micro_steps"]
         memory["peak"] = (torch.cuda.max_memory_allocated(s.device)
                           if s.device.type == "cuda" else 0)
         dev_trace = (traced_window(s, state, step, feed)
@@ -487,7 +500,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
            "failed": spans["failed"], "checks": checks,
            "memory_peak_bytes": memory["peak"],
            "view": View(s, spans, dev_trace, memory, setup_s),
-           "record": {"spans": spans,
+           "record": {"spans": spans, "host": on_host,
                       "setup_phases_s": _phases(t_start, marks),
                       "losses": {"program": prog_steps.losses,
                                  "reference": ref.losses}}}
